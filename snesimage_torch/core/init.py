@@ -1,12 +1,12 @@
 """Initialization stage: tile->subpalette assignment and palette k-means.
 
-Counterpart of snesimage_tpu/core/init.py in RGB mode (src/lib.rs:79-189,
-330-415): per-tile mean colors over opaque pixels (tiles whose channel
-sum is zero excluded), k-means of tile means into subpalettes, flat-filled
-initial palettes, and per-subpalette pixel k-means. Pixels are visited in
-the reference's x-outer / y-inner tile order, which fixes the first-k
-k-means seeding. Perceptual and NES palettes are not ported yet (ROADMAP
-queue A items 12-13).
+Counterpart of snesimage_tpu/core/init.py (src/lib.rs:79-189, 330-415):
+per-tile mean colors over opaque pixels (tiles whose channel sum is zero
+excluded), k-means of tile means into subpalettes, flat-filled initial
+palettes, and per-subpalette pixel k-means. The k-means runs on RGB, or on
+CIELAB with `perceptual_palettes`. Pixels are visited in the reference's
+x-outer / y-inner tile order, which fixes the first-k k-means seeding. NES
+palettes are not ported yet (ROADMAP queue A item 12).
 """
 
 from __future__ import annotations
@@ -16,7 +16,11 @@ import torch
 
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.core.state import QuantState
-from snesimage_torch.ops.color import round_half_away_nonneg
+from snesimage_torch.ops.color import (
+    lab_to_srgb_u8,
+    round_half_away_nonneg,
+    srgb_u8_to_lab,
+)
 from snesimage_torch.ops.kmeans import lloyd_kmeans
 
 
@@ -41,10 +45,9 @@ def _tile_init_order(config: QuantConfig) -> np.ndarray:
 
 
 def _check_rgb_mode(config: QuantConfig) -> None:
-    if config.perceptual_palettes or config.nes:
+    if config.nes:
         raise NotImplementedError(
-            "perceptual and NES palettes are not ported yet "
-            "(ROADMAP queue A items 12-13)"
+            "NES palettes are not ported yet (ROADMAP queue A item 12)"
         )
 
 
@@ -59,9 +62,20 @@ def tile_pixels(
     return state.rgb[rows, cols], state.alpha[rows, cols] > 0
 
 
-def _quantize_center(center: torch.Tensor) -> torch.Tensor:
-    """RGB cluster mean -> 5-bit color: round(mean / 8) half away from
-    zero, clipped to 31 (src/lib.rs:140-171, 368-401)."""
+def _color_coords(rgb_u8: torch.Tensor, perceptual: bool) -> torch.Tensor:
+    """Clustering coordinates: CIELAB in perceptual mode, raw RGB otherwise
+    (src/lib.rs:100-111, 343-359)."""
+    if perceptual:
+        return srgb_u8_to_lab(rgb_u8)
+    return rgb_u8.to(torch.float32)
+
+
+def _quantize_center(center: torch.Tensor, perceptual: bool) -> torch.Tensor:
+    """Cluster mean -> 5-bit color (src/lib.rs:140-171, 368-401): a Lab
+    mean goes to 8-bit sRGB and is truncated by `// 8`; an RGB mean is
+    rounded, round(mean / 8) half away from zero, and clipped to 31."""
+    if perceptual:
+        return lab_to_srgb_u8(center) // 8
     return round_half_away_nonneg(center / 8.0).to(torch.int32).clamp(0, 31)
 
 
@@ -73,12 +87,14 @@ def assign_tiles(state: QuantState, config: QuantConfig) -> QuantState:
     if config.subpalette_count == 1:
         return state
     rgb, opaque = tile_pixels(state, config)
-    coords = rgb.to(torch.float32)  # (T, 64, 3)
+    coords = _color_coords(rgb, config.perceptual_palettes)  # (T, 64, 3)
     w = opaque.to(torch.float32).unsqueeze(-1)
-    sums = (coords * w).sum(1)  # (T, 3), exact: integer values
+    sums = (coords * w).sum(1)  # (T, 3), exact for RGB: integer values
     counts = opaque.sum(1).to(torch.float32)
     means = sums / counts.clamp(min=1.0).unsqueeze(-1)
-    valid = sums.sum(-1) > 0.0  # reference guard, src/lib.rs:118
+    # The reference guard (src/lib.rs:118), copied as it is: in Lab the
+    # sums can be negative, and such tiles are excluded too.
+    valid = sums.sum(-1) > 0.0
 
     km = lloyd_kmeans(
         means,
@@ -89,7 +105,7 @@ def assign_tiles(state: QuantState, config: QuantConfig) -> QuantState:
     tp = torch.where(valid, km.assignments, 0).reshape(
         config.height_tiles, config.width_tiles
     )
-    colors5 = _quantize_center(km.centers)  # (C, 3)
+    colors5 = _quantize_center(km.centers, config.perceptual_palettes)
     palette = (
         colors5[:, None, :]
         .expand(config.subpalette_count, config.subpalette_size, 3)
@@ -103,11 +119,13 @@ def recalculate_palettes(state: QuantState, config: QuantConfig) -> QuantState:
     (src/lib.rs:330-415 minus the final remap), all subpalettes batched."""
     _check_rgb_mode(config)
     rgb, opaque = tile_pixels(state, config)
-    coords = rgb.to(torch.float32).reshape(-1, 3)
+    coords = _color_coords(rgb, config.perceptual_palettes).reshape(-1, 3)
     tile_of_pixel = state.tile_palettes.reshape(-1).repeat_interleave(64)
     palettes = torch.arange(
         config.subpalette_count, dtype=torch.int32, device=state.device
     )
     masks = (tile_of_pixel[None, :] == palettes[:, None]) & opaque.reshape(-1)
     km = lloyd_kmeans(coords, masks, config.subpalette_size)
-    return state.replace(palette=_quantize_center(km.centers))
+    return state.replace(
+        palette=_quantize_center(km.centers, config.perceptual_palettes)
+    )

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-into one shared library with a plain C interface, loaded through ctypes.
-The library lands in ``snesimage_torch/build/`` under a name keyed by a
-hash of the sources and flags, so an edit rebuilds and a second process
-reuses the build. Nothing builds at import: the first call of `library()`
-does, and it raises when no ``nvcc`` is found. Every C entry point
-launches on the stream it is given and returns ``cudaGetLastError()``;
-`check` turns a non-zero code into an exception.
+Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a``,
+all of them at once in parallel processes, and the objects link into one
+shared library with a plain C interface, loaded through ctypes. The
+library lands in ``snesimage_torch/build/`` under a name keyed by a hash of
+the sources and flags, so an edit rebuilds and a second process reuses the
+build. Nothing builds at import: the first call of `library()` does, and it
+raises when no ``nvcc`` is found. Every C entry point launches on the
+stream it is given and returns ``cudaGetLastError()``; `check` turns a
+non-zero code into an exception.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 MAX_SCALES = 6
 
@@ -85,6 +86,10 @@ _SIGNATURES = {
     "snes_coarse_redmean": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
+    "snes_coarse_ciede": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P,
+    ),
 }
 
 
@@ -112,26 +117,45 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into build/ unless this exact build exists;
-    returns the library's path. The compiler's resource report (``-Xptxas
-    -v``) is kept beside it as a .log file."""
+    returns the library's path. One nvcc process per source, all started
+    together, then one link. The compiler's resource report (``-Xptxas
+    -v``) is kept beside the library as a .log file."""
     lib = BUILD_DIR / f"libsnesimage_kernels_{_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), *NVCC_FLAGS, "-o", tmp,
-        *(str(p) for p in sorted(SRC_DIR.glob("*.cu"))),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            jobs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log, failed = [], []
+        for name, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(f"== {name} (rc {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if not failed:
+            so = Path(tmp) / "lib.so"
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(so),
+                 *(str(obj) for _, obj, _ in jobs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+            if link.returncode != 0:
+                failed.append("link")
+        lib.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed for {', '.join(failed)}:\n"
+                + "".join(log)[-4000:]
+            )
+        os.replace(so, lib)
     return lib
 
 

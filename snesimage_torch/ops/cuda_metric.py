@@ -1,4 +1,4 @@
-"""SSIMULACRA2 feature kernels B and C and their plain twins.
+"""SSIMULACRA2 feature kernels B, C and D and their plain twins.
 
 Counterparts of snesimage_tpu/ops/pallas_metric.py:
 
@@ -12,8 +12,14 @@ Counterparts of snesimage_tpu/ops/pallas_metric.py:
   frame and the raw sums of its scales. Twin: the JAX package's XLA chain
   (pallas_prescreen.py `_pooled_wins_redmean_xla`, the coarse frame of
   core/refine.py, then kernel B's twin).
+- `coarse_feature_sums_ciede` (kernel D, csrc/coarse_ciede.cu): kernel C
+  for perceptual mode. The win mask compares each pixel's CIEDE2000
+  distance to the candidate (csrc/ciede2000.cuh, the standard formula of
+  ops/color.py) with the float tie rule, and the distance planes are
+  returned too. Twin: ops/color.py `ciede2000`, the same pooling and
+  kernel B's twin.
 
-Both return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
+All return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
 the pixel count and the fourth root stay in `finalize_feature_sums`. On a
 CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor it
 runs the twin. Each wrapper counts its launches in ``.launches``.
@@ -26,6 +32,7 @@ import ctypes
 import torch
 
 from snesimage_torch.ops import _kernels
+from snesimage_torch.ops.color import ciede2000
 from snesimage_torch.ops.ssimulacra2 import (
     downsample2,
     feature_maps,
@@ -151,11 +158,19 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):
 multiscale_feature_sums.launches = 0
 
 
-def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):
+def _coarse_frames(wins, cand_lin, ml, ds4_l):
     """(B, 3, H/4, W/4) exact quarter-resolution candidate frames
-    ds4(L) + (c * pool4(m) - pool4(m * ML)) / 16."""
-    b = cand8.shape[0]
-    h, w = tg.shape[-2:]
+    ds4(L) + (c * pool4(m) - pool4(m * ML)) / 16 from (B, H, W) masks."""
+    b, h, w = wins.shape
+    m = wins.to(torch.float32)
+    maps = torch.cat([m[:, None], m[:, None] * ml[None]], dim=1)
+    pooled = maps.reshape(b, 4, h // 4, 4, w // 4, 4).sum(dim=(3, 5))
+    return (
+        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
+    ) / 16.0 + ds4_l[None]
+
+
+def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):
     d = cand8[:, :, None, None] - tg[None]  # (B, 3, H, W) int32
     rsum = tg[0][None] + cand8[:, 0, None, None]
     dist = (
@@ -163,12 +178,7 @@ def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):
         + 2048 * d[:, 1] * d[:, 1]
         + (1534 - rsum) * d[:, 2] * d[:, 2]
     )
-    m = (dist < bva[None]).to(torch.float32)
-    maps = torch.cat([m[:, None], m[:, None] * ml[None]], dim=1)
-    pooled = maps.reshape(b, 4, h // 4, 4, w // 4, 4).sum(dim=(3, 5))
-    return (
-        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
-    ) / 16.0 + ds4_l[None]
+    return _coarse_frames(dist < bva[None], cand_lin, ml, ds4_l)
 
 
 def _triples(flat_refs):
@@ -183,25 +193,33 @@ def _coarse_plain(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     return sums.reshape(cand8.shape[0], -1, 6)
 
 
+def _coarse_geometry(name, h, w, flat_refs, fallback):
+    """Checks the frame size one of the coarse kernels takes; returns the
+    reference triples of its scales."""
+    if h % 32 or w % 32:
+        raise NotImplementedError(
+            f"kernel {name} takes 32-aligned frames, not {h}x{w}; other "
+            f"geometries need {fallback}"
+        )
+    if (h // 4) * (w // 4) > RESIDENT_MAX_PIXELS:
+        raise NotImplementedError(
+            f"kernel {name} keeps the quarter-resolution frame in shared "
+            f"memory; {h}x{w} is larger than 256x256"
+        )
+    triples = _triples(flat_refs)
+    for si, t in enumerate(triples):
+        if tuple(t[0].shape[-2:]) != (h >> (2 + si), w >> (2 + si)):
+            raise ValueError(f"coarse scale {2 + si} has the wrong size")
+    return triples
+
+
 def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     dev = tg.device
     b = cand8.shape[0]
     h, w = bva.shape
-    if h % 32 or w % 32:
-        raise NotImplementedError(
-            f"kernel C takes 32-aligned frames, not {h}x{w}; other "
-            "geometries need pooled_wins_redmean (ROADMAP queue B item 4)"
-        )
-    if (h // 4) * (w // 4) > RESIDENT_MAX_PIXELS:
-        raise NotImplementedError(
-            f"kernel C keeps the quarter-resolution frame in shared memory; "
-            f"{h}x{w} is larger than 256x256"
-        )
-    triples = _triples(flat_refs)
+    triples = _coarse_geometry(
+        "C", h, w, flat_refs, "pooled_wins_redmean (ROADMAP queue B item 4)")
     n = len(triples)
-    for si, t in enumerate(triples):
-        if tuple(t[0].shape[-2:]) != (h >> (2 + si), w >> (2 + si)):
-            raise ValueError(f"coarse scale {2 + si} has the wrong size")
     ptrs = [
         _kernels.require(tg, "tg", torch.int32, (3, h, w), dev),
         _kernels.require(cand8, "cand8", torch.int32, (b, 3), dev),
@@ -243,3 +261,71 @@ def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
 
 
 coarse_feature_sums_redmean.launches = 0
+
+
+def _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
+                        flat_refs):
+    dcand = ciede2000(tlab.movedim(0, -1)[None],
+                      cand_lab[:, None, None, :])  # (B, H, W)
+    wins = (dcand < bvalm[None]) | ((dcand == bvalm[None]) & (adj[None] != 0))
+    frames = _coarse_frames(wins, cand_lin, ml, ds4_l)
+    sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames)
+    return sums.reshape(cand_lab.shape[0], -1, 6), dcand
+
+
+def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
+                       flat_refs):
+    dev = tlab.device
+    b = cand_lab.shape[0]
+    h, w = bvalm.shape
+    triples = _coarse_geometry(
+        "D", h, w, flat_refs, "pooled_wins_ciede (ROADMAP queue B item 6)")
+    n = len(triples)
+    ptrs = [
+        _kernels.require(tlab, "tlab", torch.float32, (3, h, w), dev),
+        _kernels.require(cand_lab, "cand_lab", torch.float32, (b, 3), dev),
+        _kernels.require(cand_lin, "cand_lin", torch.float32, (b, 3), dev),
+        _kernels.require(bvalm, "bvalm", torch.float32, (h, w), dev),
+        _kernels.require(adj, "adj", torch.int32, (h, w), dev),
+        _kernels.require(ml, "ml", torch.float32, (3, h, w), dev),
+        _kernels.require(ds4_l, "ds4_l", torch.float32, (3, h // 4, w // 4),
+                         dev),
+    ]
+    if any(p % 16 for p in (ptrs[0], ptrs[3], ptrs[4], ptrs[5])):
+        raise ValueError(
+            "kernel D reads tlab, bvalm, adj and ml as 16-byte vectors")
+    refs = _ref_pyramid(triples, dev)
+    out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
+    dcand = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    rc = _kernels.library().snes_coarse_ciede(
+        *ptrs, ctypes.addressof(refs), 0, n, 1, b, h, w,
+        ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
+        dcand.data_ptr(), _kernels.stream(dev),
+    )
+    _kernels.check(rc, "coarse_ciede")
+    coarse_feature_sums_ciede.launches += 1
+    return out.reshape(b, 3 * n, 6), dcand
+
+
+def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
+                              flat_refs):
+    """Fused coarse prescreen, CIEDE2000 path.
+
+    tlab: (3, H, W) float32 target CIELAB planes; cand_lab: (B, 3) float32
+    candidate CIELAB; cand_lin: (B, 3) float32 their linear colours;
+    bvalm: (H, W) float32 best distance without the candidate's slot,
+    -3e38 where the candidate may not win; adj: (H, W) int32, non-zero
+    where the candidate wins ties. A candidate wins a pixel where
+    d < bvalm, or d == bvalm and adj != 0, with d = ciede2000(target Lab,
+    candidate Lab). ml, ds4_l and flat_refs as for
+    `coarse_feature_sums_redmean`.
+    Returns ((B, 3 * n_scales, 6) raw sums, (B, H, W) float32 distances).
+    """
+    if tlab.is_cuda:
+        return _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml,
+                                  ds4_l, flat_refs)
+    return _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml,
+                               ds4_l, flat_refs)
+
+
+coarse_feature_sums_ciede.launches = 0

@@ -1,10 +1,10 @@
 """Pixel -> palette-entry remap and linear frame rendering.
 
-Counterpart of snesimage_tpu/ops/remap.py, undithered red-mean path: the
-remap is a per-pixel argmin over the pixel's subpalette with the exact
-int32 red-mean distance, ties to the lowest entry index (the reference's
-strict-less-than scan, src/lib.rs:780-792); transparent pixels map to 0
-and render as black.
+Counterpart of snesimage_tpu/ops/remap.py, undithered path: the remap is
+a per-pixel argmin over the pixel's subpalette with the exact int32
+red-mean distance, or CIEDE2000 in perceptual mode (src/lib.rs:780-792),
+ties to the lowest entry index (the reference's strict-less-than scan);
+transparent pixels map to 0 and render as black.
 """
 
 from __future__ import annotations
@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 
 from snesimage_torch.ops.color import (
+    ciede2000,
     expand_5bit_to_8bit,
     red_mean_sq_scaled,
+    srgb_u8_to_lab,
     srgb_u8_to_linear,
 )
 
@@ -24,11 +26,23 @@ def tile_pixel_map(tile_palettes: torch.Tensor) -> torch.Tensor:
 
 
 def entry_distances(
-    target_u8: torch.Tensor, sub_entries8: torch.Tensor
+    target_u8: torch.Tensor,
+    tile_palettes: torch.Tensor,
+    palette5: torch.Tensor,
+    perceptual: bool = False,
 ) -> torch.Tensor:
-    """(..., S) scaled red-mean distances from (..., 3) targets to their
-    (..., S, 3) subpalette entries (int32)."""
-    return red_mean_sq_scaled(sub_entries8, target_u8.unsqueeze(-2))
+    """(H, W, S) distances from each (H, W, 3) 8-bit target pixel to the
+    entries of its own subpalette: int32 scaled red-mean, or float32
+    CIEDE2000 when `perceptual`."""
+    entries8 = expand_5bit_to_8bit(palette5)  # (C, S, 3)
+    tp_pix = tile_pixel_map(tile_palettes).long()
+    target_u8 = target_u8.to(torch.int32).unsqueeze(-2)
+    if perceptual:
+        # The (C, S) entry table goes to Lab once, then is gathered. The
+        # reference's order: color_distance_cielab(entry, target).
+        return ciede2000(srgb_u8_to_lab(entries8)[tp_pix],
+                         srgb_u8_to_lab(target_u8))
+    return red_mean_sq_scaled(entries8[tp_pix], target_u8)
 
 
 def remap_undithered(
@@ -36,11 +50,10 @@ def remap_undithered(
     alpha: torch.Tensor,
     tile_palettes: torch.Tensor,
     palette5: torch.Tensor,
+    perceptual: bool = False,
 ) -> torch.Tensor:
     """Nearest-entry remap with zero accumulated error: (H, W) int32."""
-    entries8 = expand_5bit_to_8bit(palette5)  # (C, S, 3)
-    sub = entries8[tile_pixel_map(tile_palettes).long()]  # (H, W, S, 3)
-    d = entry_distances(original_rgb.to(torch.int32), sub)
+    d = entry_distances(original_rgb, tile_palettes, palette5, perceptual)
     idx = torch.argmin(d, dim=-1).to(torch.int32)
     return torch.where(alpha > 0, idx, 0)
 

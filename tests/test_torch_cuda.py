@@ -1,15 +1,17 @@
-"""Kernels A, B and C against their plain twins on a CUDA card, at shapes
-beyond the main path's (which chip_smoke.py covers). Marked `cuda`: they
-skip where no card is present. On the card:
+"""Kernels A, B, C and D against their plain twins on a CUDA card, at
+shapes beyond the main paths' (which chip_smoke.py covers). Marked `cuda`:
+they skip where no card is present. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-A is exact; B and C agree within 2e-4 on finalised features."""
+A is exact; B, C and D agree within 2e-4 on finalised features, and D's
+distance planes within 1e-4 (absolute plus relative)."""
 
 import pytest
 import torch
 
 from snesimage_torch.ops import cuda_metric, cuda_prescreen
+from snesimage_torch.ops.color import srgb_u8_to_lab, srgb_u8_to_linear
 from snesimage_torch.ops.ssimulacra2 import (
     finalize_feature_sums,
     reference_pyramid,
@@ -17,6 +19,7 @@ from snesimage_torch.ops.ssimulacra2 import (
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4
+DISTANCE_TOL = 1e-4
 
 
 @pytest.fixture
@@ -26,10 +29,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, tol=TOL):
     diff = (got - want).abs()
     assert bool(torch.isfinite(got).all())
-    assert bool((diff <= TOL + TOL * want.abs()).all()), float(diff.max())
+    assert bool((diff <= tol + tol * want.abs()).all()), float(diff.max())
 
 
 @pytest.mark.parametrize("h,w,k", [(256, 256, 120), (64, 96, 7), (8, 8, 240)])
@@ -44,10 +47,10 @@ def test_select_colors(dev, h, w, k):
     assert torch.equal(got, cuda_prescreen._select_colors_plain(key, table))
 
 
-def _pyramid(dev, size, seed):
+def _pyramid(dev, size, seed, width=None):
     g = torch.Generator(device=dev).manual_seed(seed)
-    ref = torch.randint(0, 256, (size, size, 3), generator=g, device=dev,
-                        dtype=torch.int32)
+    ref = torch.randint(0, 256, (size, width or size, 3), generator=g,
+                        device=dev, dtype=torch.int32)
     return reference_pyramid(ref), g
 
 
@@ -99,6 +102,58 @@ def test_coarse_feature_sums_redmean(dev, size, b):
     _close(finalize_feature_sums(got, sizes, 2),
            finalize_feature_sums(want, sizes, 2))
     assert torch.equal(got[-1], got[0])
+
+
+def _coarse_ciede_args(dev, h, w, b, seed):
+    refp, g = _pyramid(dev, h, seed, width=w)
+    rgb = torch.randint(0, 256, (h, w, 3), generator=g, device=dev,
+                        dtype=torch.int32)
+    cand8 = torch.randint(0, 256, (b, 3), generator=g, device=dev,
+                          dtype=torch.int32)
+    cand8[-1] = cand8[0]
+    bvalm = torch.rand((h, w), generator=g, device=dev) * 60.0
+    bvalm[:8] = -3.0e38  # masked rows
+    # exact ties with the first candidate, won only where adj is set
+    ties = slice(8, 12)
+    adj = torch.randint(0, 2, (h, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    tlab = srgb_u8_to_lab(rgb).permute(2, 0, 1).contiguous()
+    cand_lab = srgb_u8_to_lab(cand8)
+    lnc = torch.rand((3, h, w), generator=g, device=dev)
+    args = [tlab, cand_lab, srgb_u8_to_linear(cand8), bvalm, adj,
+            torch.where(bvalm[None] > 0, lnc, 0.0),
+            lnc.reshape(3, h // 4, 4, w // 4, 4).mean(dim=(2, 4)).contiguous(),
+            tuple(a.permute(2, 0, 1) for s in range(2, 6) for a in refp[s])]
+    d0 = cuda_metric._coarse_ciede_plain(*args)[1][0]
+    bvalm[ties] = d0[ties]
+    return args
+
+
+@pytest.mark.parametrize("h,w,b", [(64, 96, 7), (256, 256, 1), (128, 128, 48)])
+def test_coarse_feature_sums_ciede(dev, h, w, b):
+    args = _coarse_ciede_args(dev, h, w, b, h + w + b)
+    sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
+    before = cuda_metric.coarse_feature_sums_ciede.launches
+    sums, dcand = cuda_metric.coarse_feature_sums_ciede(*args)
+    assert cuda_metric.coarse_feature_sums_ciede.launches == before + 1
+    want_sums, want_d = cuda_metric._coarse_ciede_plain(*args)
+    assert dcand.shape == (b, h, w)
+    _close(dcand, want_d, DISTANCE_TOL)
+    _close(finalize_feature_sums(sums, sizes, 2),
+           finalize_feature_sums(want_sums, sizes, 2))
+    assert torch.equal(sums[-1], sums[0])
+    again = cuda_metric.coarse_feature_sums_ciede(*args)
+    assert torch.equal(sums, again[0]) and torch.equal(dcand, again[1])
+
+
+def test_coarse_feature_sums_ciede_rejects_uneven_frames(dev):
+    args = _coarse_ciede_args(dev, 64, 64, 2, 3)
+    crop = [args[0][:, :48, :48].contiguous(), args[1], args[2],
+            args[3][:48, :48].contiguous(), args[4][:48, :48].contiguous(),
+            args[5][:, :48, :48].contiguous(), args[6][:, :12, :12].contiguous(),
+            args[7]]
+    with pytest.raises(NotImplementedError, match="queue B item 6"):
+        cuda_metric.coarse_feature_sums_ciede(*crop)
 
 
 def test_wrappers_reject_bad_operands(dev):

@@ -63,7 +63,7 @@ def test_run_fused_cuda_without_a_card_raises(small_image):
     "change",
     [
         dict(dither=True),
-        dict(perceptual_palettes=True),
+        dict(perceptual_palettes=True, dither=True),
         dict(nes=True),
         dict(gate_margin=0.01, converge_tol=0.5),
         dict(schedule="reference"),

@@ -85,11 +85,14 @@ def test_visit_parity(small_image, p, i, channel, ties):
     d_all_t = tref.compute_d_all(ts, tc)
     np.testing.assert_array_equal(d_all_t.numpy(), np.asarray(d_all_j))
     t_err, t_map, t_dall = tref._undithered_machinery(ts, tc, p, i, d_all_t)
-    got = t_err(trefp, torch.from_numpy(cand5), carried_base=True).numpy()
+    got, dists = t_err(trefp, torch.from_numpy(cand5), carried_base=True)
+    got = got.numpy()
 
+    ctx = tref.slot_context(ts, tc, p, i, d_all_t)
+    c8 = expand_5bit_to_8bit(torch.from_numpy(cand5))
+    np.testing.assert_array_equal(dists(torch.arange(len(c8))).numpy(),
+                                  ctx.cand_dist(c8).numpy())
     if ties:
-        ctx = tref.slot_context(ts, tc, p, i, d_all_t)
-        c8 = expand_5bit_to_8bit(torch.from_numpy(cand5))
         no_win = [
             not bool((ctx.affected & ctx.opaque & ctx.wins(
                 red_mean_sq_scaled(ctx.target_u8, c))).any())
@@ -101,14 +104,14 @@ def test_visit_parity(small_image, p, i, channel, ties):
     np.testing.assert_allclose(got[np.isfinite(got)], want[np.isfinite(want)],
                                rtol=0, atol=VISIT_ERR_TOL)
 
+    # The port's final_map and new_d_all take the colour's distance plane.
     for color in [cand5[int(np.argmin(want))], cand5[5], FAR[0]]:
+        dist = ctx.cand_dist(expand_5bit_to_8bit(torch.from_numpy(color)))
         np.testing.assert_array_equal(
-            t_map(torch.from_numpy(color)).numpy(),
-            np.asarray(j_map(jnp.asarray(color))),
+            t_map(dist).numpy(), np.asarray(j_map(jnp.asarray(color))),
         )
         np.testing.assert_array_equal(
-            t_dall(torch.from_numpy(color)).numpy(),
-            np.asarray(j_dall(jnp.asarray(color))),
+            t_dall(dist).numpy(), np.asarray(j_dall(jnp.asarray(color))),
         )
 
 

@@ -1,18 +1,24 @@
 """Where the time of the port's main paths goes on one CUDA card.
 
-    python3 profile_torch.py
+    python3 profile_torch.py [phase ...]
 
-Runs on the bench image (bench._test_image(0)) with the balanced and the
-perceptual profiles of chip_smoke.py, after a warm-up run. The phases
-print one JSON line each, profiles last:
+Runs on the bench image (snesimage_torch.testing.bench_image(0)) with the
+balanced, perceptual and dithered profiles of chip_smoke.py, after a
+warm-up run. With no arguments every phase runs; with arguments, only the
+phases named (kernels, seeds, parity, walk, profile). The phases print one
+JSON line each, profiles last:
 
+  kernels  device time per call, from CUDA events around 20 launches, of
+           kernel G (red-mean and perceptual, B = 48 and B = 1) and of
+           kernel B at each call shape of the undithered and the dithered
+           visit;
   profile  one channel sweep (360 visits) under torch.profiler, once per
            profile: the device's busy time (the union of its kernel and
            copy intervals), its idle share of the sweep's host-clock time
            (the same sweep unprofiled, timed before any profiler ran),
            device operations per visit, device time by kernel, and device
-           time per wrapper call of kernels A, B and C (balanced) or A, B
-           and D (perceptual);
+           time per wrapper call of kernels A, B and C (balanced), A, B
+           and D (perceptual) or A, B and G (dithered);
   seeds    the balanced run's step and final errors for seeds 0, 1, 2;
   parity   once per profile, the run with channel_explore=0 (no random
            draws) for 2 steps on the card, and the same run with the
@@ -25,7 +31,8 @@ print one JSON line each, profiles last:
            CPU; then the first explore-off sweep visit by visit, each visit
            run on the card and, from a CPU copy of the card's state, with
            the twins, listing the visits whose distance planes, finalists,
-           pick or cache differ.
+           pick or cache differ; and the first 45 visits of the dithered
+           sweep the same way (palette maps, finalists, pick).
 """
 
 from __future__ import annotations
@@ -37,7 +44,16 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import BALANCED, ERROR_TOL, PERCEPTUAL
+from chip_smoke import (
+    BALANCED,
+    DITHER,
+    DITHER_PERCEPTUAL,
+    ERROR_TOL,
+    PERCEPTUAL,
+    kernel_wrappers,
+    prepared_state,
+    visit_candidates,
+)
 
 # Device kernels of each wrapper (csrc/*.cu), by the name the profiler shows.
 KERNEL_OF = {
@@ -48,9 +64,11 @@ KERNEL_OF = {
     "resident_kernel": "multiscale_feature_sums",
     "coarse_redmean_kernel": "coarse_feature_sums_redmean",
     "coarse_ciede_kernel": "coarse_feature_sums_ciede",
+    "dither_remap_kernel": "dither_remap_candidates",
 }
 SEEDS = (0, 1, 2)
 PARITY_STEPS = 2
+WALK_DITHER_VISITS = 45  # the first subpalette; a CPU twin visit takes seconds
 
 
 def _prepared(img, config, device="cuda"):
@@ -63,15 +81,56 @@ def _prepared(img, config, device="cuda"):
     return state, refp, refine.frame_error_fused(state, config, refp)
 
 
-def _wrappers():
-    from snesimage_torch.ops import cuda_metric, cuda_prescreen
+def _device_ms(fn, runs: int = 20) -> float:
+    """Device time of fn() per call: CUDA events around `runs` launches."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
 
-    return {
-        "select_colors": cuda_prescreen.select_colors,
-        "multiscale_feature_sums": cuda_metric.multiscale_feature_sums,
-        "coarse_feature_sums_redmean": cuda_metric.coarse_feature_sums_redmean,
-        "coarse_feature_sums_ciede": cuda_metric.coarse_feature_sums_ciede,
-    }
+
+def phase_kernels(img):
+    """Device ms per call of kernels G and B at the paths' call shapes."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_dither, cuda_metric
+
+    out = {"phase": "kernels", "dither_remap_candidates": {},
+           "multiscale_feature_sums": {}}
+    for label, params in (("red-mean", DITHER),
+                          ("perceptual", DITHER_PERCEPTUAL)):
+        state, config = prepared_state(img, params)
+        cand5 = visit_candidates(state)
+        common = (state.rgb, state.alpha, state.tile_palettes, state.palette)
+        for shape, args in (("B=48", (0, 0, cand5)),
+                            ("B=1", (-1, 0, cand5[:1]))):
+            out["dither_remap_candidates"][f"{label}, {shape}"] = _device_ms(
+                lambda: cuda_dither.dither_remap_candidates(
+                    *common, *args, config.perceptual_palettes),
+                runs=20 if label == "red-mean" else 5)
+        if label == "red-mean":
+            refp = refine.make_reference_pyramid(state)
+            maps = cuda_dither.dither_remap_candidates(*common, 0, 0, cand5)
+            frames = refine.candidate_frames_dithered(state, config, 0, 0,
+                                                      cand5, maps)
+            for shape, fr, start, n, pre_ds in (
+                    ("B=1, n=6", frames[:1], 0, 6, 0),
+                    ("B=8, pre_ds=1, n=1", frames[:8], 1, 1, 1),
+                    ("B=2, n=1", frames[:2], 0, 1, 0),
+                    ("B=4, n=1", frames[:4], 0, 1, 0),
+                    ("B=48, pre_ds=2, n=4", frames, 2, 4, 2)):
+                refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
+                             for s in range(n))
+                fr = fr.contiguous()
+                out["multiscale_feature_sums"][shape] = _device_ms(
+                    lambda: cuda_metric.multiscale_feature_sums(
+                        refs, fr, pre_ds=pre_ds))
+    return out
 
 
 def _union_ms(intervals) -> float:
@@ -109,7 +168,7 @@ def phase_profile(label: str, config, sweep, wall: float):
     from torch.profiler import ProfilerActivity, profile
 
     visits = config.subpalette_count * config.subpalette_size * 3
-    wrappers = _wrappers()
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -260,29 +319,102 @@ def phase_walk(img, params: dict):
     return out
 
 
+def phase_walk_dither(img, params: dict, visits: int):
+    """The first `visits` explore-off visits of a dithered sweep, each run
+    on the card (kernels G, A, B) and, from a CPU copy of the card's state,
+    with the twins: where the maps, the finalists or the pick differ."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import refine
+
+    config = QuantConfig(**dict(params, channel_explore=0))
+    card, refp, err = _prepared(img, config)
+    cpu, refp_cpu, _ = _prepared(img, config, "cpu")
+    out = {"phase": "walk_dither", "visits": visits,
+           "same_init": torch.equal(card.palette_map.cpu(), cpu.palette_map)
+           and torch.equal(card.palette.cpu(), cpu.palette)}
+    s, parted, accepted = config.subpalette_size, [], 0
+    for k in range(visits):
+        p, i, channel = k // (s * 3), (k // 3) % s, k % 3
+        twin_state = cpu.replace(tile_palettes=card.tile_palettes.cpu(),
+                                 palette=card.palette.cpu(),
+                                 palette_map=card.palette_map.cpu())
+        results = []
+        for state, pyramid, base in ((card, refp, err),
+                                     (twin_state, refp_cpu, err.cpu())):
+            current = state.palette[p, i]
+            cand5 = current[None].repeat(32, 1)
+            cand5[:, channel] = torch.arange(32, dtype=torch.int32,
+                                             device=current.device)
+            errs, maps = refine._candidate_errors_dithered(
+                state, config, pyramid, p, i, cand5)
+            nxt, nerr, _ = refine._pick(
+                lambda *_, **__: (errs, lambda ix: maps[ix]), lambda pm: pm,
+                None, state, None, pyramid, cand5, current, base, p, i,
+                config.accept_margin)
+            results.append((errs.cpu(), maps.cpu(), nxt, nerr))
+        (errs, maps, nxt, nerr), (errs_c, maps_c, nxt_c, _) = results
+        rec = {
+            "visit": k,
+            "map_pixels_differing": int((maps != maps_c).sum()),
+            "same_finalists": torch.equal(torch.isfinite(errs),
+                                          torch.isfinite(errs_c)),
+            "same_palette": torch.equal(nxt.palette.cpu(), nxt_c.palette),
+            "same_map": torch.equal(nxt.palette_map.cpu(), nxt_c.palette_map),
+        }
+        accepted += int(not torch.equal(nxt.palette, card.palette))
+        if rec["map_pixels_differing"] or not all(
+                rec[key] for key in ("same_finalists", "same_palette",
+                                     "same_map")):
+            rec["finalist_errors"] = {
+                name: {j: float(e[j]) for j in
+                       torch.nonzero(torch.isfinite(e)).flatten().tolist()}
+                for name, e in (("card", errs), ("cpu", errs_c))}
+            parted.append(rec)
+        card, err = nxt, nerr
+    out.update(accepted=accepted, parted=parted)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device is available", file=sys.stderr)
         return 1
-    from bench import _test_image
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline
+    from snesimage_torch.testing import bench_image
 
-    img = _test_image(0)
-    profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL}
+    phases = set(sys.argv[1:]) or {"kernels", "seeds", "parity", "walk",
+                                   "profile"}
+    img = bench_image(0)
+    profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
+                "dither": DITHER}
     for params in profiles.values():  # build and warm up
         pipeline.run_fused(img, QuantConfig(**dict(params, max_steps=1)),
                            device="cuda")
-    sweeps = {label: _sweeper(img, p) for label, p in profiles.items()}
-    # Every unprofiled time is taken before any profiler has run.
-    walls = {label: sweep() for label, (_, sweep) in sweeps.items()}
+    sweeps, walls = {}, {}
+    if "profile" in phases:
+        sweeps = {label: _sweeper(img, p) for label, p in profiles.items()}
+        # Every unprofiled time is taken before any profiler has run.
+        walls = {label: sweep() for label, (_, sweep) in sweeps.items()}
+    # The explore-off parity runs again on the CPU with the twins; the
+    # dithered twin takes too long there for whole sweeps at full size, so
+    # the dithered path is walked over its first visits only.
+    todo = [
+        ("kernels", lambda: phase_kernels(img)),
+        ("seeds", lambda: phase_seeds(img, SEEDS)),
+        *(("parity", lambda label=label, p=p: phase_parity(
+            img, label, p, PARITY_STEPS))
+          for label, p in profiles.items() if label != "dither"),
+        ("walk", lambda: phase_walk(img, PERCEPTUAL)),
+        ("walk", lambda: phase_walk_dither(img, DITHER, WALK_DITHER_VISITS)),
+        *(("profile", lambda label=label: phase_profile(
+            label, *sweeps[label], walls[label])) for label in sweeps),
+    ]
     ok = True
-    for out in (phase_seeds(img, SEEDS),
-                *(phase_parity(img, label, p, PARITY_STEPS)
-                  for label, p in profiles.items()),
-                phase_walk(img, PERCEPTUAL),
-                *(phase_profile(label, *sweeps[label], walls[label])
-                  for label in profiles)):
+    for name, run in todo:
+        if name not in phases:
+            continue
+        out = run()
         print(json.dumps(out), flush=True)
         ok = ok and out.get("ok", True)
     return 0 if ok else 1

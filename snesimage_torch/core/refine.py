@@ -26,11 +26,20 @@ target's Lab carried beside it) is carried across the visits of a sweep,
 and an accepted colour replaces one plane of it; ties between entries go
 to the lowest index (src/lib.rs:780-792).
 
+With `config.dither` the remap is the Floyd-Steinberg wavefront (kernel
+G, ops/cuda_dither.py) and there is no distance cache: a visit remaps the
+whole image once per candidate in one launch, renders every map to a
+full-resolution frame (kernel A, batched over candidates), scores all
+frames at scales 2..5 (kernel B after two in-kernel 2x2 means), the top
+`prescreen` at scale 1 and the top `prescreen_full` at scale 0. The
+accepted colour's map is its row of kernel G's output, which equals the
+full remap with the new palette, so no second wavefront runs.
+
 Everything stays on the device: accept, reject and the carried error are
 `torch.where`s, and a sweep never waits for the device.
 
-Not ported yet, and raising NotImplementedError (`check_slice`): dither,
-NES palettes, the reference random schedule, the rank-1 gate, windowed
+Not ported yet, and raising NotImplementedError (`check_slice`): the dither
+proxy, NES palettes, the reference random schedule, the rank-1 gate, windowed
 visits and the three-level prescreen.
 """
 
@@ -48,6 +57,7 @@ from snesimage_torch.ops.color import (
     srgb_u8_to_lab,
     srgb_u8_to_linear,
 )
+from snesimage_torch.ops.cuda_dither import dither_remap_candidates
 from snesimage_torch.ops.cuda_metric import (
     coarse_feature_sums_ciede,
     coarse_feature_sums_redmean,
@@ -78,8 +88,7 @@ def check_slice(config: QuantConfig) -> None:
     """Raises NotImplementedError, naming its ROADMAP item, for every
     option outside the ported main path."""
     missing = [
-        (config.dither, "dithering (ROADMAP queue A item 14)"),
-        (config.nes, "NES palettes (queue A item 12)"),
+        (config.nes, "NES palettes (ROADMAP queue A item 12)"),
         (config.schedule != "channel",
          "the reference random schedule (queue A item 10)"),
         (config.gate_margin > 0 or config.gate_coarse,
@@ -87,7 +96,7 @@ def check_slice(config: QuantConfig) -> None:
         (config.channel_window > 0, "windowed visits (queue A item 17)"),
         (config.prescreen_pre > 0,
          "the three-level prescreen (queue A item 17)"),
-        (config.dither_proxy > 0, "the dither proxy (queue A item 14)"),
+        (config.dither_proxy > 0, "the dither proxy (queue A item 17)"),
         (not 0 < config.prescreen_full < config.prescreen,
          "scoring without the two-level prescreen (queue A item 10)"),
     ]
@@ -104,12 +113,19 @@ def make_reference_pyramid(state: QuantState):
 
 def full_remap(state: QuantState, config: QuantConfig) -> QuantState:
     """palette_map from the current palette (reference `optimize`,
-    src/lib.rs:425-501), undithered."""
+    src/lib.rs:425-501). Dithered: kernel G with one candidate and no
+    slot overridden (p = -1)."""
     check_slice(config)
-    pm = remap_undithered(
-        state.rgb, state.alpha, state.tile_palettes, state.palette,
-        config.perceptual_palettes,
-    )
+    if config.dither:
+        pm = dither_remap_candidates(
+            state.rgb, state.alpha, state.tile_palettes, state.palette,
+            -1, 0, state.palette[0, 0][None], config.perceptual_palettes,
+        )[0]
+    else:
+        pm = remap_undithered(
+            state.rgb, state.alpha, state.tile_palettes, state.palette,
+            config.perceptual_palettes,
+        )
     return state.replace(palette_map=pm)
 
 
@@ -350,11 +366,89 @@ def _undithered_machinery(
     return errors, final_map, new_d_all
 
 
+def dithered_render_operands(state: QuantState, config: QuantConfig, p: int,
+                             i: int, cand5: torch.Tensor, maps: torch.Tensor):
+    """What kernel A renders the (B, H, W) palette maps `maps` from: the
+    (B, H, W) int32 keys `subpalette * S + entry`, with the sentinel key for
+    transparent pixels, and one (3, C*S) linear colour table per candidate,
+    candidate b's colour in slot (p, i) of table b."""
+    s = config.subpalette_size
+    entries_lin = srgb_u8_to_linear(expand_5bit_to_8bit(state.palette))
+    tables = entries_lin.reshape(-1, 3).T[None].repeat(cand5.shape[0], 1, 1)
+    tables[:, :, p * s + i] = srgb_u8_to_linear(expand_5bit_to_8bit(cand5))
+    tp_pix = tile_pixel_map(state.tile_palettes)
+    key = torch.where(state.alpha > 0, tp_pix * s + maps, tables.shape[2])
+    return key.to(torch.int32), tables.contiguous()
+
+
+def candidate_frames_dithered(state: QuantState, config: QuantConfig, p: int,
+                              i: int, cand5: torch.Tensor,
+                              maps: torch.Tensor) -> torch.Tensor:
+    """(B, 3, H, W) linear frames of the (B, H, W) palette maps `maps`,
+    map b rendered with candidate b in slot (p, i): kernel A over the
+    candidate axis. The JAX package's one-hot contraction over S computes
+    the same frames."""
+    return select_colors(
+        *dithered_render_operands(state, config, p, i, cand5, maps))
+
+
+def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
+                               p: int, i: int, cand5: torch.Tensor):
+    """(B,) float32 exact errors of the dithered candidates the two-level
+    prescreen keeps, +inf for the rest, and all candidates' (B, H, W)
+    palette maps."""
+    k, m = config.prescreen, config.prescreen_full
+    b = cand5.shape[0]
+    if not 0 < m < k < b:
+        raise NotImplementedError(
+            "only the two-level prescreen with more candidates than "
+            "prescreen is ported"
+        )
+    maps = dither_remap_candidates(
+        state.rgb, state.alpha, state.tile_palettes, state.palette, p, i,
+        cand5, config.perceptual_palettes,
+    )
+    frames = candidate_frames_dithered(state, config, p, i, cand5, maps)
+    # The coarse rank takes the full-resolution frames down inside kernel B.
+    feats_c = fused_scale_feature_block(refp, frames, 2, NUM_SCALES - 2,
+                                        pre_ds=2)
+    sel = _smallest(100.0 - score_from_features(feats_c), k)
+    feats_1 = fused_scale_feature_block(refp, frames[sel], 1, 1, pre_ds=1)
+    rank1 = 100.0 - score_from_features(feats_1 + feats_c[sel])
+    sel2 = _smallest(rank1, m)
+    sel_f = sel[sel2]
+    feats_0 = fused_scale_feature_block(refp, frames[sel_f], 0, 1)
+    full = 100.0 - score_from_features(feats_0 + feats_1[sel2] + feats_c[sel_f])
+    errs = torch.full((b,), float("inf"), device=full.device)
+    return errs.scatter(0, sel_f, full), maps
+
+
+def _dithered_machinery(state: QuantState, config: QuantConfig, p: int,
+                        i: int):
+    """The dithered visit of slot (p, i) in the form of
+    `_undithered_machinery`: `errors` also returns a function giving the
+    candidates' palette maps (kernel G's rows), `final_map` takes such a
+    row as it is, and there is no distance cache (None)."""
+
+    def errors(refp, cand5, carried_base=True):
+        if not carried_base:
+            raise NotImplementedError(
+                "in-batch baselines are not ported yet (ROADMAP queue A "
+                "item 10)"
+            )
+        errs, maps = _candidate_errors_dithered(state, config, refp, p, i,
+                                                cand5)
+        return errs, lambda ix: maps[ix]
+
+    return errors, lambda pm: pm, None
+
+
 def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
           base_err, p, i, accept_margin):
     """Accept the best candidate only if it beats the carried exact error
     by more than accept_margin; returns (state, error, d_all). A rejected
-    visit returns the incoming state and cache."""
+    visit returns the incoming state and cache. `d_all` and `new_d_all`
+    are None on the dithered path, which carries no cache."""
     cand_errs, dists = errors(refp, cand5, carried_base=True)
     bidx = torch.argmin(cand_errs).view(1)  # first minimum
     bmin = cand_errs[bidx][0]
@@ -363,7 +457,8 @@ def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
     changed = accept & torch.any(color != current)
     err_out = torch.where(changed, torch.minimum(bmin, base_err), base_err)
 
-    # Where changed, the colour is candidate bidx.
+    # Where changed, the colour is candidate bidx; `dist` is its distance
+    # plane, or its palette map on the dithered path.
     dist = dists(bidx)[0]
     palette = state.palette.clone()
     palette[p, i] = color
@@ -371,7 +466,9 @@ def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
         palette=torch.where(changed, palette, state.palette),
         palette_map=torch.where(changed, final_map(dist), state.palette_map),
     )
-    d_out = torch.where(changed, new_d_all(dist), d_all)
+    d_out = None
+    if d_all is not None:
+        d_out = torch.where(changed, new_d_all(dist), d_all)
     return state_out, err_out, d_out
 
 
@@ -390,9 +487,12 @@ def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
             device=current.device, dtype=torch.int32,
         )
         sweep5 = torch.cat([sweep5, rand5], dim=0)
-    errors, final_map, new_d_all = _undithered_machinery(
-        state, config, p, i, d_all, t_lab
-    )
+    if config.dither:
+        errors, final_map, new_d_all = _dithered_machinery(state, config, p, i)
+    else:
+        errors, final_map, new_d_all = _undithered_machinery(
+            state, config, p, i, d_all, t_lab
+        )
     return _pick(
         errors, final_map, new_d_all, state, d_all, refp, sweep5, current,
         base_err, p, i, config.accept_margin,
@@ -408,9 +508,9 @@ def sweep_channel(state: QuantState, config: QuantConfig, refp,
     s = config.subpalette_size
     if base_err is None:
         base_err = frame_error_fused(state, config, refp)
-    # carried across the visits
-    d_all = compute_d_all(state, config)
-    t_lab = target_lab(state, config)
+    # carried across the visits; the dithered path has no distance cache
+    d_all = None if config.dither else compute_d_all(state, config)
+    t_lab = None if config.dither else target_lab(state, config)
     err = base_err
     for k in range(config.subpalette_count * s * 3):
         state, err, d_all = _slot_channel(

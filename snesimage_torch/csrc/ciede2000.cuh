@@ -18,8 +18,8 @@
 // from a kernel's distance planes agree with the distance cache and the
 // accepted palette map, which the torch code computes.
 //
-// Shared by kernel D (coarse_ciede.cu); kernels F and G (ROADMAP queue B
-// items 6-7) are to use it too.
+// Shared by kernels D (coarse_ciede.cu) and G (dither.cu); kernel F (ROADMAP
+// queue B item 6) is to use it too.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -75,6 +75,26 @@ class RefPyramid(ctypes.Structure):
     ]
 
 
+class LabParams(ctypes.Structure):
+    """Mirror of snes::LabParams (csrc/srgb_lab.cuh)."""
+
+    _fields_ = [
+        ("lut", ctypes.c_float * 256),
+        ("m", ctypes.c_float * 9),
+        ("inv_white", ctypes.c_float * 3),
+        ("delta3", ctypes.c_float),
+        ("third", ctypes.c_float),
+        ("lin_slope", ctypes.c_float),
+        ("lin_offset", ctypes.c_float),
+    ]
+
+
+class DitherParams(ctypes.Structure):
+    """Mirror of snes::DitherParams (csrc/dither.cu)."""
+
+    _fields_ = [("wgt", ctypes.c_float * 4), ("lab", LabParams)]
+
+
 _SIGNATURES = {
     "snes_select_colors": (_P, _P, _P, _I, _I, _I, _P),
     "snes_ds2": (_P, _P, _I, _I, _I, _P),
@@ -89,6 +109,9 @@ _SIGNATURES = {
     "snes_coarse_ciede": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         _P,
+    ),
+    "snes_dither_remap": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
 }
 
@@ -213,4 +236,24 @@ def metric_params() -> MetricParams:
     p.y_offset = XYB_Y_OFFSET
     p.b_offset = XYB_B_OFFSET
     p.ssim_c2 = SSIM_C2
+    return p
+
+
+@lru_cache(maxsize=None)
+def dither_params() -> DitherParams:
+    """Host-side constants of kernel G: the damped diffusion weights and
+    the Lab conversion's constants, from the functions its twin uses
+    (ops/dither.py, ops/color.py)."""
+    from snesimage_torch.ops import color
+    from snesimage_torch.ops.dither import damped_weights
+
+    p = DitherParams()
+    p.wgt[:] = [float(v) for v in damped_weights()]
+    p.lab.lut[:] = [float(v) for v in color._srgb_u8_linear_lut()]
+    p.lab.m[:] = [float(v) for v in color._RGB_TO_XYZ.reshape(-1)]
+    p.lab.inv_white[:] = [color._recip(w) for w in color._D65_WHITE.tolist()]
+    p.lab.delta3 = color._f32(color._DELTA**3)
+    p.lab.third = color._f32(1.0 / 3.0)
+    p.lab.lin_slope = color._recip(3.0 * color._DELTA**2)
+    p.lab.lin_offset = color._f32(4.0 / 29.0)
     return p

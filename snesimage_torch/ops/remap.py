@@ -15,6 +15,7 @@ from snesimage_torch.ops.color import (
     ciede2000,
     expand_5bit_to_8bit,
     red_mean_sq_scaled,
+    round_half_away_nonneg,
     srgb_u8_to_lab,
     srgb_u8_to_linear,
 )
@@ -23,6 +24,14 @@ from snesimage_torch.ops.color import (
 def tile_pixel_map(tile_palettes: torch.Tensor) -> torch.Tensor:
     """(Ht, Wt) per-tile values -> (H, W) per-pixel values."""
     return tile_palettes.repeat_interleave(8, 0).repeat_interleave(8, 1)
+
+
+def quantize_target_u8(target: torch.Tensor) -> torch.Tensor:
+    """Float targets clamped to [0, 255] and rounded half away from zero,
+    as int32 (src/lib.rs:773-778: the conversion before the distance)."""
+    return round_half_away_nonneg(torch.clamp(target, 0.0, 255.0)).to(
+        torch.int32
+    )
 
 
 def entry_distances(

@@ -115,3 +115,23 @@ def test_no_jax_import_in_sources():
     assert len(files) > 10
     for path in files:
         assert not pattern.search(path.read_text()), path
+    # The port's scripts do not lean on the JAX package's bench harness.
+    harness = re.compile(r"^\s*(import|from)\s+bench(marks)?\b", re.MULTILINE)
+    for path in files:
+        assert not harness.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bench_image_copy_equals_the_original(seed):
+    """snesimage_torch.testing.bench_image is bench._test_image."""
+    from bench import _test_image
+    from snesimage_torch.testing import bench_image, with_transparency
+
+    img = bench_image(seed)
+    np.testing.assert_array_equal(img, _test_image(seed))
+    assert img.dtype == np.uint8 and img.shape == (256, 256, 4)
+    clear = with_transparency(img)
+    share = (clear[..., 3] == 0).mean()
+    assert 0.05 < share < 0.3 and (img[..., 3] == 255).all()
+    np.testing.assert_array_equal(clear[clear[..., 3] > 0],
+                                  img[clear[..., 3] > 0])

@@ -1,17 +1,21 @@
-"""Kernels A, B, C and D against their plain twins on a CUDA card, at
+"""Kernels A, B, C, D and G against their plain twins on a CUDA card, at
 shapes beyond the main paths' (which chip_smoke.py covers). Marked `cuda`:
 they skip where no card is present. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 A is exact; B, C and D agree within 2e-4 on finalised features, and D's
-distance planes within 1e-4 (absolute plus relative)."""
+distance planes within 1e-4 (absolute plus relative). G's red-mean maps
+equal its twin's; its perceptual maps on at least 0.99 of the pixels (the
+card's double pow and trigonometry may land across a float32 rounding
+boundary from the twin's, and error diffusion spreads one flipped pixel)."""
 
 import pytest
 import torch
 
-from snesimage_torch.ops import cuda_metric, cuda_prescreen
+from snesimage_torch.ops import cuda_dither, cuda_metric, cuda_prescreen
 from snesimage_torch.ops.color import srgb_u8_to_lab, srgb_u8_to_linear
+from snesimage_torch.ops.dither import dither_candidates
 from snesimage_torch.ops.ssimulacra2 import (
     finalize_feature_sums,
     reference_pyramid,
@@ -154,6 +158,95 @@ def test_coarse_feature_sums_ciede_rejects_uneven_frames(dev):
             args[7]]
     with pytest.raises(NotImplementedError, match="queue B item 6"):
         cuda_metric.coarse_feature_sums_ciede(*crop)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_select_colors_batched(dev, batched):
+    """One table per key plane, as the dithered visit renders its maps."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, h, w, k = 48, 64, 96, 120
+    key = torch.randint(0, k + 1, (n, h, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    table = torch.rand((n, 3, k), generator=g, device=dev)
+    if not batched:
+        key, table = key[0], table[0]
+    got = cuda_prescreen.select_colors(key, table)
+    assert got.shape == ((n, 3, h, w) if batched else (3, h, w))
+    assert torch.equal(got, cuda_prescreen._select_colors_plain(key, table))
+
+
+def _dither_args(dev, h, w, c, s, b, seed):
+    """Random image with a transparent tile band, an interior transparent
+    block off the tile grid and scattered transparent pixels; a palette
+    whose entries 0 and 1 are duplicates (exact distance ties); the last
+    candidate equals the first, and the second equals an entry."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    rgb = ints(256, (h, w, 3))
+    alpha = torch.full((h, w), 255, dtype=torch.int32, device=dev)
+    alpha[8:16, : w // 2] = 0
+    alpha[h // 2 + 3 : h // 2 + 13, w // 2 + 5 : w // 2 + 14] = 0
+    alpha[::7, ::5] = 0
+    pal = ints(32, (c, s, 3))
+    pal[:, 1] = pal[:, 0]
+    cand = ints(32, (b, 3))
+    cand[-1] = cand[0]
+    p, i = c - 1, s // 2
+    if b > 2:
+        cand[1] = pal[p, 0]
+    return rgb, alpha, ints(c, (h // 8, w // 8)), pal, p, i, cand
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize(
+    "h,w,c,s,b", [(64, 96, 4, 15, 7), (128, 128, 8, 15, 48),
+                  (256, 256, 8, 15, 1), (40, 24, 2, 4, 3)],
+)
+def test_dither_remap_candidates(dev, h, w, c, s, b, perceptual):
+    args = _dither_args(dev, h, w, c, s, b, h + w + b)
+    before = cuda_dither.dither_remap_candidates.launches
+    got = cuda_dither.dither_remap_candidates(*args, perceptual)
+    assert cuda_dither.dither_remap_candidates.launches == before + 1
+    want = dither_candidates(*args, perceptual)
+    assert got.shape == (b, h, w) and got.dtype == torch.int32
+    share = float((got == want).float().mean())
+    assert share >= (0.99 if perceptual else 1.0), share
+    assert bool((got[:, args[1] == 0] == 0).all())  # transparent pixels
+    assert torch.equal(got[-1], got[0])  # equal candidates, equal maps
+    again = cuda_dither.dither_remap_candidates(*args, perceptual)
+    assert torch.equal(got, again)
+    # With no slot overridden every row is the remap of the palette.
+    rgb, alpha, tiles, pal, _, _, cand = args
+    plain = cuda_dither.dither_remap_candidates(rgb, alpha, tiles, pal, -1, 0,
+                                                cand[:1], perceptual)
+    want_plain = dither_candidates(rgb, alpha, tiles, pal, -1, 0, cand[:1],
+                                   perceptual)
+    assert float((plain == want_plain).float().mean()) >= (
+        0.99 if perceptual else 1.0)
+
+
+def test_dither_remap_candidates_rejects_bad_operands(dev):
+    rgb, alpha, tiles, pal, p, i, cand = _dither_args(dev, 32, 32, 2, 4, 2, 1)
+    with pytest.raises(TypeError):
+        cuda_dither.dither_remap_candidates(rgb.long(), alpha, tiles, pal, p,
+                                            i, cand)
+    with pytest.raises(ValueError):  # a tile map of another size
+        cuda_dither.dither_remap_candidates(rgb, alpha, tiles[:2], pal, p, i,
+                                            cand)
+    with pytest.raises(ValueError):  # a slot outside the palette
+        cuda_dither.dither_remap_candidates(rgb, alpha, tiles, pal, 2, 0,
+                                            cand)
+    with pytest.raises(NotImplementedError):  # not whole tiles
+        cuda_dither.dither_remap_candidates(
+            rgb[:30].contiguous(), alpha[:30].contiguous(), tiles, pal, p, i,
+            cand)
+    tall = _dither_args(dev, 264, 32, 2, 4, 2, 1)
+    with pytest.raises(NotImplementedError):  # more rows than threads
+        cuda_dither.dither_remap_candidates(*tall)
 
 
 def test_wrappers_reject_bad_operands(dev):

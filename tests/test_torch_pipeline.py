@@ -8,6 +8,7 @@ import torch
 from snesimage_torch.config import QuantConfig as TConfig
 from snesimage_torch.core import pipeline as tpipe
 from snesimage_torch.io.json_out import state_to_json as t_json
+from snesimage_torch.testing import single_torch_thread
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import pipeline as jpipe
 from snesimage_tpu.core.state import new_state as j_new_state
@@ -59,11 +60,43 @@ def test_run_fused_cuda_without_a_card_raises(small_image):
         tpipe.run_fused(small_image, TConfig(**SMALL), device="cuda")
 
 
+@pytest.fixture
+def one_torch_thread():
+    with single_torch_thread():
+        yield
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_run_fused_dithered_matches_jax(small_image, one_torch_thread,
+                                        perceptual):
+    """A dithered run on a 32x32 crop with explore off, so no RNG enters:
+    the same palette, palette map and JSON bytes as the JAX package's, step
+    errors within 1e-3 (the dithered visits' bound, tests/
+    test_torch_refine.py), and the run accepted moves."""
+    img = np.ascontiguousarray(small_image[:32, :32])
+    kw = dict(SMALL, width=32, height=32, dither=True,
+              perceptual_palettes=perceptual,
+              prescreen_full=4 if perceptual else 2)
+    tc, jc = TConfig(**kw), JConfig(**kw)
+    state, errors, info = tpipe.run_fused(img, tc, device="cpu")
+    jstate, jerrors, jinfo = jpipe.run_fused(img, jc)
+    np.testing.assert_array_equal(state.palette.numpy(),
+                                  np.asarray(jstate.palette))
+    np.testing.assert_array_equal(state.palette_map.numpy(),
+                                  np.asarray(jstate.palette_map))
+    assert t_json(state, tc) == j_json(jstate, jc)
+    assert len(errors) == len(jerrors) == 2
+    np.testing.assert_allclose(errors, jerrors, rtol=0, atol=1e-3)
+    assert abs(info["final_error"] - jinfo["final_error"]) <= 1e-3
+    init = jpipe.cluster(jpipe.initialize(j_new_state(img, jc), jc), jc)
+    assert not np.array_equal(state.palette.numpy(), np.asarray(init.palette))
+    assert errors[1] <= errors[0]
+
+
 @pytest.mark.parametrize(
     "change",
     [
-        dict(dither=True),
-        dict(perceptual_palettes=True, dither=True),
+        dict(dither=True, dither_proxy=8),
         dict(nes=True),
         dict(gate_margin=0.01, converge_tol=0.5),
         dict(schedule="reference"),

@@ -9,7 +9,14 @@ visit's candidate errors agree within 5e-4 (3e-6 relative at errors near
 165): the two packages blur in float32 with other rounding (4e-7
 relative), and the SSIM variance terms amplify that to 1.4e-5 relative
 in the features, measured from identical XYB input. Errors carried
-through a sweep, compared at its end, stay within 1e-4."""
+through a sweep, compared at its end, stay within 1e-4.
+
+The dithered visit is compared the same way at 32x32: the palette maps of
+all candidates are equal (the wavefront twin equals the JAX scan), the
+same candidates stay finite, and their errors agree within 1e-3 (up to
+4.9e-4 measured, 3.7e-6 relative at errors near 132): at 32x32 a scale
+holds a quarter of the pixels of the 64x64 fixture, and the variance
+terms' rounding weighs more in the mean."""
 
 from functools import lru_cache
 
@@ -23,6 +30,7 @@ from snesimage_torch.config import QuantConfig as TConfig
 from snesimage_torch.core import refine as tref
 from snesimage_torch.core.state import pyramid_from_numpy, state_from_numpy
 from snesimage_torch.ops.color import expand_5bit_to_8bit, red_mean_sq_scaled
+from snesimage_torch.testing import single_torch_thread
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import pipeline as jpipe
 from snesimage_tpu.core import refine as jref
@@ -145,3 +153,97 @@ def test_frame_error_fused_parity(small_image):
     got = tref.frame_error_fused(ts, tc, trefp)
     assert got.shape == () and got.dtype == torch.float32
     assert abs(float(got) - want) <= ERR_TOL
+
+
+DITHER_VISIT_ERR_TOL = 1e-3
+
+
+@pytest.fixture
+def one_torch_thread():
+    with single_torch_thread():
+        yield
+
+
+@lru_cache(maxsize=None)
+def _setup_dithered(image_bytes: bytes, perceptual: bool):
+    """`_setup` for a 32x32 crop with dithering, in either distance mode."""
+    img = np.frombuffer(image_bytes, np.uint8).reshape(64, 64, 4)
+    img = np.ascontiguousarray(img[:32, :32])
+    kw = dict(CFG, width=32, height=32, dither=True,
+              perceptual_palettes=perceptual,
+              prescreen_full=4 if perceptual else 2)
+    jc, tc = JConfig(**kw), TConfig(**kw)
+    js = jpipe.cluster(jpipe.initialize(j_new_state(img, jc), jc), jc)
+    jrefp = jref.make_reference_pyramid(js)
+    ts = state_from_numpy({f: np.asarray(getattr(js, f)) for f in js._fields},
+                          "cpu")
+    trefp = pyramid_from_numpy(
+        tuple(tuple(np.asarray(a) for a in s) for s in jrefp), "cpu"
+    )
+    return (js, jc, jrefp), (ts, tc, trefp)
+
+
+@pytest.mark.parametrize(
+    "perceptual,p,i,channel,ties",
+    [(False, 1, 2, 1, False), (False, 0, 0, 0, True), (True, 1, 2, 1, False),
+     (True, 1, 1, 0, True)],
+)
+def test_dithered_visit_parity(small_image, one_torch_thread, perceptual, p,
+                               i, channel, ties):
+    from snesimage_tpu.ops.dither import dither_candidates as j_candidates
+
+    (js, jc, jrefp), (ts, tc, trefp) = _setup_dithered(small_image.tobytes(),
+                                                       perceptual)
+    rng = np.random.default_rng(100 * p + 10 * i + channel)
+    explore = rng.integers(0, 32, (16, 3))
+    if ties:
+        explore[::2] = FAR  # far colours: no pixel maps to them, so they tie
+    cand5 = _candidates(np.asarray(js.palette), p, i, channel, explore)
+
+    want = np.asarray(jref._candidate_errors_dithered(
+        js, jc, jrefp, p, i, jnp.asarray(cand5), carried_base=True))
+    got, maps = tref._candidate_errors_dithered(ts, tc, trefp, p, i,
+                                                torch.from_numpy(cand5))
+    got = got.numpy()
+    want_maps = np.asarray(j_candidates(
+        js.rgb, js.alpha, js.tile_palettes, js.palette, p, i,
+        jnp.asarray(cand5), perceptual))
+    np.testing.assert_array_equal(maps.numpy(), want_maps)
+    if ties:
+        affected = np.repeat(np.repeat(np.asarray(js.tile_palettes) == p, 8, 0),
+                             8, 1)
+        unused = [not ((want_maps[b] == i) & affected).any()
+                  for b in range(len(cand5))]
+        assert sum(unused) >= 4  # the case does hold tied candidates
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    assert np.isfinite(got).sum() == jc.prescreen_full
+    np.testing.assert_allclose(got[np.isfinite(got)], want[np.isfinite(want)],
+                               rtol=0, atol=DITHER_VISIT_ERR_TOL)
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_dithered_visit_accepts_the_candidate_row(small_image,
+                                                  one_torch_thread,
+                                                  perceptual):
+    """A dithered visit that accepts keeps row `bidx` of the candidates'
+    maps; that row equals a full dithered remap with the new palette, and
+    a visit that rejects returns the incoming state."""
+    _, (ts, tc, trefp) = _setup_dithered(small_image.tobytes(), perceptual)
+    err = tref.frame_error_fused(ts, tc, trefp)
+    accepted = 0
+    for p, i, channel in [(0, 0, 0), (0, 1, 1), (1, 2, 2), (1, 3, 0)]:
+        state, new_err, cache = tref._slot_channel(
+            ts, tc, trefp, p, i, channel, None, err)
+        assert cache is None
+        if torch.equal(state.palette, ts.palette):
+            assert torch.equal(state.palette_map, ts.palette_map)
+            assert float(new_err) == float(err)
+            continue
+        accepted += 1
+        assert float(new_err) < float(err) - tc.accept_margin
+        np.testing.assert_array_equal(
+            state.palette_map.numpy(),
+            tref.full_remap(state, tc).palette_map.numpy())
+        exact = float(tref.frame_error_fused(state, tc, trefp))
+        assert abs(exact - float(new_err)) <= ERR_TOL
+    assert accepted >= 1

@@ -4,22 +4,36 @@
 
 Builds the port's CUDA kernels from snesimage_torch/csrc, holds each
 against its plain PyTorch twin on the card at the main paths' shapes, pins
-the init hashes to the JAX package's CPU values, and drives four paths once
-each through `run_fused` and `state_to_json`: the balanced profile
-(256x256, 8x15 palettes, 8 channel sweeps with 16 explore candidates), the
+the init hashes to the JAX package's CPU values, and drives nine paths once
+each through `run_fused` and `state_to_json`. At 256x256, 8x15 palettes:
+the balanced profile (8 channel sweeps with 16 explore candidates), the
 same recipe with perceptual (CIEDE2000) palettes, the same recipe with
-Floyd-Steinberg dithering, and one sweep of the dithered perceptual recipe.
-Each phase prints one line. Then come, each on its own line, the kernels'
-JSON record and the card's name and power limit; the last line is
-{"ok": true, "device": {...}}. Any failure exits non-zero before it.
+Floyd-Steinberg dithering, one sweep of the dithered perceptual recipe, and
+one cycle of the reference schedule (four random sweeps and a channel
+sweep, every candidate scored at six scales). On the image's first 240
+rows (256x240, sides that are not multiples of 32, so the visit ranks its
+candidates through kernels E or F and kernel B): the balanced recipe,
+red-mean and perceptual, and one dithered sweep. And two NES sweeps of the
+`nes-compat` preset. Kernel B is also held against its twin at the batches
+of the visits that score every candidate at six scales (64 random draws, 32
+channel values, the 56 NES colours), and G, A and B at the 256x240 dithered
+visit's shapes. Each phase prints one line. Then come, each on its own
+line, the kernels' JSON record and the card's name and power limit; the
+last line is {"ok": true, "device": {...}}. Any failure exits non-zero
+before it.
 
 Each kernel's record holds its wrapper's wall time and its twin's at the
 main paths' shapes (`median_ms`), its launches in the run of the path that
-uses it (A and B: the balanced run; G: the dithered run;
-`launches_by_path` has all four), and its bound: the larger of the bytes
-it must move over the card's memory rate and the arithmetic it does over
-the card's peak rate for that arithmetic (`bound`, from this run's
-tensors).
+uses it (A, B and C: the balanced run; D: the perceptual run; G: the
+dithered run; E and F: the 256x240 runs; `launches_by_path` has all nine),
+and its bound: the larger of the bytes it must move over the card's memory
+rate and the arithmetic it does over the card's peak rate for that
+arithmetic (`bound`, from this run's tensors).
+
+Kernel F also serves every perceptual visit that has no prescreen, at any
+geometry: it alone writes the candidates' distance planes there, and its
+pooled sums go unused. No path driven here is such a visit, so F's
+launches are 0 or one per visit of a 256x240 perceptual run.
 """
 
 from __future__ import annotations
@@ -51,6 +65,23 @@ INIT_HASH_DITHER = (
 INIT_HASH_DITHER_PERCEPTUAL = (
     "2f36a75bc43c5ab1daf98713d4461cf8b2cc31066d817954a1e87a16b655628c"
 )
+# The same on the first 240 rows of the image (256x240, the geometry that
+# is not 32-aligned), red-mean, perceptual and dithered, and on the whole
+# image with the `nes-compat` preset (4x3 palettes snapped to the NES
+# colours): the JAX package's CPU values; tests/test_torch_geometry.py and
+# tests/test_torch_schedules.py pin them against both packages.
+INIT_HASH_240 = (
+    "c83af996f347226769eb65dfb60cd1407d53880d0e82171903f2bfe5c77b6bd1"
+)
+INIT_HASH_240_PERCEPTUAL = (
+    "796bb8d0f0361be819058726d76f9e338d2a85da236355a5046db83a7da025e3"
+)
+INIT_HASH_240_DITHER = (
+    "7038cc450f0c80249eb8482a1279ad4820ef65d30e2ca0ca86883024825e91a4"
+)
+INIT_HASH_NES = (
+    "b1ab121f52022f89aaa651d3c616df41deedad6cb6836c35de521fcbe691a6d6"
+)
 FEATURE_TOL = 2e-4  # kernel vs twin, finalised features (rtol and atol)
 # Kernel D's distance planes vs its twin (atol and rtol). The kernel takes
 # the twin's steps, but its fmaf rounds once where the twin's float64
@@ -74,8 +105,21 @@ PERCEPTUAL = dict(BALANCED, prescreen_full=4, perceptual_palettes=True)
 # mode's time).
 DITHER = dict(BALANCED, dither=True)
 DITHER_PERCEPTUAL = dict(PERCEPTUAL, dither=True, max_steps=1)
+# The same recipes on the first 240 rows of the image: 256x240 is 30 rows of
+# tiles, its pyramid meets an odd side at 15x16, and the visit ranks its
+# candidates through kernel E (red-mean) or F (perceptual) and kernel B.
+GEOMETRY = dict(BALANCED, width=256, height=240)
+GEOMETRY_PERCEPTUAL = dict(PERCEPTUAL, width=256, height=240)
+GEOMETRY_DITHER = dict(DITHER, width=256, height=240, max_steps=1)
+# BASELINE config 2 as the reference runs it: four random sweeps and one
+# channel sweep, no prescreen, the stop rule off.
+REFERENCE = dict(subpalette_count=8, subpalette_size=15, max_steps=5,
+                 converge_tol=0.0, seed=0)
+NES_STEPS = 2  # of the `nes-compat` preset (BASELINE config 5's palettes)
+POOLED_SUM_TOL = 1e-5  # kernels E and F vs twins, the three m*ML sums
 WRAPPERS = ("select_colors", "multiscale_feature_sums",
             "coarse_feature_sums_redmean", "coarse_feature_sums_ciede",
+            "pooled_wins_redmean", "pooled_wins_ciede",
             "dither_remap_candidates")
 
 # The bound of a kernel call. Rates: NVIDIA's H100 SXM data sheet at the
@@ -191,7 +235,7 @@ def prepared_state(img, params: dict):
     return pipeline.cluster(pipeline.initialize(state, config), config), config
 
 
-def _visit(img, params: dict):
+def first_visit(img, params: dict):
     """What the main path's first visit, slot (0, 0) channel 0, gives the
     kernels: the state's pyramid and slot context, and its 32 channel
     values plus 16 explore draws (B = 48) in 8-bit and linear RGB."""
@@ -245,7 +289,7 @@ def _b_case(label: str, refp, frames, start: int, n: int, pre_ds: int):
 
     refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
                  for s in range(n))
-    sizes = [(256 >> (start + s)) ** 2 for s in range(n)]
+    sizes = [t[0].shape[-2] * t[0].shape[-1] for t in refs]
     b = len(frames)
 
     def kernel():
@@ -336,7 +380,7 @@ def phase_kernels(img):
     from snesimage_torch.ops.remap import render_linear
     from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
 
-    state, refp, ctx, cand8, cand_lin = _visit(img, BALANCED)
+    state, refp, ctx, cand8, cand_lin = first_visit(img, BALANCED)
     records = []
 
     # A: the no-candidate frame of an undithered visit.
@@ -386,7 +430,7 @@ def phase_kernel_d(img):
     from snesimage_torch.ops import cuda_metric
     from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
 
-    _, refp, ctx, cand8, cand_lin = _visit(img, PERCEPTUAL)
+    _, refp, ctx, cand8, cand_lin = first_visit(img, PERCEPTUAL)
     args = refine.coarse_inputs(ctx, cand8, cand_lin, refp)
     sizes = [(256 >> s) ** 2 for s in range(2, 6)]
     sums, dcand = cuda_metric.coarse_feature_sums_ciede(*args)
@@ -555,6 +599,197 @@ def phase_kernel_g(img, a_record, b_record):
     return record
 
 
+def _pooled_case(label: str, wrapper, twin, args, px_ops: float,
+                 exact_planes: bool):
+    """Kernel E or F against its twin on the operands `args` (with or
+    without the image axis): mask counts equal, the three m*ML sums within
+    POOLED_SUM_TOL, F's distance planes bit-equal."""
+    batched = args[0].dim() == 4
+    twin_args = args if batched else [a[None] for a in args]
+
+    def plain():
+        out = twin(*twin_args)
+        if batched:
+            return out
+        return tuple(o[0] for o in out) if exact_planes else out[0]
+
+    got, want = wrapper(*args), plain()
+    outputs = got if exact_planes else (got,)
+    if exact_planes:
+        (got, planes), (want, want_planes) = got, want
+        check(torch.equal(planes, want_planes),
+              f"kernel F's distance planes differ from the twin's ({label}: "
+              f"{float((planes == want_planes).float().mean())} equal)")
+    check(got.shape == want.shape, f"pooled sums of shape {tuple(got.shape)}")
+    check(torch.equal(got[..., 0, :, :], want[..., 0, :, :]),
+          f"pooled mask counts differ from the twin's ({label})")
+    n_cand = args[1].shape[:-1].numel()
+    h, w = args[2].shape[-2:]
+    return dict(
+        shape=label, max_abs_err=max_err(got, want, POOLED_SUM_TOL),
+        mask_count=float(got[..., 0, :, :].sum()),
+        ms=median_ms(lambda: wrapper(*args)),
+        plain_ms=median_ms(plain, runs=5), library_ms=None,
+        **bound(nbytes(*args, *outputs), n_cand * h * w * px_ops))
+
+
+def phase_kernels_ef(img):
+    """Kernels E and F against their twins on the operands of the 256x240
+    paths' first visit (B = 48), and on two images at once (the visit's
+    planes and their upside-down copies), the wrappers' leading axis."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_prescreen as cp
+
+    records = []
+    for params, name, wrapper, twin, px_ops, tpu_line in (
+            (GEOMETRY, "pooled_wins_redmean", cp.pooled_wins_redmean,
+             cp._pooled_wins_redmean_plain, REDMEAN_OPS_PER_PX, 124),
+            (GEOMETRY_PERCEPTUAL, "pooled_wins_ciede", cp.pooled_wins_ciede,
+             cp._pooled_wins_ciede_plain, CIEDE_OPS_PER_PX, 264)):
+        _, _, ctx, cand8, _ = first_visit(img, params)
+        args = list(refine.pooled_inputs(ctx, cand8))
+        exact = name == "pooled_wins_ciede"
+        main = _pooled_case("B=48, 256x240", wrapper, twin, args, px_ops,
+                            exact)
+        check(main["mask_count"] > 0, f"no candidate of {name} wins a pixel")
+        plane = tuple(args[2].shape)  # planes flip, the candidates stay
+        pair = [torch.stack([a, a.flip(-2) if a.shape[-2:] == plane else a])
+                for a in args]
+        cases = [main, _pooled_case("N=2, B=48, 256x240", wrapper, twin, pair,
+                                    px_ops, exact)]
+        records.append(dict(
+            name=name, route="cuda",
+            source="snesimage_torch/csrc/pooled_wins.cu",
+            replaces=f"snesimage_tpu/ops/pallas_prescreen.py:{tpu_line}",
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            shape=main["shape"], cases=cases))
+    print("phase 14 kernels E and F vs twins (mask counts equal, F's "
+          "distance planes bit-equal): " + "; ".join(
+              f"{r['name']} {c['shape']} max_abs_err {c['max_abs_err']:.3g} "
+              f"kernel {c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
+              for r in records for c in r["cases"]), flush=True)
+    return records
+
+
+def phase_kernel_b_geometry(img, b_record):
+    """Kernel B against its twin at the call shapes of a 256x240 visit,
+    whose pyramid is 240x256, 120x128, 60x64, 30x32, 15x16, 8x8: the frame
+    error (B = 1, six scales), the coarse stage on the 48 frames assembled
+    from kernel E's sums (60x64 down to 8x8), the scale-1 rank (B = 8, one
+    in-kernel 2x2 mean), and the scale-0 finalists (B = 2; 4 perceptual)."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_prescreen as cp
+    from snesimage_torch.ops.remap import render_linear
+
+    state, refp, ctx, cand8, cand_lin = first_visit(img, GEOMETRY)
+    frame = render_linear(state.palette_map, state.alpha,
+                          state.tile_palettes, state.palette)
+    frame = frame.permute(2, 0, 1)[None].contiguous()
+    pooled = cp.pooled_wins_redmean(*refine.pooled_inputs(ctx, cand8))
+    quarter = cp.coarse_frames(pooled, cand_lin,
+                               refine.ds4_no_candidate(ctx)).contiguous()
+    finals = refine.candidate_frames(ctx, ctx.cand_dist(cand8[:8]),
+                                     cand_lin[:8])
+    cases = [
+        _b_case("256x240: B=1, n=6", refp, frame, 0, 6, 0),
+        _b_case("256x240: B=48 of 60x64, n=4", refp, quarter, 2, 4, 0),
+        _b_case("256x240: B=8, pre_ds=1, n=1", refp, finals, 1, 1, 1),
+        _b_case("256x240: B=2, n=1", refp, finals[:2].contiguous(), 0, 1, 0),
+        _b_case("256x240: B=4, n=1", refp, finals[:4].contiguous(), 0, 1, 0),
+    ]
+    b_record.update(_b_record(b_record["cases"] + cases))
+    print("phase 15 kernel B at the 256x240 shapes: " + "; ".join(
+        f"{c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
+        f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
+        f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for c in cases),
+        flush=True)
+
+
+def phase_kernel_b_unprescreened(img, b_record):
+    """Kernel B against its twin at the call shapes of the visits that
+    score every candidate at all six scales in one batch, on the frames of
+    a real visit of slot (0, 0): the reference cycle's random visit (64
+    draws) and channel visit (32 values) at 256x256, and the `nes-compat`
+    visit (the 56 NES colours)."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.models.presets import preset_fields
+    from snesimage_torch.ops.color import (
+        expand_5bit_to_8bit,
+        nes_palette_5bit,
+        srgb_u8_to_linear,
+    )
+
+    def frames_of(ctx, cand5):
+        cand8 = expand_5bit_to_8bit(cand5)
+        return refine.candidate_frames(ctx, ctx.cand_dist(cand8),
+                                       srgb_u8_to_linear(cand8)).contiguous()
+
+    state, refp, ctx, _, _ = first_visit(img, REFERENCE)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    draws = torch.randint(0, 32, (64, 3), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    cases = [
+        _b_case("256x256: B=64, n=6 (random visit)", refp,
+                frames_of(ctx, draws), 0, 6, 0),
+        _b_case("256x256: B=32, n=6 (channel visit, no prescreen)", refp,
+                frames_of(ctx, visit_candidates(state)[:32]), 0, 6, 0),
+    ]
+    _, refp, ctx, _, _ = first_visit(
+        img, dict(preset_fields("nes-compat"), seed=0))
+    cases.append(_b_case("256x256: B=56, n=6 (NES visit)", refp,
+                         frames_of(ctx, nes_palette_5bit("cuda")), 0, 6, 0))
+    b_record.update(_b_record(b_record["cases"] + cases))
+    print("phase 26 kernel B at the unprescreened visits' shapes: "
+          + "; ".join(
+              f"{c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
+              f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for c in cases),
+          flush=True)
+
+
+def phase_kernels_geometry_dither(img, a_record, b_record, g_record):
+    """Kernels G, A and B against their twins at the shapes of the 256x240
+    dithered visit: 48 candidates' wavefronts over 240 rows, the 48 maps
+    rendered with one table per candidate, and 48 full 240x256 frames taken
+    down twice inside kernel B to scales 2..5 (60x64, 30x32, 15x16, 8x8)."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_dither
+
+    state, config = prepared_state(img, GEOMETRY_DITHER)
+    cand5 = visit_candidates(state)
+    g_case = _g_case("red-mean, B=48, 256x240", state, config, 0, 0, cand5)
+    maps = cuda_dither.dither_remap_candidates(
+        state.rgb, state.alpha, state.tile_palettes, state.palette, 0, 0,
+        cand5, False)
+    a_case = _a_case("B=48, 256x240, one table per candidate",
+                     *refine.dithered_render_operands(state, config, 0, 0,
+                                                      cand5, maps))
+    frames = refine.candidate_frames_dithered(state, config, 0, 0, cand5,
+                                              maps)
+    b_case = _b_case("256x240: B=48, pre_ds=2, n=4",
+                     refine.make_reference_pyramid(state), frames, 2, 4, 2)
+    a_record.update(_a_record(a_record["cases"] + [a_case]))
+    b_record.update(_b_record(b_record["cases"] + [b_case]))
+    g_record["cases"].append(g_case)
+    g_record["max_abs_err"] = max(g_record["max_abs_err"],
+                                  g_case["max_abs_err"])
+    g_record["equal_share"] = min(g_record["equal_share"],
+                                  g_case["equal_share"])
+    print("phase 27 kernels G, A and B at the 256x240 dithered shapes: "
+          f"G {g_case['shape']} equal share {g_case['equal_share']}, kernel "
+          f"{g_case['ms']:.4f} ms, twin {g_case['plain_ms']:.1f} ms, bound "
+          f"{g_case['bound_ms']:.5f} ms ({g_case['bound_by']}); "
+          + "; ".join(
+              f"{k} {c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
+              f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
+              for k, c in (("A", a_case), ("B", b_case))), flush=True)
+
+
 def phase_init_hash(img, params: dict, want: str, phase: str):
     state, _ = prepared_state(img, params)
     got = init_hash(state)
@@ -569,17 +804,22 @@ def kernel_wrappers() -> dict:
     fns = (cuda_prescreen.select_colors, cuda_metric.multiscale_feature_sums,
            cuda_metric.coarse_feature_sums_redmean,
            cuda_metric.coarse_feature_sums_ciede,
+           cuda_prescreen.pooled_wins_redmean,
+           cuda_prescreen.pooled_wins_ciede,
            cuda_dither.dither_remap_candidates)
     return dict(zip(WRAPPERS, fns))
 
 
 def phase_main_path(img, init_state, smi, params: dict, phase: str,
-                    label: str, absent: tuple, timed_runs: int):
+                    label: str, present: tuple, timed_runs: int,
+                    always_replaces: bool = False):
     """One run of a path through `run_fused`, checked; then its warm time
-    as the best of `timed_runs` runs. Returns each wrapper's launches in
-    the checked run; every wrapper but those in `absent` must have
-    launched, and kernel G once per visit and twice in the init where the
-    path dithers."""
+    as the best of `timed_runs` runs (with 0, the checked run's own time:
+    the phases before it have warmed every kernel). Returns each wrapper's
+    launches in the checked run: the wrappers in `present` must have
+    launched and no other, kernel G once per visit and twice in the init
+    where the path dithers, and kernel E or F once per channel visit.
+    `always_replaces` (NES) lifts the check that step errors never rise."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
     from snesimage_torch.io.json_out import state_to_json
@@ -597,30 +837,41 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     for name, n in launches.items():
-        if name in absent:
-            check(n == 0, f"the {label} path launched {name}")
-        else:
+        if name in present:
             check(n > 0, f"the {label} path never launched {name}")
+        else:
+            check(n == 0, f"the {label} path launched {name}")
+    visits = (config.max_steps * config.subpalette_count
+              * config.subpalette_size * 3)
     if config.dither:
-        visits = (config.max_steps * config.subpalette_count
-                  * config.subpalette_size * 3)
         check(launches["dither_remap_candidates"] >= visits + 2,
               f"kernel G launched {launches['dither_remap_candidates']} "
               f"times in {visits} visits")
+    for name in ("pooled_wins_redmean", "pooled_wins_ciede"):
+        check(launches[name] in (0, visits),
+              f"{name} launched {launches[name]} times in {visits} visits")
 
     refp = refine.make_reference_pyramid(init_state)
     err0 = float(refine.frame_error_fused(init_state, config, refp))
     check(len(errors) == config.max_steps, f"{len(errors)} steps ran")
     check(all(np.isfinite(errors)), "non-finite step error")
-    check(all(b <= a for a, b in zip([err0] + errors, errors)),
+    check(always_replaces
+          or all(b <= a for a, b in zip([err0] + errors, errors)),
           "step errors increase")
     check(errors[-1] < err0, "the run did not improve on the init error")
+    if config.nes:
+        from snesimage_torch.ops.color import nes_palette_5bit
+
+        nes = {tuple(c) for c in nes_palette_5bit(state.device).tolist()}
+        entries = {tuple(c) for c in state.palette.reshape(-1, 3).tolist()}
+        check(entries <= nes, f"entries off the NES palette: {entries - nes}")
 
     out = json.loads(state_to_json(state, config))
+    tiles = config.num_tiles
     check(len(out["palette"]) == config.subpalette_count * 16, "palette")
-    check(len(out["tile_palettes"]) == 1024, "tile_palettes")
-    check(len(out["tiles"]) == 1024 and all(len(t) == 64 for t in out["tiles"]),
-          "tiles")
+    check(len(out["tile_palettes"]) == tiles, "tile_palettes")
+    check(len(out["tiles"]) == tiles and all(len(t) == 64
+                                             for t in out["tiles"]), "tiles")
 
     kernel_err = float(refine.frame_error_fused(state, config, refp))
     frame = render_linear(state.palette_map, state.alpha,
@@ -634,8 +885,11 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
         t0 = time.perf_counter()
         pipeline.run_fused(img, config, device="cuda")
         runs.append(time.perf_counter() - t0)
-    print(f"{phase} main path: {label} 256x256 8x15, {len(errors)} step(s), "
-          f"warm best of {timed_runs} {min(runs):.3f} s (runs {runs}), init "
+    runs = runs or [info["total_seconds"]]
+    print(f"{phase} main path: {label} {config.width}x{config.height} "
+          f"{config.subpalette_count}x{config.subpalette_size}, "
+          f"{len(errors)} step(s), warm best of {len(runs)} {min(runs):.3f} s "
+          f"(runs {runs}), init "
           f"error {err0}, final error {info['final_error']}, step errors "
           f"{errors}, frame error kernel {kernel_err} twin {twin_err}, "
           f"launches {launches}, card '{smi}'", flush=True)
@@ -652,32 +906,68 @@ def main() -> int:
     img = bench_image(0)
     smi, name = phase_device()
     records = phase_kernels(img)
-    c, d, g = ("coarse_feature_sums_redmean", "coarse_feature_sums_ciede",
-               "dither_remap_candidates")
+    a, b, c, d, e, f, g = WRAPPERS
     runs = {}
     init_state = phase_init_hash(img, BALANCED, INIT_HASH, "phase 3")
     runs["balanced"] = phase_main_path(
-        img, init_state, smi, BALANCED, "phase 4", "balanced", (d, g), 3)
+        img, init_state, smi, BALANCED, "phase 4", "balanced", (a, b, c), 1)
     records.append(phase_kernel_d(img))
     init_state = phase_init_hash(img, PERCEPTUAL, INIT_HASH_PERCEPTUAL,
                                  "phase 6")
     runs["perceptual"] = phase_main_path(
-        img, init_state, smi, PERCEPTUAL, "phase 7", "perceptual", (c, g), 2)
+        img, init_state, smi, PERCEPTUAL, "phase 7", "perceptual", (a, b, d),
+        0)
     by_name = {r["name"]: r for r in records}
     records.append(phase_kernel_g(img, by_name["select_colors"],
                                   by_name["multiscale_feature_sums"]))
     init_state = phase_init_hash(img, DITHER, INIT_HASH_DITHER, "phase 10")
     runs["dither"] = phase_main_path(
-        img, init_state, smi, DITHER, "phase 11", "dithered", (c, d), 1)
+        img, init_state, smi, DITHER, "phase 11", "dithered", (a, b, g), 0)
     init_state = phase_init_hash(img, DITHER_PERCEPTUAL,
                                  INIT_HASH_DITHER_PERCEPTUAL, "phase 12")
     runs["dither_perceptual"] = phase_main_path(
         img, init_state, smi, DITHER_PERCEPTUAL, "phase 13",
-        "dithered perceptual", (c, d), 1)
-    path_of = {d: "perceptual", g: "dither"}
+        "dithered perceptual", (a, b, g), 0)
+
+    img240 = np.ascontiguousarray(img[:240])
+    records[-1:-1] = phase_kernels_ef(img240)  # A, B, C, D, E, F, G
+    phase_kernel_b_geometry(img240, by_name["multiscale_feature_sums"])
+    init_state = phase_init_hash(img240, GEOMETRY, INIT_HASH_240, "phase 16")
+    runs["geometry"] = phase_main_path(
+        img240, init_state, smi, GEOMETRY, "phase 17", "balanced", (a, b, e),
+        0)
+    init_state = phase_init_hash(img240, GEOMETRY_PERCEPTUAL,
+                                 INIT_HASH_240_PERCEPTUAL, "phase 18")
+    runs["geometry_perceptual"] = phase_main_path(
+        img240, init_state, smi, GEOMETRY_PERCEPTUAL, "phase 19",
+        "perceptual", (a, b, f), 0)
+    init_state = phase_init_hash(img, REFERENCE, INIT_HASH, "phase 20")
+    runs["reference"] = phase_main_path(
+        img, init_state, smi, REFERENCE, "phase 21", "reference schedule",
+        (a, b), 0)
+    from snesimage_torch.models.presets import preset_fields
+
+    nes = dict(preset_fields("nes-compat"), max_steps=NES_STEPS,
+               converge_tol=0.0, seed=0)
+    init_state = phase_init_hash(img, nes, INIT_HASH_NES, "phase 22")
+    runs["nes"] = phase_main_path(
+        img, init_state, smi, nes, "phase 23", "nes-compat", (a, b), 0,
+        always_replaces=True)
+    init_state = phase_init_hash(img240, GEOMETRY_DITHER,
+                                 INIT_HASH_240_DITHER, "phase 24")
+    runs["geometry_dither"] = phase_main_path(
+        img240, init_state, smi, GEOMETRY_DITHER, "phase 25", "dithered",
+        (a, b, g), 0)
+    phase_kernel_b_unprescreened(img, by_name["multiscale_feature_sums"])
+    phase_kernels_geometry_dither(
+        img240, by_name["select_colors"], by_name["multiscale_feature_sums"],
+        records[-1])
+    path_of = {d: "perceptual", g: "dither", e: "geometry",
+               f: "geometry_perceptual"}
     for r in records:
         r["launches_by_path"] = {path: n[r["name"]] for path, n in runs.items()}
         r["launches"] = runs[path_of.get(r["name"], "balanced")][r["name"]]
+    records.sort(key=lambda r: WRAPPERS.index(r["name"]))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -3,22 +3,29 @@
     python3 profile_torch.py [phase ...]
 
 Runs on the bench image (snesimage_torch.testing.bench_image(0)) with the
-balanced, perceptual and dithered profiles of chip_smoke.py, after a
-warm-up run. With no arguments every phase runs; with arguments, only the
-phases named (kernels, seeds, parity, walk, profile). The phases print one
-JSON line each, profiles last:
+balanced, perceptual and dithered profiles of chip_smoke.py, and on its
+first 240 rows (256x240, the route through kernels E and F) with the
+balanced and perceptual ones, after a warm-up run. With no arguments every
+phase runs; with arguments, only the phases named (kernels, pair, seeds,
+parity, walk, profile). The phases print one JSON line each, profiles last:
 
   kernels  device time per call, from CUDA events around 20 launches, of
-           kernel G (red-mean and perceptual, B = 48 and B = 1) and of
-           kernel B at each call shape of the undithered and the dithered
-           visit;
+           kernel G (red-mean and perceptual, B = 48 and B = 1), of kernel
+           B at each call shape of the undithered and the dithered visit,
+           and, at 256x240, of kernels E and F (B = 48) and of kernel B on
+           the 48 quarter-resolution frames assembled from E's sums;
   profile  one channel sweep (360 visits) under torch.profiler, once per
            profile: the device's busy time (the union of its kernel and
            copy intervals), its idle share of the sweep's host-clock time
            (the same sweep unprofiled, timed before any profiler ran),
            device operations per visit, device time by kernel, and device
            time per wrapper call of kernels A, B and C (balanced), A, B
-           and D (perceptual) or A, B and G (dithered);
+           and D (perceptual), A, B and G (dithered) or A, B and E or F
+           (256x240);
+  pair     seconds of the 8-step balanced run at 256x256 and at 256x240
+           taken in turns (256, 240, 240, 256), red-mean and perceptual:
+           the host's clock moves between calls and within one, so two
+           geometries are compared only so;
   seeds    the balanced run's step and final errors for seeds 0, 1, 2;
   parity   once per profile, the run with channel_explore=0 (no random
            draws) for 2 steps on the card, and the same run with the
@@ -49,7 +56,10 @@ from chip_smoke import (
     DITHER,
     DITHER_PERCEPTUAL,
     ERROR_TOL,
+    GEOMETRY,
+    GEOMETRY_PERCEPTUAL,
     PERCEPTUAL,
+    first_visit,
     kernel_wrappers,
     prepared_state,
     visit_candidates,
@@ -64,6 +74,8 @@ KERNEL_OF = {
     "resident_kernel": "multiscale_feature_sums",
     "coarse_redmean_kernel": "coarse_feature_sums_redmean",
     "coarse_ciede_kernel": "coarse_feature_sums_ciede",
+    "pooled_wins_redmean_kernel": "pooled_wins_redmean",
+    "pooled_wins_ciede_kernel": "pooled_wins_ciede",
     "dither_remap_kernel": "dither_remap_candidates",
 }
 SEEDS = (0, 1, 2)
@@ -96,12 +108,31 @@ def _device_ms(fn, runs: int = 20) -> float:
 
 
 def phase_kernels(img):
-    """Device ms per call of kernels G and B at the paths' call shapes."""
+    """Device ms per call of kernels G, B, E and F at the paths' call
+    shapes."""
     from snesimage_torch.core import refine
-    from snesimage_torch.ops import cuda_dither, cuda_metric
+    from snesimage_torch.ops import cuda_dither, cuda_metric, cuda_prescreen
 
     out = {"phase": "kernels", "dither_remap_candidates": {},
            "multiscale_feature_sums": {}}
+    img240 = np.ascontiguousarray(img[:240])
+    for name, wrapper, params in (
+            ("pooled_wins_redmean", cuda_prescreen.pooled_wins_redmean,
+             GEOMETRY),
+            ("pooled_wins_ciede", cuda_prescreen.pooled_wins_ciede,
+             GEOMETRY_PERCEPTUAL)):
+        _, refp, ctx, cand8, cand_lin = first_visit(img240, params)
+        args = refine.pooled_inputs(ctx, cand8)
+        out[name] = {"B=48, 256x240": _device_ms(lambda: wrapper(*args))}
+        if name == "pooled_wins_redmean":
+            quarter = cuda_prescreen.coarse_frames(
+                wrapper(*args), cand_lin,
+                refine.ds4_no_candidate(ctx)).contiguous()
+            refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[s])
+                         for s in range(2, 6))
+            out["multiscale_feature_sums"]["256x240: B=48 of 60x64, n=4"] = (
+                _device_ms(lambda: cuda_metric.multiscale_feature_sums(
+                    refs, quarter)))
     for label, params in (("red-mean", DITHER),
                           ("perceptual", DITHER_PERCEPTUAL)):
         state, config = prepared_state(img, params)
@@ -205,6 +236,24 @@ def phase_profile(label: str, config, sweep, wall: float):
         "other_device_ms": glue_ms,
         "top_device_ms": [[name[:80], us / 1e3] for name, us in top],
     }
+
+
+def phase_pair(img):
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline
+
+    img240 = np.ascontiguousarray(img[:240])
+    out = {"phase": "pair", "order": ["256x256", "256x240", "256x240",
+                                      "256x256"]}
+    for label, square, cut in (("red-mean", BALANCED, GEOMETRY),
+                               ("perceptual", PERCEPTUAL,
+                                GEOMETRY_PERCEPTUAL)):
+        turns = ((img, square), (img240, cut), (img240, cut), (img, square))
+        out[label] = [
+            pipeline.run_fused(image, QuantConfig(**params),
+                               device="cuda")[2]["total_seconds"]
+            for image, params in turns]
+    return out
 
 
 def phase_seeds(img, seeds):
@@ -383,17 +432,22 @@ def main() -> int:
     from snesimage_torch.core import pipeline
     from snesimage_torch.testing import bench_image
 
-    phases = set(sys.argv[1:]) or {"kernels", "seeds", "parity", "walk",
-                                   "profile"}
+    phases = set(sys.argv[1:]) or {"kernels", "pair", "seeds", "parity",
+                                   "walk", "profile"}
     img = bench_image(0)
+    img240 = np.ascontiguousarray(img[:240])
     profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
                 "dither": DITHER}
-    for params in profiles.values():  # build and warm up
-        pipeline.run_fused(img, QuantConfig(**dict(params, max_steps=1)),
-                           device="cuda")
+    geometry = {"256x240": GEOMETRY, "256x240 perceptual": GEOMETRY_PERCEPTUAL}
+    for image, group in ((img, profiles), (img240, geometry)):
+        for params in group.values():  # build and warm up
+            pipeline.run_fused(image, QuantConfig(**dict(params, max_steps=1)),
+                               device="cuda")
     sweeps, walls = {}, {}
     if "profile" in phases:
         sweeps = {label: _sweeper(img, p) for label, p in profiles.items()}
+        sweeps.update((label, _sweeper(img240, p))
+                      for label, p in geometry.items())
         # Every unprofiled time is taken before any profiler has run.
         walls = {label: sweep() for label, (_, sweep) in sweeps.items()}
     # The explore-off parity runs again on the CPU with the twins; the
@@ -401,6 +455,7 @@ def main() -> int:
     # the dithered path is walked over its first visits only.
     todo = [
         ("kernels", lambda: phase_kernels(img)),
+        ("pair", lambda: phase_pair(img)),
         ("seeds", lambda: phase_seeds(img, SEEDS)),
         *(("parity", lambda label=label, p=p: phase_parity(
             img, label, p, PARITY_STEPS))

@@ -3,6 +3,7 @@
 Public API:
     QuantConfig, QuantState, new_state — configuration and state of tensors
     core.pipeline.run_fused — initialize, cluster and refine in one call
+    models.presets.get_preset — named hardware targets as QuantConfigs
     io.json_out.state_to_json — the reference-compatible output contract
 """
 

@@ -5,8 +5,8 @@ per-tile mean colors over opaque pixels (tiles whose channel sum is zero
 excluded), k-means of tile means into subpalettes, flat-filled initial
 palettes, and per-subpalette pixel k-means. The k-means runs on RGB, or on
 CIELAB with `perceptual_palettes`. Pixels are visited in the reference's
-x-outer / y-inner tile order, which fixes the first-k k-means seeding. NES
-palettes are not ported yet (ROADMAP queue A item 12).
+x-outer / y-inner tile order, which fixes the first-k k-means seeding. With
+`nes` every quantised colour is snapped to the 56 NES colours.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from snesimage_torch.config import QuantConfig
 from snesimage_torch.core.state import QuantState
 from snesimage_torch.ops.color import (
     lab_to_srgb_u8,
+    nes_quantize,
     round_half_away_nonneg,
     srgb_u8_to_lab,
 )
@@ -44,13 +45,6 @@ def _tile_init_order(config: QuantConfig) -> np.ndarray:
     return np.arange(ht * wt).reshape(ht, wt).T.reshape(-1)
 
 
-def _check_rgb_mode(config: QuantConfig) -> None:
-    if config.nes:
-        raise NotImplementedError(
-            "NES palettes are not ported yet (ROADMAP queue A item 12)"
-        )
-
-
 def tile_pixels(
     state: QuantState, config: QuantConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -70,20 +64,24 @@ def _color_coords(rgb_u8: torch.Tensor, perceptual: bool) -> torch.Tensor:
     return rgb_u8.to(torch.float32)
 
 
-def _quantize_center(center: torch.Tensor, perceptual: bool) -> torch.Tensor:
+def _quantize_center(center: torch.Tensor, config: QuantConfig) -> torch.Tensor:
     """Cluster mean -> 5-bit color (src/lib.rs:140-171, 368-401): a Lab
     mean goes to 8-bit sRGB and is truncated by `// 8`; an RGB mean is
-    rounded, round(mean / 8) half away from zero, and clipped to 31."""
-    if perceptual:
-        return lab_to_srgb_u8(center) // 8
-    return round_half_away_nonneg(center / 8.0).to(torch.int32).clamp(0, 31)
+    rounded, round(mean / 8) half away from zero, and clipped to 31. NES
+    mode snaps the result to the 56 NES colours."""
+    if config.perceptual_palettes:
+        rgb5 = lab_to_srgb_u8(center) // 8
+    else:
+        rgb5 = round_half_away_nonneg(center / 8.0).to(torch.int32).clamp(0, 31)
+    if config.nes:
+        rgb5 = nes_quantize(rgb5, config.perceptual_palettes)
+    return rgb5
 
 
 def assign_tiles(state: QuantState, config: QuantConfig) -> QuantState:
     """Cluster tile means into subpalettes and flat-fill initial palettes
     (src/lib.rs:79-189 minus the final remap). Identity when
     subpalette_count == 1."""
-    _check_rgb_mode(config)
     if config.subpalette_count == 1:
         return state
     rgb, opaque = tile_pixels(state, config)
@@ -105,7 +103,7 @@ def assign_tiles(state: QuantState, config: QuantConfig) -> QuantState:
     tp = torch.where(valid, km.assignments, 0).reshape(
         config.height_tiles, config.width_tiles
     )
-    colors5 = _quantize_center(km.centers, config.perceptual_palettes)
+    colors5 = _quantize_center(km.centers, config)
     palette = (
         colors5[:, None, :]
         .expand(config.subpalette_count, config.subpalette_size, 3)
@@ -117,7 +115,6 @@ def assign_tiles(state: QuantState, config: QuantConfig) -> QuantState:
 def recalculate_palettes(state: QuantState, config: QuantConfig) -> QuantState:
     """Per-subpalette pixel k-means into subpalette_size colors
     (src/lib.rs:330-415 minus the final remap), all subpalettes batched."""
-    _check_rgb_mode(config)
     rgb, opaque = tile_pixels(state, config)
     coords = _color_coords(rgb, config.perceptual_palettes).reshape(-1, 3)
     tile_of_pixel = state.tile_palettes.reshape(-1).repeat_interleave(64)
@@ -127,5 +124,5 @@ def recalculate_palettes(state: QuantState, config: QuantConfig) -> QuantState:
     masks = (tile_of_pixel[None, :] == palettes[:, None]) & opaque.reshape(-1)
     km = lloyd_kmeans(coords, masks, config.subpalette_size)
     return state.replace(
-        palette=_quantize_center(km.centers, config.perceptual_palettes)
+        palette=_quantize_center(km.centers, config)
     )

@@ -1,4 +1,4 @@
-"""End-to-end pipeline: the balanced profile's main path.
+"""End-to-end pipeline.
 
 Counterpart of snesimage_tpu/core/pipeline.py `initialize`, `cluster` and
 `run_fused`:
@@ -7,8 +7,11 @@ Counterpart of snesimage_tpu/core/pipeline.py `initialize`, `cluster` and
                     (reference `initialize_tiles`, src/lib.rs:79-189);
   2. `cluster`    — per-subpalette pixel k-means and remap (reference
                     `recalculate_palettes`, src/lib.rs:407-415);
-  3. the reference pyramid, then `max_steps` channel sweeps
-     (core/refine.py) with `_optimize_fused`'s stop rule.
+  3. the reference pyramid, then up to `max_steps` sweeps (core/refine.py)
+     in the schedule and with the stop rule of `_optimize_fused`: NES
+     sweeps with `nes`; channel sweeps with `schedule="channel"`; else the
+     reference's cycle of four random sweeps and one channel sweep
+     (src/lib.rs:888-932).
 
 The steps run eagerly on the state's device. The run waits for the device
 once, at the end, unless `converge_tol > 0`: the stop rule then reads each
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from snesimage_torch.config import QuantConfig
+from snesimage_torch.constants import RANDOM_STEPS_PER_CYCLE, SCHEDULE_CYCLE
 from snesimage_torch.core import refine
 from snesimage_torch.core.init import assign_tiles, recalculate_palettes
 from snesimage_torch.core.state import QuantState, new_state
@@ -46,26 +50,56 @@ def cluster(state: QuantState, config: QuantConfig) -> QuantState:
     return refine.full_remap(state, config)
 
 
+def _stop_cycle(config: QuantConfig) -> int:
+    """Steps between the two errors the stop rule compares: the reference
+    schedule mixes weak random steps with strong channel steps, so it
+    compares one whole cycle apart; the channel and NES schedules compare
+    successive steps."""
+    if config.nes or config.schedule == "channel":
+        return 1
+    return SCHEDULE_CYCLE
+
+
+def step_method(config: QuantConfig, step: int) -> str:
+    """Which sweep step `step` runs: "nes", "random" or "channel"."""
+    if config.nes:
+        return "nes"
+    if (config.schedule == "channel"
+            or step % SCHEDULE_CYCLE >= RANDOM_STEPS_PER_CYCLE):
+        return "channel"
+    return "random"
+
+
 def _optimize(state, config, refp):
-    """Channel sweeps with the stop rule of the JAX package's
-    `_optimize_fused`: stop once a step improves the exact error by less
-    than `converge_tol` (0 = a fixed budget of `max_steps` steps).
-    Returns (state, per-step errors as a 1-d tensor)."""
-    generator = None
-    if config.channel_explore > 0:
-        generator = torch.Generator(device=state.device)
-        generator.manual_seed(config.seed)
+    """The sweeps of `step_method` with the stop rule of the JAX package's
+    `_optimize_fused`: stop once a step's exact error improves on the
+    error `_stop_cycle` steps before by less than `converge_tol` (0 = a
+    fixed budget of `max_steps` steps). Random candidates and explore
+    draws come from one generator seeded with `config.seed`. Returns
+    (state, per-step errors as a 1-d tensor)."""
+    generator = torch.Generator(device=state.device)
+    generator.manual_seed(config.seed)
+    explore = generator if config.channel_explore > 0 else None
     err = refine.frame_error_fused(state, config, refp)
     errors = []
-    prev = float("inf")  # the first step never stops the run
-    for _ in range(config.max_steps):
-        state, err = refine.sweep_channel(state, config, refp, err, generator)
+    cycle = _stop_cycle(config)
+    window = [float("inf")] * cycle  # the first cycle never stops the run
+    for step in range(config.max_steps):
+        method = step_method(config, step)
+        if method == "nes":
+            state, err = refine.sweep_nes(state, config, refp, err)
+        elif method == "random":
+            state, err = refine.sweep_random(state, config, refp, generator,
+                                             err)
+        else:
+            state, err = refine.sweep_channel(state, config, refp, err,
+                                              explore)
         errors.append(err)
         if config.converge_tol > 0:
             full = float(err)
-            if prev - full < config.converge_tol:
+            if window[step % cycle] - full < config.converge_tol:
                 break
-            prev = full
+            window[step % cycle] = full
     if not errors:
         return state, err.new_empty((0,))
     return state, torch.stack(errors)

@@ -1,24 +1,38 @@
-"""Palette refinement: the balanced profile's channel sweeps.
+"""Palette refinement: slot visits and the sweeps over them.
 
-Counterpart of the main-path slice of snesimage_tpu/core/refine.py. A
-channel sweep visits every (subpalette, entry, channel) slot once; a visit
-scores the 32 values of that channel plus `channel_explore` random
-full-RGB candidates and keeps the best only if it beats the carried exact
-error by more than `accept_margin`.
+Counterpart of snesimage_tpu/core/refine.py. A visit of slot (p, i) scores
+a batch of candidate colours for that palette entry and keeps one:
 
-A visit scores candidates in three stages (the two-level prescreen):
-  1. kernel C (red-mean) or kernel D (perceptual) ranks every candidate by
-     the exact scale-2..5 score of its quarter-resolution frame, built from
-     pooled win masks; kernel D also returns each candidate's CIEDE2000
-     distance plane;
-  2. the top `prescreen` get full-resolution frames, scored at scale 1
-     by kernel B (one in-kernel 2x2 mean first);
-  3. the top `prescreen_full` of those are scored at scale 0 by kernel B.
-Unscored candidates report +inf. Ties in both rankings go to the lower
-candidate index (`_smallest`), as `jax.lax.top_k` orders them. In
-perceptual mode the finalists' win masks come from kernel D's distance
-planes, as in the JAX package, and so do the accepted colour's palette map
-and cache plane, which the JAX package recomputes.
+- a channel visit scores the 32 values of one channel plus
+  `channel_explore` random full-RGB candidates, a random visit
+  `random_trials` random candidates; both keep the best only if it beats
+  the current exact error by more than `accept_margin`;
+- a NES visit scores the 56 NES colours and always takes the best, even
+  when it is worse than the current colour (src/lib.rs:242-284).
+
+The sweeps carry the exact error of the current state from visit to visit
+(`carried_base`). The per-slot functions `refine_slot_*` score the current
+colour inside the batch instead, as row 0, which every ranking keeps.
+
+With `prescreen` K > 0 a visit scores its candidates in stages:
+  1. every candidate is ranked by the exact scale-2..5 score of its
+     quarter-resolution frame, built from pooled win masks: one launch of
+     kernel C (red-mean) or D (perceptual) where the image's sides are
+     multiples of 32, else kernel E or F for the pooled sums, the frame
+     assembly in torch and kernel B on the frames. D and F also return each
+     candidate's CIEDE2000 distance plane;
+  2. the top K get full-resolution frames. With `prescreen_full` M in
+     (0, K) they are ranked at scale 1 by kernel B (one in-kernel 2x2 mean
+     first) and the top M scored at scale 0; otherwise all K are scored at
+     scales 0 and 1 in one call.
+Unscored candidates report +inf. Without a prescreen (K = 0, a batch no
+larger than K, or a NES visit, where a misranked candidate would be taken
+even if worse) every candidate's frame goes through kernel B at all six
+scales in one call. Ties in every ranking go to the lower candidate index
+(`_smallest`), as `jax.lax.top_k` orders them. In perceptual mode the
+finalists' win masks come from kernel D's or F's distance planes, as in the
+JAX package, and so do the accepted colour's palette map and cache plane,
+which the JAX package recomputes.
 
 The undithered remap is incremental, as in the JAX package: the (S, H, W)
 distance cache `d_all` (int32 red-mean, or float32 CIEDE2000 with the
@@ -29,23 +43,23 @@ to the lowest index (src/lib.rs:780-792).
 With `config.dither` the remap is the Floyd-Steinberg wavefront (kernel
 G, ops/cuda_dither.py) and there is no distance cache: a visit remaps the
 whole image once per candidate in one launch, renders every map to a
-full-resolution frame (kernel A, batched over candidates), scores all
-frames at scales 2..5 (kernel B after two in-kernel 2x2 means), the top
-`prescreen` at scale 1 and the top `prescreen_full` at scale 0. The
-accepted colour's map is its row of kernel G's output, which equals the
-full remap with the new palette, so no second wavefront runs.
+full-resolution frame (kernel A, batched over candidates) and scores the
+frames in the same stages, kernel B taking them down for the coarse rank
+(two in-kernel 2x2 means). The accepted colour's map is its row of kernel
+G's output, which equals the full remap with the new palette, so no second
+wavefront runs.
 
 Everything stays on the device: accept, reject and the carried error are
 `torch.where`s, and a sweep never waits for the device.
 
 Not ported yet, and raising NotImplementedError (`check_slice`): the dither
-proxy, NES palettes, the reference random schedule, the rank-1 gate, windowed
-visits and the three-level prescreen.
+proxy, the rank-1 gate, windowed visits and the three-level prescreen.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +67,7 @@ from snesimage_torch.config import QuantConfig
 from snesimage_torch.core.state import QuantState
 from snesimage_torch.ops.color import (
     expand_5bit_to_8bit,
+    nes_palette_5bit,
     red_mean_sq_scaled,
     srgb_u8_to_lab,
     srgb_u8_to_linear,
@@ -61,8 +76,14 @@ from snesimage_torch.ops.cuda_dither import dither_remap_candidates
 from snesimage_torch.ops.cuda_metric import (
     coarse_feature_sums_ciede,
     coarse_feature_sums_redmean,
+    fused_coarse_ok,
 )
-from snesimage_torch.ops.cuda_prescreen import select_colors
+from snesimage_torch.ops.cuda_prescreen import (
+    coarse_frames,
+    pooled_wins_ciede,
+    pooled_wins_redmean,
+    select_colors,
+)
 from snesimage_torch.ops.remap import (
     entry_distances,
     remap_undithered,
@@ -75,8 +96,6 @@ from snesimage_torch.ops.ssimulacra2 import (
     fused_scale_feature_block,
     reference_pyramid,
     score_from_features,
-    score_from_ssim_sum,
-    ssim_weighted_sum,
 )
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -88,17 +107,14 @@ def check_slice(config: QuantConfig) -> None:
     """Raises NotImplementedError, naming its ROADMAP item, for every
     option outside the ported main path."""
     missing = [
-        (config.nes, "NES palettes (ROADMAP queue A item 12)"),
-        (config.schedule != "channel",
-         "the reference random schedule (queue A item 10)"),
         (config.gate_margin > 0 or config.gate_coarse,
-         "the rank-1 gate (queue A item 11)"),
-        (config.channel_window > 0, "windowed visits (queue A item 17)"),
+         "the rank-1 gate (ROADMAP queue A item 11)"),
+        (config.channel_window > 0,
+         "windowed visits (ROADMAP queue A item 17)"),
         (config.prescreen_pre > 0,
-         "the three-level prescreen (queue A item 17)"),
-        (config.dither_proxy > 0, "the dither proxy (queue A item 17)"),
-        (not 0 < config.prescreen_full < config.prescreen,
-         "scoring without the two-level prescreen (queue A item 10)"),
+         "the three-level prescreen (ROADMAP queue A item 17)"),
+        (config.dither_proxy > 0,
+         "the dither proxy (ROADMAP queue A item 17)"),
     ]
     for off_slice, what in missing:
         if off_slice:
@@ -232,25 +248,19 @@ def slot_context(state: QuantState, config: QuantConfig, p: int, i: int,
     )
 
 
-def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
-                  cand_lin: torch.Tensor, refp):
-    """The arguments of kernel C (red-mean) or kernel D (perceptual) for
-    candidates (cand8, cand_lin)."""
-    h, w = ctx.best_val.shape
+def pooled_inputs(ctx: SlotContext, cand8: torch.Tensor):
+    """The arguments of kernel E (red-mean) or kernel F (perceptual) for
+    8-bit candidates `cand8`; their last is the masked no-candidate
+    frame."""
     mask = ctx.affected & ctx.opaque
     adj = (ctx.i < ctx.best_idx).to(torch.int32)
     ml = torch.where(mask[None], ctx.lnc, 0.0)
-    ds4_l = ctx.lnc.reshape(3, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
-    flat_refs = tuple(
-        a.permute(2, 0, 1) for sc in range(2, NUM_SCALES) for a in refp[sc]
-    )
     if ctx.perceptual:
         # Float win rule (d < bvalm) | (d == bvalm & adj): the tie rule
         # cannot fold into the threshold; masked pixels never win.
         bvalm = torch.where(mask, ctx.best_val, -_BIG)
         return (ctx.target_lab.permute(2, 0, 1).contiguous(),
-                srgb_u8_to_lab(cand8), cand_lin, bvalm, adj, ml, ds4_l,
-                flat_refs)
+                srgb_u8_to_lab(cand8), bvalm, adj, ml)
     # Integer win threshold with the tie rule and the mask folded in: a
     # candidate wins a pixel where its distance is below bva.
     bva = torch.where(
@@ -259,66 +269,124 @@ def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
                     ctx.best_val + adj),
         INT32_MIN,
     )
-    return (ctx.target_u8.permute(2, 0, 1).contiguous(), cand8, cand_lin,
-            bva, ml, ds4_l, flat_refs)
+    return ctx.target_u8.permute(2, 0, 1).contiguous(), cand8, bva, ml
+
+
+def ds4_no_candidate(ctx: SlotContext) -> torch.Tensor:
+    """(3, H/4, W/4) exact 4x4 means of the no-candidate frame."""
+    h, w = ctx.best_val.shape
+    return ctx.lnc.reshape(3, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
+
+
+def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
+                  cand_lin: torch.Tensor, refp):
+    """The arguments of kernel C (red-mean) or kernel D (perceptual) for
+    candidates (cand8, cand_lin): those of kernel E or F, the candidates'
+    linear colours, the 4x4 means of the no-candidate frame and the
+    reference planes of scales 2..5."""
+    target, cand, *rule, ml = pooled_inputs(ctx, cand8)
+    flat_refs = tuple(
+        a.permute(2, 0, 1) for sc in range(2, NUM_SCALES) for a in refp[sc]
+    )
+    return (target, cand, cand_lin, *rule, ml, ds4_no_candidate(ctx),
+            flat_refs)
 
 
 def candidate_frames(ctx: SlotContext, dist: torch.Tensor,
                      cand_lin: torch.Tensor) -> torch.Tensor:
     """(n, 3, H, W) full-resolution linear frames of n candidates from
-    their (n, H, W) distance planes. In perceptual mode this is kernel D's
-    win rule: (d < bvalm) | (d == bvalm & adj), bvalm = -3e38 off the
-    mask."""
+    their (n, H, W) distance planes. In perceptual mode this is the win
+    rule of kernels D and F: (d < bvalm) | (d == bvalm & adj), bvalm =
+    -3e38 off the mask."""
     wins = ctx.affected & ctx.opaque & ctx.wins(dist)
     return torch.where(wins[:, None], cand_lin[:, :, None, None],
                        ctx.lnc[None])
 
 
-def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
-                     cand5: torch.Tensor):
-    """(B,) float32 exact errors of the candidates the two-level prescreen
-    keeps, +inf for the rest; and `dists`, which gives the (n, H, W)
-    distance planes of candidates `ix` (kernel D's rows in perceptual
-    mode)."""
+def _keep(rank: torch.Tensor, k: int, base_rows: int) -> torch.Tensor:
+    """Indices of the k rows of `rank` with the lowest values (`_smallest`).
+    With an in-batch baseline (`base_rows` = 1) row 0 is kept besides, and
+    comes first."""
+    if not base_rows:
+        return _smallest(rank, k)
+    first = torch.zeros(1, dtype=torch.long, device=rank.device)
+    return torch.cat([first, _smallest(rank[1:], k) + 1])
+
+
+def _score_finalists(refp, feats_c: torch.Tensor, build, config: QuantConfig,
+                     base_rows: int) -> torch.Tensor:
+    """(B,) exact errors of the candidates that the prescreen keeps, +inf
+    for the rest, from all candidates' scale-2..5 features `feats_c`;
+    `build(ix)` gives the full-resolution frames of candidates `ix`."""
     k, m = config.prescreen, config.prescreen_full
+    sel = _keep(100.0 - score_from_features(feats_c), k, base_rows)
+    if 0 < m < k:
+        feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1)
+        rank1 = 100.0 - score_from_features(feats_1 + feats_c[sel])
+        sel2 = _keep(rank1, m, base_rows)
+        sel, feats_1 = sel[sel2], feats_1[sel2]
+        fine = fused_scale_feature_block(refp, build(sel), 0, 1) + feats_1
+    else:
+        fine = fused_scale_feature_block(refp, build(sel), 0, 2)
+    full = 100.0 - score_from_features(fine + feats_c[sel])
+    errs = torch.full((feats_c.shape[0],), float("inf"), device=full.device)
+    return errs.scatter(0, sel, full)
+
+
+def _prescreens(config: QuantConfig, b: int, allow_prescreen: bool,
+                base_rows: int) -> bool:
+    return bool(config.prescreen and allow_prescreen
+                and b > config.prescreen + base_rows)
+
+
+def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
+                     cand5: torch.Tensor, allow_prescreen: bool = True,
+                     carried_base: bool = True):
+    """(B,) float32 exact errors of the candidates `cand5`, +inf for those
+    a prescreen dropped; and `dists`, which gives the (n, H, W) distance
+    planes of candidates `ix` (kernel D's or F's rows in perceptual mode).
+    Without `carried_base` row 0 is the current colour and survives every
+    ranking."""
     b = cand5.shape[0]
-    if not 0 < m < k < b:
-        raise NotImplementedError(
-            "only the two-level prescreen with more candidates than "
-            "prescreen is ported"
-        )
+    base_rows = 0 if carried_base else 1
+    h, w = ctx.best_val.shape
+    prescreened = _prescreens(config, b, allow_prescreen, base_rows)
+    fused = prescreened and fused_coarse_ok(h, w)
     cand8 = expand_5bit_to_8bit(cand5)  # (B, 3)
     cand_lin = srgb_u8_to_linear(cand8)
-    sizes = [refp[sc][0].shape[0] * refp[sc][0].shape[1]
-             for sc in range(2, NUM_SCALES)]
-    args = coarse_inputs(ctx, cand8, cand_lin, refp)
-    if ctx.perceptual:
-        sums, dcand = coarse_feature_sums_ciede(*args)
+    sums = pooled = dcand = None
+    if fused and ctx.perceptual:
+        sums, dcand = coarse_feature_sums_ciede(
+            *coarse_inputs(ctx, cand8, cand_lin, refp))
+    elif fused:
+        sums = coarse_feature_sums_redmean(
+            *coarse_inputs(ctx, cand8, cand_lin, refp))
+    elif ctx.perceptual:
+        # Also without a prescreen: the frames below need every
+        # candidate's distance plane, and kernel F writes them.
+        pooled, dcand = pooled_wins_ciede(*pooled_inputs(ctx, cand8))
+    elif prescreened:
+        pooled = pooled_wins_redmean(*pooled_inputs(ctx, cand8))
 
-        def dists(ix):
-            return dcand[ix]
-    else:
-        sums = coarse_feature_sums_redmean(*args)
-
-        def dists(ix):
-            return ctx.cand_dist(cand8[ix])
+    def dists(ix):
+        return dcand[ix] if ctx.perceptual else ctx.cand_dist(cand8[ix])
 
     def build(ix):
         return candidate_frames(ctx, dists(ix), cand_lin[ix])
 
-    feats_c = finalize_feature_sums(sums, sizes, 2)
-    sel = _smallest(100.0 - score_from_features(feats_c), k)
-
-    feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1)
-    rank1 = 100.0 - score_from_ssim_sum(
-        ssim_weighted_sum(feats_1 + feats_c[sel])
-    )
-    sel2 = _smallest(rank1, m)
-    sel_f = sel[sel2]
-    feats_0 = fused_scale_feature_block(refp, build(sel_f), 0, 1)
-    full = 100.0 - score_from_features(feats_0 + feats_1[sel2] + feats_c[sel_f])
-    errs = torch.full((b,), float("inf"), device=full.device)
-    return errs.scatter(0, sel_f, full), dists
+    if not prescreened:
+        feats = fused_scale_feature_block(refp, build(slice(None)), 0,
+                                          NUM_SCALES)
+        return 100.0 - score_from_features(feats), dists
+    if fused:
+        sizes = [refp[sc][0].shape[0] * refp[sc][0].shape[1]
+                 for sc in range(2, NUM_SCALES)]
+        feats_c = finalize_feature_sums(sums, sizes, 2)
+    else:
+        frames_q = coarse_frames(pooled, cand_lin, ds4_no_candidate(ctx))
+        feats_c = fused_scale_feature_block(refp, frames_q, 2,
+                                            NUM_SCALES - 2)
+    return _score_finalists(refp, feats_c, build, config, base_rows), dists
 
 
 def _undithered_machinery(
@@ -329,9 +397,9 @@ def _undithered_machinery(
     except that the last two take the chosen colour's (H, W) distance
     plane (from `dists`) where the JAX package's take the colour:
 
-      errors(refp, cand5, carried_base=True) -> ((B,) float32 errors, +inf
-        for candidates the prescreen dropped; `dists`, as returned by
-        `candidate_errors`);
+      errors(refp, cand5, allow_prescreen=True, carried_base=True) ->
+        ((B,) float32 errors, +inf for candidates a prescreen dropped;
+        `dists`, as returned by `candidate_errors`);
       final_map(dist) -> (H, W) palette_map with slot i set to the colour;
       new_d_all(dist) -> the distance cache with slot i set to the colour.
 
@@ -342,13 +410,9 @@ def _undithered_machinery(
         d_all = compute_d_all(state, config)
     ctx = slot_context(state, config, p, i, d_all, t_lab)
 
-    def errors(refp, cand5, carried_base=True):
-        if not carried_base:
-            raise NotImplementedError(
-                "in-batch baselines are not ported yet (ROADMAP queue A "
-                "item 10)"
-            )
-        return candidate_errors(ctx, config, refp, cand5)
+    def errors(refp, cand5, allow_prescreen=True, carried_base=True):
+        return candidate_errors(ctx, config, refp, cand5, allow_prescreen,
+                                carried_base)
 
     def final_map(dist):
         idx = torch.where(
@@ -393,34 +457,28 @@ def candidate_frames_dithered(state: QuantState, config: QuantConfig, p: int,
 
 
 def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
-                               p: int, i: int, cand5: torch.Tensor):
-    """(B,) float32 exact errors of the dithered candidates the two-level
-    prescreen keeps, +inf for the rest, and all candidates' (B, H, W)
-    palette maps."""
-    k, m = config.prescreen, config.prescreen_full
-    b = cand5.shape[0]
-    if not 0 < m < k < b:
-        raise NotImplementedError(
-            "only the two-level prescreen with more candidates than "
-            "prescreen is ported"
-        )
+                               p: int, i: int, cand5: torch.Tensor,
+                               allow_prescreen: bool = True,
+                               carried_base: bool = True):
+    """(B,) float32 exact errors of the dithered candidates `cand5`, +inf
+    for those a prescreen dropped, and all candidates' (B, H, W) palette
+    maps. Without `carried_base` row 0 is the current colour and survives
+    every ranking."""
+    base_rows = 0 if carried_base else 1
     maps = dither_remap_candidates(
         state.rgb, state.alpha, state.tile_palettes, state.palette, p, i,
         cand5, config.perceptual_palettes,
     )
     frames = candidate_frames_dithered(state, config, p, i, cand5, maps)
+    if not _prescreens(config, cand5.shape[0], allow_prescreen, base_rows):
+        feats = fused_scale_feature_block(refp, frames, 0, NUM_SCALES)
+        return 100.0 - score_from_features(feats), maps
     # The coarse rank takes the full-resolution frames down inside kernel B.
     feats_c = fused_scale_feature_block(refp, frames, 2, NUM_SCALES - 2,
                                         pre_ds=2)
-    sel = _smallest(100.0 - score_from_features(feats_c), k)
-    feats_1 = fused_scale_feature_block(refp, frames[sel], 1, 1, pre_ds=1)
-    rank1 = 100.0 - score_from_features(feats_1 + feats_c[sel])
-    sel2 = _smallest(rank1, m)
-    sel_f = sel[sel2]
-    feats_0 = fused_scale_feature_block(refp, frames[sel_f], 0, 1)
-    full = 100.0 - score_from_features(feats_0 + feats_1[sel2] + feats_c[sel_f])
-    errs = torch.full((b,), float("inf"), device=full.device)
-    return errs.scatter(0, sel_f, full), maps
+    errs = _score_finalists(refp, feats_c, lambda ix: frames[ix], config,
+                            base_rows)
+    return errs, maps
 
 
 def _dithered_machinery(state: QuantState, config: QuantConfig, p: int,
@@ -430,46 +488,79 @@ def _dithered_machinery(state: QuantState, config: QuantConfig, p: int,
     candidates' palette maps (kernel G's rows), `final_map` takes such a
     row as it is, and there is no distance cache (None)."""
 
-    def errors(refp, cand5, carried_base=True):
-        if not carried_base:
-            raise NotImplementedError(
-                "in-batch baselines are not ported yet (ROADMAP queue A "
-                "item 10)"
-            )
-        errs, maps = _candidate_errors_dithered(state, config, refp, p, i,
-                                                cand5)
+    def errors(refp, cand5, allow_prescreen=True, carried_base=True):
+        errs, maps = _candidate_errors_dithered(
+            state, config, refp, p, i, cand5, allow_prescreen, carried_base)
         return errs, lambda ix: maps[ix]
 
     return errors, lambda pm: pm, None
 
 
-def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
-          base_err, p, i, accept_margin):
-    """Accept the best candidate only if it beats the carried exact error
-    by more than accept_margin; returns (state, error, d_all). A rejected
-    visit returns the incoming state and cache. `d_all` and `new_d_all`
-    are None on the dithered path, which carries no cache."""
-    cand_errs, dists = errors(refp, cand5, carried_base=True)
-    bidx = torch.argmin(cand_errs).view(1)  # first minimum
-    bmin = cand_errs[bidx][0]
-    accept = bmin < base_err - accept_margin
-    color = torch.where(accept, cand5[bidx][0], current)
-    changed = accept & torch.any(color != current)
-    err_out = torch.where(changed, torch.minimum(bmin, base_err), base_err)
+def _slot_machinery(state, config, p, i, d_all, t_lab):
+    if config.dither:
+        return _dithered_machinery(state, config, p, i)
+    return _undithered_machinery(state, config, p, i, d_all, t_lab)
 
-    # Where changed, the colour is candidate bidx; `dist` is its distance
-    # plane, or its palette map on the dithered path.
-    dist = dists(bidx)[0]
+
+def _apply(state, d_all, p, i, color, changed, dist, final_map, new_d_all):
+    """(state, d_all) with slot (p, i) set to `color` where the 0-dim bool
+    `changed` holds, else as they came. `dist` is the colour's distance
+    plane, or its palette map on the dithered path, which carries no
+    cache (`d_all` and `new_d_all` are None there)."""
     palette = state.palette.clone()
     palette[p, i] = color
     state_out = state.replace(
         palette=torch.where(changed, palette, state.palette),
         palette_map=torch.where(changed, final_map(dist), state.palette_map),
     )
-    d_out = None
-    if d_all is not None:
-        d_out = torch.where(changed, new_d_all(dist), d_all)
+    if d_all is None:
+        return state_out, None
+    return state_out, torch.where(changed, new_d_all(dist), d_all)
+
+
+def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
+          base_err, p, i, accept_margin):
+    """Accept the best candidate only if it beats the current exact error
+    by more than accept_margin; returns (state, error, d_all). A rejected
+    visit returns the incoming state and cache. With `base_err` the
+    current error is the carried one; with None the current colour is
+    scored inside the batch, as row 0, by the code that scores the
+    candidates."""
+    base_rows = 1 if base_err is None else 0
+    batch = torch.cat([current[None], cand5]) if base_rows else cand5
+    errs, dists = errors(refp, batch, carried_base=not base_rows)
+    base = errs[0] if base_rows else base_err
+    cand_errs = errs[base_rows:]
+    bidx = torch.argmin(cand_errs).view(1)  # first minimum
+    bmin = cand_errs[bidx][0]
+    accept = bmin < base - accept_margin
+    color = torch.where(accept, cand5[bidx][0], current)
+    changed = accept & torch.any(color != current)
+    err_out = torch.where(changed, torch.minimum(bmin, base), base)
+    # Where changed, the colour is candidate bidx of cand5.
+    state_out, d_out = _apply(state, d_all, p, i, color, changed,
+                              dists(bidx + base_rows)[0], final_map,
+                              new_d_all)
     return state_out, err_out, d_out
+
+
+def _slot_random(state, config, refp, p, i, d_all=None, base_err=None,
+                 generator=None, t_lab=None, cand5=None):
+    """One random visit of slot (p, i): `random_trials` uniform 5-bit
+    candidates drawn from `generator` (or the given `cand5`); the best is
+    kept only if it beats the current error (src/lib.rs:191-240)."""
+    current = state.palette[p, i]
+    if cand5 is None:
+        cand5 = torch.randint(
+            0, 32, (config.random_trials, 3), generator=generator,
+            device=current.device, dtype=torch.int32,
+        )
+    errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
+                                                   t_lab)
+    return _pick(
+        errors, final_map, new_d_all, state, d_all, refp, cand5, current,
+        base_err, p, i, config.accept_margin,
+    )
 
 
 def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
@@ -487,16 +578,92 @@ def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
             device=current.device, dtype=torch.int32,
         )
         sweep5 = torch.cat([sweep5, rand5], dim=0)
-    if config.dither:
-        errors, final_map, new_d_all = _dithered_machinery(state, config, p, i)
-    else:
-        errors, final_map, new_d_all = _undithered_machinery(
-            state, config, p, i, d_all, t_lab
-        )
+    errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
+                                                   t_lab)
     return _pick(
         errors, final_map, new_d_all, state, d_all, refp, sweep5, current,
         base_err, p, i, config.accept_margin,
     )
+
+
+def _slot_nes(state, config, refp, p, i, d_all=None, t_lab=None):
+    """One NES visit: all 56 NES colours scored exactly, and the best
+    always replaces the entry, even if it is worse than the current colour
+    (src/lib.rs:242-284). No prescreen: a misranked candidate would be
+    taken, not merely missed. Returns (state, the best colour's error,
+    d_all)."""
+    current = state.palette[p, i]
+    cand5 = nes_palette_5bit(current.device)
+    errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
+                                                   t_lab)
+    errs, dists = errors(refp, cand5, allow_prescreen=False)
+    bidx = torch.argmin(errs).view(1)  # first minimum
+    color = cand5[bidx][0]
+    state_out, d_out = _apply(
+        state, d_all, p, i, color, torch.any(color != current),
+        dists(bidx)[0], final_map, new_d_all)
+    return state_out, errs[bidx][0], d_out
+
+
+class SlotResult(NamedTuple):
+    """What a per-slot visit returns, as in the JAX package."""
+
+    state: QuantState
+    error: torch.Tensor  # 0-dim float32: the error after the visit
+    changed: torch.Tensor  # 0-dim bool: whether the entry changed
+
+
+def _slot_result(before: QuantState, visit) -> SlotResult:
+    state, err, _ = visit
+    return SlotResult(state, err, torch.any(state.palette != before.palette))
+
+
+def refine_slot_random(state, config, refp, generator, p, i) -> SlotResult:
+    """One random visit with the current colour scored inside the batch."""
+    check_slice(config)
+    return _slot_result(state, _slot_random(state, config, refp, p, i,
+                                            generator=generator))
+
+
+def refine_slot_channel(state, config, refp, p, i, channel,
+                        generator=None) -> SlotResult:
+    """One channel visit with the current colour scored inside the batch."""
+    check_slice(config)
+    return _slot_result(state, _slot_channel(state, config, refp, p, i,
+                                             channel, None, None, generator))
+
+
+def refine_slot_nes(state, config, refp, p, i) -> SlotResult:
+    """One NES visit."""
+    check_slice(config)
+    return _slot_result(state, _slot_nes(state, config, refp, p, i))
+
+
+def _sweep_caches(state, config):
+    """What a sweep carries across its visits beside the state: the
+    distance cache and the target's Lab image; the dithered path has
+    neither."""
+    if config.dither:
+        return None, None
+    return compute_d_all(state, config), target_lab(state, config)
+
+
+def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
+                 base_err=None):
+    """One random step: every slot visited once (src/lib.rs:888-932, steps
+    with step % 5 < 4), C * S visits with their candidates drawn from
+    `generator`. Returns (state, error), the exact error carried through
+    the visits."""
+    check_slice(config)
+    s = config.subpalette_size
+    err = base_err
+    if err is None:
+        err = frame_error_fused(state, config, refp)
+    d_all, t_lab = _sweep_caches(state, config)
+    for k in range(config.subpalette_count * s):
+        state, err, d_all = _slot_random(
+            state, config, refp, k // s, k % s, d_all, err, generator, t_lab)
+    return state, err
 
 
 def sweep_channel(state: QuantState, config: QuantConfig, refp,
@@ -506,15 +673,28 @@ def sweep_channel(state: QuantState, config: QuantConfig, refp,
     exact error of the resulting state, carried through the visits."""
     check_slice(config)
     s = config.subpalette_size
-    if base_err is None:
-        base_err = frame_error_fused(state, config, refp)
-    # carried across the visits; the dithered path has no distance cache
-    d_all = None if config.dither else compute_d_all(state, config)
-    t_lab = None if config.dither else target_lab(state, config)
     err = base_err
+    if err is None:
+        err = frame_error_fused(state, config, refp)
+    d_all, t_lab = _sweep_caches(state, config)
     for k in range(config.subpalette_count * s * 3):
         state, err, d_all = _slot_channel(
             state, config, refp, k // (s * 3), (k // 3) % s, k % 3, d_all,
             err, generator, t_lab,
         )
+    return state, err
+
+
+def sweep_nes(state: QuantState, config: QuantConfig, refp, base_err=None):
+    """One NES step: every slot NES-swept once. Returns (state, error), the
+    error of the last visit's colour, which is the resulting state's.
+    `base_err` is taken for the schedule's sake and not used: a NES visit
+    never compares with the current error."""
+    check_slice(config)
+    s = config.subpalette_size
+    d_all, t_lab = _sweep_caches(state, config)
+    err = None
+    for k in range(config.subpalette_count * s):
+        state, err, d_all = _slot_nes(state, config, refp, k // s, k % s,
+                                      d_all, t_lab)
     return state, err

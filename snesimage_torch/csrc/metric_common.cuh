@@ -1,7 +1,9 @@
 // Device functions shared by the SSIMULACRA2 feature kernels (kernel B,
-// multiscale.cu, and kernel C, coarse_redmean.cu).
+// multiscale.cu, and kernels C and D, coarse_redmean.cu and coarse_ciede.cu).
 //
 // Semantics are those of snesimage_tpu/ops/ssimulacra2.py's XLA path:
+//   2x2 box means between scales, an odd side's last row or column
+//   replicated first (downsample2), so a pyramid need not halve exactly;
 //   linear RGB -> positive XYB (cbrtf, like jnp.cbrt);
 //   17-tap FIR Gaussian blur with zero padding and no renormalisation at
 //   the border (the banded matrices B_h . T . B_w of _blur_matrix);
@@ -116,11 +118,25 @@ __device__ __forceinline__ void block_reduce6(float acc[6], float* red,
   __syncthreads();
 }
 
+// Size of a plane's side after one 2x2 mean: an odd side's last row or
+// column is replicated first (ops/ssimulacra2.py `downsample2`).
+__host__ __device__ constexpr int half_up(int n) { return (n + 1) / 2; }
+
 // Shared-memory floats `resident_scales` needs for a first plane of
-// `pixels` pixels: linear RGB, its 2x2 downsample, XYB, and the three
+// h x w pixels: linear RGB, its 2x2 downsample, XYB, and the three
 // horizontally blurred fields.
-__host__ __device__ constexpr int resident_smem_floats(int pixels) {
-  return 3 * pixels + 3 * (pixels / 4) + 3 * pixels + 3 * pixels;
+__host__ __device__ constexpr int resident_smem_floats(int h, int w) {
+  return 3 * h * w + 3 * half_up(h) * half_up(w) + 3 * h * w + 3 * h * w;
+}
+
+// The 2x2 mean at (y, x) of the h x w plane `src`, the last row or column
+// of an odd side averaged with itself.
+__device__ __forceinline__ float ds2_at(const float* src, int h, int w, int y,
+                                        int x) {
+  const int y0 = 2 * y, x0 = 2 * x;
+  const int y1 = min(y0 + 1, h - 1), x1 = min(x0 + 1, w - 1);
+  return (src[y0 * w + x0] + src[y0 * w + x1] + src[y1 * w + x0] +
+          src[y1 * w + x1]) * 0.25f;
 }
 
 // Runs scales [0, n_scales) of one frame whose first-scale linear RGB
@@ -135,16 +151,14 @@ static __device__ void resident_scales(float* smem, int h, int w, int n_scales,
   const int p0 = h * w;
   float* cur = smem;
   float* nxt = smem + 3 * p0;
-  float* xyb = nxt + 3 * (p0 / 4);
+  float* xyb = nxt + 3 * half_up(h) * half_up(w);
   float* hb = xyb + 3 * p0;
   for (int s = 0; s < n_scales; ++s) {
     if (s) {
-      const int h2 = h / 2, w2 = w / 2;
+      const int h2 = half_up(h), w2 = half_up(w);
       for (int i = threadIdx.x; i < 3 * h2 * w2; i += blockDim.x) {
         const int c = i / (h2 * w2), r = i % (h2 * w2);
-        const int y = r / w2, x = r % w2;
-        const float* src = cur + c * h * w + (2 * y) * w + 2 * x;
-        nxt[i] = (src[0] + src[1] + src[w] + src[w + 1]) * 0.25f;
+        nxt[i] = ds2_at(cur + c * h * w, h, w, r / w2, r % w2);
       }
       __syncthreads();
       float* t = cur;

@@ -13,7 +13,10 @@
 //   - planes of 64x64 and smaller run block-resident (resident_scales in
 //     metric_common.cuh, shared with kernel C), one block per frame;
 //   - pre_ds and between-scale 2x2 means run as a separate elementwise
-//     kernel into scratch the wrapper allocates.
+//     kernel into scratch the wrapper allocates. Both this kernel and the
+//     resident pass replicate the last row or column of an odd side, as
+//     the pyramid's `downsample2` does, so any geometry runs here (the TPU
+//     kernel hands such pyramids to XLA).
 // What bounds it on the card: the blur's 2 x 17 multiply-adds per field
 // and pixel (about 1.3e8 FLOP for the eight 128x128 finalists) and, for
 // small batches, too few blocks to fill 132 SMs. Every frame's input is
@@ -131,19 +134,18 @@ __global__ void reduce_tiles_kernel(const float* __restrict__ partial,
   out[((size_t)m * n_out + slot) * 18 + r] = s;
 }
 
-// 2x2 box mean: src (P, h, w) planes -> dst (P, h/2, w/2); h, w even.
+// 2x2 box mean: src (P, h, w) planes -> dst (P, (h+1)/2, (w+1)/2), the
+// last row or column of an odd side averaged with itself.
 __global__ void ds2_kernel(const float* __restrict__ src,
                            float* __restrict__ dst, int n_planes, int h,
                            int w) {
-  const int h2 = h / 2, w2 = w / 2;
+  const int h2 = half_up(h), w2 = half_up(w);
   const size_t total = (size_t)n_planes * h2 * w2;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const size_t pl = i / ((size_t)h2 * w2);
   const int r = (int)(i % ((size_t)h2 * w2));
-  const int y = r / w2, x = r % w2;
-  const float* s = src + pl * h * w + (size_t)(2 * y) * w + 2 * x;
-  dst[i] = (s[0] + s[1] + s[w] + s[w + 1]) * 0.25f;
+  dst[i] = ds2_at(src + pl * h * w, h, w, r / w2, r % w2);
 }
 
 // One block per frame: scales [first_ref, first_ref + n_scales) of frames
@@ -175,7 +177,8 @@ extern "C" {
 
 int snes_ds2(const void* src, void* dst, int n_planes, int h, int w,
              void* stream) {
-  const size_t total = (size_t)n_planes * (h / 2) * (w / 2);
+  const size_t total =
+      (size_t)n_planes * snes::half_up(h) * snes::half_up(w);
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   snes::ds2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -212,7 +215,7 @@ int snes_resident_scales(const void* lin, const RefPyramid* refs,
                          int frames_per_image, int h, int w,
                          const MetricParams* params, void* out, int n_out,
                          int slot, void* stream) {
-  const size_t smem = sizeof(float) * snes::resident_smem_floats(h * w);
+  const size_t smem = sizeof(float) * snes::resident_smem_floats(h, w);
   cudaError_t err = cudaFuncSetAttribute(
       snes::resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

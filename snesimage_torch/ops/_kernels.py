@@ -110,6 +110,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         _P,
     ),
+    "snes_pooled_wins_redmean": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "snes_pooled_wins_ciede": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+    ),
     "snes_dither_remap": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),

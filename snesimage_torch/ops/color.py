@@ -1,5 +1,5 @@
-"""Color-space primitives on torch tensors: snesimage_tpu/ops/color.py
-without the NES projection.
+"""Color-space primitives on torch tensors, the counterpart of
+snesimage_tpu/ops/color.py.
 
 - 5-bit <-> 8-bit channel expansion ``c*8 + c//4`` and SNES BGR555 packing
   (reference: src/lib.rs:662-681).
@@ -8,6 +8,8 @@ without the NES projection.
   for float inputs.
 - sRGB u8 <-> CIELAB (D65) and the standard CIEDE2000 difference
   (reference: src/lib.rs:1090-1100, via the `palette` crate).
+- The projection of 5-bit colours onto the 56 NES colours
+  (reference: src/lib.rs:640-660).
 
 The float32 arithmetic follows what the JAX package's CPU compilation
 computes, so that the two packages agree to the bit as often as they can:
@@ -24,8 +26,6 @@ its bits would depend on how a tensor is split between threads. Rounded
 from float64, the backends agree to the bit unless two float64 libraries
 straddle a float32 rounding boundary; csrc/ciede2000.cuh takes the same
 steps on the card.
-
-The NES projection (NES mode) is not ported yet: ROADMAP queue A item 12.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from snesimage_torch.constants import NES_PALETTE_5BIT
 
 
 def expand_5bit_to_8bit(c: torch.Tensor) -> torch.Tensor:
@@ -317,3 +319,31 @@ def ciede2000(lab1: torch.Tensor, lab2: torch.Tensor) -> torch.Tensor:
 def ciede2000_srgb_u8(rgb1: torch.Tensor, rgb2: torch.Tensor) -> torch.Tensor:
     """CIEDE2000 between 8-bit sRGB colours (src/lib.rs:1090-1100)."""
     return ciede2000(srgb_u8_to_lab(rgb1), srgb_u8_to_lab(rgb2))
+
+
+@lru_cache(maxsize=None)
+def nes_palette_5bit(device: torch.device) -> torch.Tensor:
+    """The 56 NES colours as (56, 3) int32 5-bit triples on `device`
+    (cached per device: a fresh host-to-device copy would synchronise)."""
+    return torch.from_numpy(NES_PALETTE_5BIT).to(device)
+
+
+def nes_palette_rgb8(device: torch.device | str = "cpu") -> torch.Tensor:
+    """The 56 NES colours expanded to 8-bit RGB, (56, 3) int32."""
+    return expand_5bit_to_8bit(nes_palette_5bit(torch.device(device)))
+
+
+def nes_quantize(rgb5: torch.Tensor, perceptual: bool) -> torch.Tensor:
+    """5-bit RGB triples (trailing axis 3) projected onto the nearest of
+    the 56 NES colours, as 5-bit triples of the same shape. Matches
+    ``SnesColor::new_nes_only`` (src/lib.rs:640-660): both sides are
+    expanded to 8 bits and compared by red-mean, or by CIEDE2000 when
+    `perceptual`; the first index that attains the minimum wins."""
+    nes5 = nes_palette_5bit(rgb5.device)
+    nes8 = expand_5bit_to_8bit(nes5)
+    rgb8 = expand_5bit_to_8bit(rgb5)
+    if perceptual:
+        d = ciede2000(srgb_u8_to_lab(rgb8)[..., None, :], srgb_u8_to_lab(nes8))
+    else:
+        d = red_mean_sq_scaled(rgb8[..., None, :], nes8)
+    return nes5[torch.argmin(d, dim=-1)]

@@ -32,11 +32,17 @@ import ctypes
 import torch
 
 from snesimage_torch.ops import _kernels
-from snesimage_torch.ops.color import ciede2000
+from snesimage_torch.ops.cuda_prescreen import (
+    ciede_wins,
+    coarse_frames,
+    pooled_sums,
+    redmean_wins,
+)
 from snesimage_torch.ops.ssimulacra2 import (
     downsample2,
     feature_maps,
     linear_rgb_to_positive_xyb,
+    pyramid_size,
 )
 
 # Planes up to this many pixels run block-resident in shared memory
@@ -82,8 +88,8 @@ def _ref_pyramid(triples, device) -> _kernels.RefPyramid:
 
 def _ds2_cuda(lib, x: torch.Tensor, st: int) -> torch.Tensor:
     b, c, h, w = x.shape
-    out = torch.empty((b, c, h // 2, w // 2), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((b, c, (h + 1) // 2, (w + 1) // 2),
+                      dtype=torch.float32, device=x.device)
     _kernels.check(
         lib.snes_ds2(x.data_ptr(), out.data_ptr(), b * c, h, w, st), "ds2"
     )
@@ -96,15 +102,12 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds):
     n = len(ref_scales)
     _kernels.require(frames, "frames", torch.float32, (b, 3, h, w), dev)
     sizes = [tuple(t[0].shape[-2:]) for t in ref_scales]
-    for si, (hs, ws) in enumerate(sizes):
-        d = pre_ds + si
-        if (hs, ws) != (h >> d, w >> d) or h % (1 << d) or w % (1 << d):
+    for si, size in enumerate(sizes):
+        if size != pyramid_size(h, w, pre_ds + si):
             raise ValueError(
-                f"scale {si} is {hs}x{ws}; kernel B needs exact 2x2 "
-                f"downsamples of the {h}x{w} frames"
+                f"scale {si} is {size[0]}x{size[1]}, not the "
+                f"{pre_ds + si}-fold 2x2 downsample of the {h}x{w} frames"
             )
-    if min(sizes[-1]) < 1:
-        raise ValueError("empty scale")
     lib = _kernels.library()
     st = _kernels.stream(dev)
     params = ctypes.addressof(_kernels.metric_params())
@@ -146,7 +149,8 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):
     ref_scales: tuple over scales of channel-major (img1, mu1, s11)
         triples, each (3, h_s, w_s) float32 in positive XYB; scale 0 is
         the frames' size after `pre_ds` 2x2 means, each later scale the
-        next 2x2 mean (even sizes).
+        next 2x2 mean (`pyramid_size`: an odd side's last row or column
+        is replicated first, as `downsample2` does).
     frames: (B, 3, H, W) float32 linear-RGB frames.
     Returns (B, n_scales, 3, 6) raw sums.
     """
@@ -158,27 +162,9 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):
 multiscale_feature_sums.launches = 0
 
 
-def _coarse_frames(wins, cand_lin, ml, ds4_l):
-    """(B, 3, H/4, W/4) exact quarter-resolution candidate frames
-    ds4(L) + (c * pool4(m) - pool4(m * ML)) / 16 from (B, H, W) masks."""
-    b, h, w = wins.shape
-    m = wins.to(torch.float32)
-    maps = torch.cat([m[:, None], m[:, None] * ml[None]], dim=1)
-    pooled = maps.reshape(b, 4, h // 4, 4, w // 4, 4).sum(dim=(3, 5))
-    return (
-        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
-    ) / 16.0 + ds4_l[None]
-
-
 def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):
-    d = cand8[:, :, None, None] - tg[None]  # (B, 3, H, W) int32
-    rsum = tg[0][None] + cand8[:, 0, None, None]
-    dist = (
-        (1024 + rsum) * d[:, 0] * d[:, 0]
-        + 2048 * d[:, 1] * d[:, 1]
-        + (1534 - rsum) * d[:, 2] * d[:, 2]
-    )
-    return _coarse_frames(dist < bva[None], cand_lin, ml, ds4_l)
+    pooled = pooled_sums(redmean_wins(tg, cand8, bva), ml)
+    return coarse_frames(pooled, cand_lin, ds4_l)
 
 
 def _triples(flat_refs):
@@ -193,22 +179,27 @@ def _coarse_plain(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     return sums.reshape(cand8.shape[0], -1, 6)
 
 
-def _coarse_geometry(name, h, w, flat_refs, fallback):
+def fused_coarse_ok(h: int, w: int) -> bool:
+    """Whether the fused coarse kernels C and D take h x w frames: sides
+    that are multiples of 32 (the JAX package's `fused_ok`) and a
+    quarter-resolution frame that fits in shared memory. The visit takes
+    kernels E or F and kernel B for every other geometry."""
+    return (h % 32 == 0 and w % 32 == 0
+            and (h // 4) * (w // 4) <= RESIDENT_MAX_PIXELS)
+
+
+def _coarse_geometry(name, h, w, flat_refs, other):
     """Checks the frame size one of the coarse kernels takes; returns the
     reference triples of its scales."""
-    if h % 32 or w % 32:
-        raise NotImplementedError(
-            f"kernel {name} takes 32-aligned frames, not {h}x{w}; other "
-            f"geometries need {fallback}"
-        )
-    if (h // 4) * (w // 4) > RESIDENT_MAX_PIXELS:
-        raise NotImplementedError(
-            f"kernel {name} keeps the quarter-resolution frame in shared "
-            f"memory; {h}x{w} is larger than 256x256"
+    if not fused_coarse_ok(h, w):
+        raise ValueError(
+            f"kernel {name} takes frames with sides that are multiples of "
+            f"32, up to 256x256, not {h}x{w}: {other} and kernel B score "
+            "other geometries"
         )
     triples = _triples(flat_refs)
     for si, t in enumerate(triples):
-        if tuple(t[0].shape[-2:]) != (h >> (2 + si), w >> (2 + si)):
+        if tuple(t[0].shape[-2:]) != pyramid_size(h, w, 2 + si):
             raise ValueError(f"coarse scale {2 + si} has the wrong size")
     return triples
 
@@ -218,7 +209,7 @@ def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     b = cand8.shape[0]
     h, w = bva.shape
     triples = _coarse_geometry(
-        "C", h, w, flat_refs, "pooled_wins_redmean (ROADMAP queue B item 4)")
+        "C", h, w, flat_refs, "pooled_wins_redmean")
     n = len(triples)
     ptrs = [
         _kernels.require(tg, "tg", torch.int32, (3, h, w), dev),
@@ -265,10 +256,8 @@ coarse_feature_sums_redmean.launches = 0
 
 def _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
                         flat_refs):
-    dcand = ciede2000(tlab.movedim(0, -1)[None],
-                      cand_lab[:, None, None, :])  # (B, H, W)
-    wins = (dcand < bvalm[None]) | ((dcand == bvalm[None]) & (adj[None] != 0))
-    frames = _coarse_frames(wins, cand_lin, ml, ds4_l)
+    wins, dcand = ciede_wins(tlab, cand_lab, bvalm, adj)
+    frames = coarse_frames(pooled_sums(wins, ml), cand_lin, ds4_l)
     sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames)
     return sums.reshape(cand_lab.shape[0], -1, 6), dcand
 
@@ -279,7 +268,7 @@ def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     b = cand_lab.shape[0]
     h, w = bvalm.shape
     triples = _coarse_geometry(
-        "D", h, w, flat_refs, "pooled_wins_ciede (ROADMAP queue B item 6)")
+        "D", h, w, flat_refs, "pooled_wins_ciede")
     n = len(triples)
     ptrs = [
         _kernels.require(tlab, "tlab", torch.float32, (3, h, w), dev),

@@ -10,6 +10,10 @@ Precision (the bf16 k-means bug of the JAX package's history, 19b3158):
 the distance terms are float32 products and sums taken one coordinate at a
 time, in a fixed order, with no matrix product, so no TF32 or reduced
 precision path can enter and the card computes the same bits as the CPU.
+The centers' squared norms add each square with one rounding (a fused
+multiply-add, `_square_add`), which is what the JAX package's CPU code
+does: with two roundings a pixel between two centers can change sides, and
+the 256x240 bench image then converges to another palette.
 The per-cluster sums are float64 products cast to float32. On image data
 (integer pixel coordinates, tile means of them) every float64 partial sum
 is exact, so the sums do not depend on the order a device adds in.
@@ -33,6 +37,23 @@ class KmeansResult(NamedTuple):
     converged: torch.Tensor  # (...) bool
 
 
+def _square_add(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fl32(a * a + c) with one rounding, a fused multiply-add of float32
+    operands. The float64 product is exact; the float64 sum is rounded to
+    odd (where it is inexact and its last bit is even, it moves one step
+    toward the exact sum), so that the rounding to float32 that follows is
+    the only one that counts."""
+    p = a.double() * a.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)  # the exact p + c - s
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    odd = torch.where((err != 0) & (bits & 1 == 0), bits + step, bits)
+    return odd.view(torch.float64).to(torch.float32)
+
+
 def _assign(data: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Nearest-center index per point, first minimum wins. (..., N) int32."""
     x = data.unsqueeze(-2)  # (..., N, 1, D)
@@ -41,7 +62,9 @@ def _assign(data: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     c2 = centers[..., 0] * centers[..., 0]
     for j in range(1, data.shape[-1]):
         dots = dots + x[..., j] * c[..., j]
-        c2 = c2 + centers[..., j] * centers[..., j]
+        # A fused multiply-add, as the JAX package's CPU compilation sums
+        # the squares.
+        c2 = _square_add(centers[..., j], c2)
     return torch.argmin(c2.unsqueeze(-2) - 2.0 * dots, dim=-1).to(torch.int32)
 
 

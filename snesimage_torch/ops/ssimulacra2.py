@@ -103,6 +103,13 @@ def downsample2(img: torch.Tensor) -> torch.Tensor:
     return r.mean(dim=(-4, -2))
 
 
+def pyramid_size(h: int, w: int, levels: int) -> tuple[int, int]:
+    """Size of an h x w plane after `levels` calls of `downsample2`."""
+    for _ in range(levels):
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return h, w
+
+
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
     # The power is taken in float64 and rounded: a CPU float32 pow rounds
     # a vectorised body and a scalar tail differently, and equal frames
@@ -248,8 +255,9 @@ def fused_scale_feature_block(
     from channel-major linear frames (B, 3, h, w) at the resolution of
     scale `start_scale - pre_ds`; zero outside [start_scale, start_scale +
     num_scales). Raw sums come from `multiscale_feature_sums` (kernel B on
-    CUDA tensors, its twin on CPU tensors). Pyramids that do not halve
-    exactly down to the last scale are not ported and raise."""
+    CUDA tensors, its twin on CPU tensors). The pyramid's scales must have
+    the sizes `reference_pyramid` gives for frames of this size (odd sides
+    round up); anything else raises ValueError."""
     from snesimage_torch.ops.cuda_metric import multiscale_feature_sums
 
     b = frames_cmaj.shape[0]
@@ -258,12 +266,10 @@ def fused_scale_feature_block(
     for si in range(num_scales):
         img1, mu1, s11 = refp[start_scale + si]
         hs, ws = img1.shape[-3], img1.shape[-2]
-        d = si + pre_ds
-        if h % (1 << d) or w % (1 << d) or (hs, ws) != (h >> d, w >> d):
-            raise NotImplementedError(
-                f"kernel B takes pyramids that halve exactly; {h}x{w} "
-                f"frames down to a {hs}x{ws} scale are not ported (ROADMAP "
-                "queue B item 4)"
+        if (hs, ws) != pyramid_size(h, w, si + pre_ds):
+            raise ValueError(
+                f"scale {start_scale + si} of the pyramid is {hs}x{ws}, not "
+                f"the {si + pre_ds}-fold 2x2 downsample of the {h}x{w} frames"
             )
         sizes.append(hs * ws)
         ref_scales.append(tuple(a.permute(2, 0, 1) for a in (img1, mu1, s11)))

@@ -100,6 +100,35 @@ def test_lloyd_kmeans_bit_equal(small_image, k):
         assert bool(t.converged) == bool(j.converged)
 
 
+def test_kmeans_square_add_rounds_once(rng):
+    """`_square_add` is a fused multiply-add. (1 + 2^-12)^2 lies halfway
+    between two float32 values; a small positive addend must lift it to the
+    upper one, which the float64 sum rounded to float32 misses (it loses the
+    addend and then breaks the tie to even). On random operands it equals
+    the exact sum rounded once."""
+    from fractions import Fraction
+
+    from snesimage_torch.ops.kmeans import _square_add
+
+    a = np.float32([1 + 2.0**-12, 1 + 2.0**-12, 1 + 3 * 2.0**-12, 3.0])
+    c = np.float32([2.0**-60, -(2.0**-60), 2.0**-60, 7.0])
+    got = _square_add(torch.from_numpy(a), torch.from_numpy(c)).numpy()
+    naive = (a.astype(np.float64) ** 2 + c.astype(np.float64)).astype(
+        np.float32)
+    step_up = np.nextafter(naive, np.float32(np.inf))
+    np.testing.assert_array_equal(
+        got, [step_up[0], naive[1], step_up[2], np.float32(16.0)])
+
+    a = (rng.random(200) * 255).astype(np.float32)
+    c = (rng.random(200) * 1e5).astype(np.float32)
+    got = _square_add(torch.from_numpy(a), torch.from_numpy(c)).numpy()
+    for ai, ci, gi in zip(a, c, got):
+        exact = Fraction(float(ai)) ** 2 + Fraction(float(ci))
+        near = [np.nextafter(gi, np.float32(-np.inf)), gi,
+                np.nextafter(gi, np.float32(np.inf))]
+        assert min(near, key=lambda v: abs(Fraction(float(v)) - exact)) == gi
+
+
 def _both_states(img, kwargs):
     tc, jc = TConfig(**kwargs), JConfig(**kwargs)
     return (t_new_state(img, tc, "cpu"), tc), (j_new_state(img, jc), jc)

@@ -84,6 +84,21 @@ def test_constant_values_equal(pair):
         )
 
 
+def test_nes_table_pinned():
+    """The 56 NES colours as 5-bit triples (54 distinct: two pairs of
+    entries coincide at 5 bits), equal to the JAX package's and to the hash
+    of the table as it was copied."""
+    import hashlib
+
+    table = tconst.NES_PALETTE_5BIT
+    assert table.shape == (56, 3) and table.dtype == np.int32
+    assert table.min() >= 0 and table.max() <= 31
+    assert len({tuple(row) for row in table.tolist()}) == 54
+    np.testing.assert_array_equal(table, jconst.NES_PALETTE_5BIT)
+    assert hashlib.sha256(table.tobytes()).hexdigest() == (
+        "b91d485aade138e84084a9b70742dd9adfd3a58a7853394ea6d617077b220e18")
+
+
 def test_import_leaves_jax_out():
     """Importing every port module (and chip_smoke) in a fresh process
     loads neither jax nor the JAX package."""

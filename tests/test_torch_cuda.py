@@ -1,11 +1,14 @@
-"""Kernels A, B, C, D and G against their plain twins on a CUDA card, at
-shapes beyond the main paths' (which chip_smoke.py covers). Marked `cuda`:
-they skip where no card is present. On the card:
+"""Kernels A to G against their plain twins on a CUDA card, at shapes
+beyond the main paths' (which chip_smoke.py covers). Marked `cuda`: they
+skip where no card is present. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 A is exact; B, C and D agree within 2e-4 on finalised features, and D's
-distance planes within 1e-4 (absolute plus relative). G's red-mean maps
+distance planes within 1e-4 (absolute plus relative). E's and F's mask
+counts equal their twins', their m*ML sums agree within 1e-5 (16 floats
+added in another order) and F's distance planes within 1e-4. B runs at
+pyramids with odd scales (240x256, 40x24, 60x60). G's red-mean maps
 equal its twin's; its perceptual maps on at least 0.99 of the pixels (the
 card's double pow and trigonometry may land across a float32 rounding
 boundary from the twin's, and error diffusion spreads one flipped pixel)."""
@@ -18,6 +21,7 @@ from snesimage_torch.ops.color import srgb_u8_to_lab, srgb_u8_to_linear
 from snesimage_torch.ops.dither import dither_candidates
 from snesimage_torch.ops.ssimulacra2 import (
     finalize_feature_sums,
+    pyramid_size,
     reference_pyramid,
 )
 
@@ -156,7 +160,7 @@ def test_coarse_feature_sums_ciede_rejects_uneven_frames(dev):
             args[3][:48, :48].contiguous(), args[4][:48, :48].contiguous(),
             args[5][:, :48, :48].contiguous(), args[6][:, :12, :12].contiguous(),
             args[7]]
-    with pytest.raises(NotImplementedError, match="queue B item 6"):
+    with pytest.raises(ValueError, match="pooled_wins_ciede"):
         cuda_metric.coarse_feature_sums_ciede(*crop)
 
 
@@ -173,6 +177,129 @@ def test_select_colors_batched(dev, batched):
     got = cuda_prescreen.select_colors(key, table)
     assert got.shape == ((n, 3, h, w) if batched else (3, h, w))
     assert torch.equal(got, cuda_prescreen._select_colors_plain(key, table))
+
+
+@pytest.mark.parametrize(
+    # 240x256 (rows x columns of a 256x240 image): the frame error, the
+    # coarse stage on E's frames, the scale-1 rank, the scale-0 finalists
+    # and the dithered coarse stage; then small pyramids odd from early on
+    "h,w,start,n,pre_ds,b",
+    [(240, 256, 0, 6, 0, 1), (240, 256, 2, 4, 0, 48), (240, 256, 1, 1, 1, 8),
+     (240, 256, 0, 1, 0, 2), (240, 256, 2, 4, 2, 48), (40, 24, 0, 6, 0, 3),
+     (60, 60, 0, 6, 0, 2), (120, 72, 1, 5, 1, 5), (256, 256, 0, 6, 0, 65)],
+)
+def test_multiscale_feature_sums_odd_pyramids(dev, h, w, start, n, pre_ds, b):
+    refp, g = _pyramid(dev, h, 3 * h + w + n, width=w)
+    fh, fw = pyramid_size(h, w, start - pre_ds)
+    frames = torch.rand((b, 3, fh, fw), generator=g, device=dev) ** 2.2
+    refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
+                 for s in range(n))
+    sizes = [refp[start + s][0].shape[0] * refp[start + s][0].shape[1]
+             for s in range(n)]
+    assert sizes == [hs * ws for hs, ws in
+                     (pyramid_size(h, w, start + s) for s in range(n))]
+    got = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
+    want = cuda_metric._multiscale_feature_sums_plain(refs, frames, pre_ds)
+    _close(finalize_feature_sums(got.reshape(b, -1, 6), sizes, start),
+           finalize_feature_sums(want.reshape(b, -1, 6), sizes, start))
+    again = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
+    assert torch.equal(got, again)
+
+
+def _pooled_args(dev, n, h, w, b, seed, perceptual):
+    """Operands of kernel E or F for n images (no image axis when n is 0):
+    masked rows, rows that every candidate wins, duplicate candidates and,
+    for F, exact ties with the first candidate that only `adj` decides."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lead = (n,) if n else ()
+    rgb = torch.randint(0, 256, lead + (h, w, 3), generator=g, device=dev,
+                        dtype=torch.int32)
+    cand8 = torch.randint(0, 256, lead + (b, 3), generator=g, device=dev,
+                          dtype=torch.int32)
+    cand8[..., -1, :] = cand8[..., 0, :]
+    lnc = torch.rand(lead + (3, h, w), generator=g, device=dev)
+    if not perceptual:
+        bva = torch.randint(0, 150_000_000, lead + (h, w), generator=g,
+                            device=dev, dtype=torch.int32)
+        bva[..., :4, :] = torch.iinfo(torch.int32).min
+        bva[..., 4:8, :] = torch.iinfo(torch.int32).max
+        ml = torch.where(bva.unsqueeze(-3) > 0, lnc, 0.0)
+        return [rgb.movedim(-1, -3).contiguous(), cand8, bva, ml]
+    bvalm = torch.rand(lead + (h, w), generator=g, device=dev) * 60.0
+    bvalm[..., :4, :] = -3.0e38
+    adj = torch.randint(0, 2, lead + (h, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    ml = torch.where(bvalm.unsqueeze(-3) > 0, lnc, 0.0)
+    args = [srgb_u8_to_lab(rgb).movedim(-1, -3).contiguous(),
+            srgb_u8_to_lab(cand8), bvalm, adj, ml]
+    batched = [a if n else a[None] for a in args]
+    d0 = cuda_prescreen._pooled_wins_ciede_plain(*batched)[1][:, 0]
+    bvalm[..., 4:8, :] = (d0 if n else d0[0])[..., 4:8, :]
+    return args
+
+
+POOLED_SHAPES = [(0, 24, 40, 5), (0, 40, 24, 7), (0, 48, 48, 3),
+                 (3, 40, 24, 6), (0, 240, 256, 48), (2, 256, 240, 9),
+                 (0, 256, 256, 56)]
+POOLED_SUM_TOL = 1e-5
+
+
+def _check_pooled(got, want, lead, b, h, w):
+    assert got.shape == lead + (b, 4, h // 4, w // 4)
+    assert torch.equal(got[..., 0, :, :], want[..., 0, :, :])  # mask counts
+    assert float((got - want).abs().max()) <= POOLED_SUM_TOL
+    assert torch.equal(got[..., -1, :, :, :], got[..., 0, :, :, :])
+    assert bool((got[..., 0, 0, :] == 0).all())  # masked rows never win
+
+
+@pytest.mark.parametrize("n,h,w,b", POOLED_SHAPES)
+def test_pooled_wins_redmean(dev, n, h, w, b):
+    args = _pooled_args(dev, n, h, w, b, h + 2 * w + b, False)
+    before = cuda_prescreen.pooled_wins_redmean.launches
+    got = cuda_prescreen.pooled_wins_redmean(*args)
+    assert cuda_prescreen.pooled_wins_redmean.launches == before + 1
+    batched = [a if n else a[None] for a in args]
+    want = cuda_prescreen._pooled_wins_redmean_plain(*batched)
+    _check_pooled(got, want if n else want[0], (n,) if n else (), b, h, w)
+    assert bool((got[..., 0, 1, :] == 16).all())  # rows every candidate wins
+    assert torch.equal(got, cuda_prescreen.pooled_wins_redmean(*args))
+
+
+@pytest.mark.parametrize("n,h,w,b", POOLED_SHAPES)
+def test_pooled_wins_ciede(dev, n, h, w, b):
+    args = _pooled_args(dev, n, h, w, b, h + 2 * w + b, True)
+    before = cuda_prescreen.pooled_wins_ciede.launches
+    got, dcand = cuda_prescreen.pooled_wins_ciede(*args)
+    assert cuda_prescreen.pooled_wins_ciede.launches == before + 1
+    batched = [a if n else a[None] for a in args]
+    want, want_d = cuda_prescreen._pooled_wins_ciede_plain(*batched)
+    lead = (n,) if n else ()
+    assert dcand.shape == lead + (b, h, w)
+    _close(dcand, want_d if n else want_d[0], DISTANCE_TOL)
+    if torch.equal(dcand, want_d if n else want_d[0]):
+        _check_pooled(got, want if n else want[0], lead, b, h, w)
+    else:  # a distance one bit off may move a pixel across its threshold
+        assert float((got - (want if n else want[0])).abs().max()) <= 1.0
+    again = cuda_prescreen.pooled_wins_ciede(*args)
+    assert torch.equal(got, again[0]) and torch.equal(dcand, again[1])
+
+
+def test_pooled_wins_reject_bad_operands(dev):
+    args = _pooled_args(dev, 0, 24, 40, 3, 1, False)
+    with pytest.raises(TypeError):
+        cuda_prescreen.pooled_wins_redmean(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):  # a threshold plane of another size
+        cuda_prescreen.pooled_wins_redmean(args[0], args[1],
+                                           args[2][:20].contiguous(), args[3])
+    with pytest.raises(ValueError):  # planes off the 16-byte grid
+        cuda_prescreen.pooled_wins_redmean(
+            args[0], args[1], args[2],
+            torch.zeros(3 * 24 * 40 + 1, device=dev)[1:].view(3, 24, 40))
+    odd = _pooled_args(dev, 0, 24, 40, 3, 1, True)
+    with pytest.raises(ValueError):  # not whole 4x4 cells
+        cuda_prescreen.pooled_wins_ciede(
+            *(a[..., :22, :].contiguous() if a.dim() > 1 and a.shape[-1] == 40
+              else a for a in odd))
 
 
 def _dither_args(dev, h, w, c, s, b, seed):
@@ -261,3 +388,59 @@ def test_wrappers_reject_bad_operands(dev):
             refs, frames.permute(0, 1, 3, 2), pre_ds=0)
     with pytest.raises(ValueError):  # scale sizes that do not halve
         cuda_metric.multiscale_feature_sums(refs[:1] + refs[:1], frames)
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_run_fused_256x224_takes_the_fused_route(dev, perceptual):
+    """The SNES's visible screen, 256x224: both sides are multiples of 32,
+    so a run on the card ranks every visit's candidates with the fused
+    kernel C (or D) and never with E or F; one sweep improves on the init."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+    from snesimage_torch.core.state import new_state
+    from snesimage_torch.testing import bench_image
+
+    config = QuantConfig(
+        subpalette_count=8, subpalette_size=15, width=256, height=224,
+        max_steps=1, schedule="channel", prescreen=8,
+        prescreen_full=4 if perceptual else 2, channel_explore=16,
+        accept_margin=0.005, perceptual_palettes=perceptual)
+    img = bench_image(0)[16:240]
+    wrappers = (cuda_metric.coarse_feature_sums_redmean,
+                cuda_metric.coarse_feature_sums_ciede,
+                cuda_prescreen.pooled_wins_redmean,
+                cuda_prescreen.pooled_wins_ciede)
+    before = [fn.launches for fn in wrappers]
+    state, errors, _ = pipeline.run_fused(img, config, device="cuda")
+    c, d, e, f = (fn.launches - n for fn, n in zip(wrappers, before))
+    assert (c, d, e, f) == ((0, 360, 0, 0) if perceptual else (360, 0, 0, 0))
+    init = pipeline.cluster(
+        pipeline.initialize(new_state(img, config, "cuda"), config), config)
+    refp = refine.make_reference_pyramid(init)
+    assert [tuple(s[0].shape[:2]) for s in refp][-2:] == [(14, 16), (7, 8)]
+    assert errors[0] < float(refine.frame_error_fused(init, config, refp))
+    assert state.palette_map.shape == (224, 256)
+
+
+def test_run_fused_nes_perceptual(dev):
+    """One perceptual NES sweep of the `nes-compat` preset on the card: a
+    NES visit does not prescreen, so kernel F gives the 56 distance planes
+    (once a visit, at a 32-aligned geometry too) and kernel B scores all 56
+    frames at six scales; every entry ends on a NES colour."""
+    from snesimage_torch.core import pipeline
+    from snesimage_torch.models.presets import get_preset
+    from snesimage_torch.ops.color import nes_palette_5bit
+    from snesimage_torch.testing import bench_image
+
+    config = get_preset("nes-compat", perceptual_palettes=True, max_steps=1)
+    wrappers = (cuda_prescreen.pooled_wins_ciede,
+                cuda_metric.coarse_feature_sums_ciede,
+                cuda_metric.multiscale_feature_sums)
+    before = [fn.launches for fn in wrappers]
+    state, errors, _ = pipeline.run_fused(bench_image(0), config,
+                                          device="cuda")
+    f, d, b = (fn.launches - n for fn, n in zip(wrappers, before))
+    assert (f, d, b) == (12, 0, 13)
+    assert len(errors) == 1 and errors[0] == errors[0] < float("inf")
+    nes = {tuple(c) for c in nes_palette_5bit(state.device).tolist()}
+    assert {tuple(c) for c in state.palette.reshape(-1, 3).tolist()} <= nes

@@ -1,5 +1,7 @@
 """The port's run_fused against the JAX package's on the CPU, and the
-options the port does not cover yet."""
+options the port does not cover yet. tests/test_torch_geometry.py and
+tests/test_torch_schedules.py hold the runs at other geometries and with
+the reference and NES schedules."""
 
 import numpy as np
 import pytest
@@ -97,16 +99,20 @@ def test_run_fused_dithered_matches_jax(small_image, one_torch_thread,
     "change",
     [
         dict(dither=True, dither_proxy=8),
-        dict(nes=True),
+        dict(nes=True, gate_margin=0.01),
         dict(gate_margin=0.01, converge_tol=0.5),
-        dict(schedule="reference"),
+        dict(schedule="reference", gate_margin=0.01),
         dict(channel_window=2),
         dict(prescreen_pre=12),
-        dict(prescreen_full=0),
-        dict(prescreen=0, prescreen_full=0),
+        dict(prescreen_full=0, gate_margin=0.01, gate_coarse=True),
+        dict(prescreen=0, prescreen_full=0, dither_proxy=4),
     ],
 )
 def test_off_slice_configs_raise(small_image, change):
-    with pytest.raises(NotImplementedError):
+    """The gate, windows, the three-level prescreen and the dither proxy
+    are not ported, alone or with an option that is (NES, the reference
+    schedule, scoring without a prescreen: tests/test_torch_schedules.py
+    runs those)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 1[17]"):
         tpipe.run_fused(small_image, TConfig(**dict(SMALL, **change)),
                         device="cpu")

@@ -88,14 +88,23 @@ def test_fused_scale_feature_block(pair, start, n, pre_ds):
 
 
 def test_fused_scale_feature_block_rejects_uneven_pyramids(rng):
-    """60x60 halves to 15x15, then to 8x8 by edge replication: kernel B
-    cannot follow that pyramid, so the block raises on every device."""
+    """60x60 halves to 15x15, then to 8x8 by edge replication. The block
+    follows that pyramid as the JAX package does (2e-4), and rejects only a
+    pyramid whose sizes are not those of the frames' own downsamples."""
     ref = (_img(rng, 60, 60) * 255).round().astype(np.int32)
+    jp = jss.reference_pyramid(jnp.asarray(ref))
     tp = tss.reference_pyramid(torch.from_numpy(ref))
-    frames = torch.from_numpy(rng.random((2, 3, 60, 60)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        tss.fused_scale_feature_block(tp, frames, 0, 6)
-    assert tss.fused_scale_feature_block(tp, frames, 0, 3).shape == (2, 6, 3, 6)
+    assert [tuple(s[0].shape[:2]) for s in tp] == [
+        (60, 60), (30, 30), (15, 15), (8, 8), (4, 4), (2, 2)]
+    frames = rng.random((2, 3, 60, 60)).astype(np.float32)
+    want = jss.fused_scale_feature_block(jp, jnp.asarray(frames), 0, 6)
+    got = tss.fused_scale_feature_block(tp, torch.from_numpy(frames), 0, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError):
+        tss.fused_scale_feature_block(tp, torch.from_numpy(frames[..., :56]),
+                                      0, 6)
+    with pytest.raises(ValueError):  # frames of scale 0 offered as scale 1
+        tss.fused_scale_feature_block(tp, torch.from_numpy(frames), 1, 2)
 
 
 def test_pyramid_carried_from_numpy(pair):

@@ -8,8 +8,8 @@ the init hashes to the JAX package's CPU values, and drives nine paths once
 each through `run_fused` and `state_to_json`. At 256x256, 8x15 palettes:
 the balanced profile (8 channel sweeps with 16 explore candidates), the
 same recipe with perceptual (CIEDE2000) palettes, the same recipe with
-Floyd-Steinberg dithering, one sweep of the dithered perceptual recipe, and
-one cycle of the reference schedule (four random sweeps and a channel
+Floyd-Steinberg dithering, two sweeps of the dithered perceptual recipe,
+and one cycle of the reference schedule (four random sweeps and a channel
 sweep, every candidate scored at six scales). On the image's first 240
 rows (256x240, sides that are not multiples of 32, so the visit ranks its
 candidates through kernels E or F and kernel B): the balanced recipe,
@@ -28,7 +28,15 @@ uses it (A, B and C: the balanced run; D: the perceptual run; G: the
 dithered run; E and F: the 256x240 runs; `launches_by_path` has all nine),
 and its bound: the larger of the bytes it must move over the card's memory
 rate and the arithmetic it does over the card's peak rate for that
-arithmetic (`bound`, from this run's tensors).
+arithmetic (`bound`, from this run's tensors). Kernel A's cases also hold
+its device time and its wrapper's host time (`_a_times`): its key/table
+entry beside one gather, its fused entries beside the card time of the
+torch sequences they replace: the undithered visit's prologue at each
+undithered path's first visit (256x256 and 256x240, red-mean and
+perceptual, and the 4x3 palette of `nes-compat`; the reference cycle's is
+the balanced one's shape), the dithered visit's render at 256x256 and
+256x240. A's `library_ms` is the gather's time over the key/table cases,
+and `library_cases_ms` A's own wall time over those same cases.
 
 Kernel F also serves every perceptual visit that has no prescreen, at any
 geometry: it alone writes the candidates' distance planes there, and its
@@ -88,10 +96,6 @@ FEATURE_TOL = 2e-4  # kernel vs twin, finalised features (rtol and atol)
 # product-and-sum may round twice, and its libm is CUDA's.
 DISTANCE_TOL = 1e-4
 ERROR_TOL = 1e-3  # kernel vs twin, full-frame error
-# Least share of equal pixels between kernel G's perceptual maps and its
-# twin's. Bit-equal is the aim; the card's double pow or trigonometry may
-# land across a float32 rounding boundary from the twin's.
-DITHER_MAP_SHARE = 0.99
 BALANCED = dict(
     subpalette_count=8, subpalette_size=15, max_steps=8, converge_tol=0.0,
     seed=0, schedule="channel", prescreen=8, prescreen_full=2,
@@ -101,10 +105,10 @@ BALANCED = dict(
 # prescreen_full to 4 for perceptual runs, so it is given here.
 PERCEPTUAL = dict(BALANCED, prescreen_full=4, perceptual_palettes=True)
 # BASELINE config 3 at the balanced recipe, and config 4 with dithering at
-# one sweep (kernel G's CIEDE2000 mode takes about 30 times its red-mean
+# two sweeps (kernel G's CIEDE2000 mode takes several times its red-mean
 # mode's time).
 DITHER = dict(BALANCED, dither=True)
-DITHER_PERCEPTUAL = dict(PERCEPTUAL, dither=True, max_steps=1)
+DITHER_PERCEPTUAL = dict(PERCEPTUAL, dither=True, max_steps=2)
 # The same recipes on the first 240 rows of the image: 256x240 is 30 rows of
 # tiles, its pyramid meets an odd side at 15x16, and the visit ranks its
 # candidates through kernel E (red-mean) or F (perceptual) and kernel B.
@@ -117,6 +121,10 @@ REFERENCE = dict(subpalette_count=8, subpalette_size=15, max_steps=5,
                  converge_tol=0.0, seed=0)
 NES_STEPS = 2  # of the `nes-compat` preset (BASELINE config 5's palettes)
 POOLED_SUM_TOL = 1e-5  # kernels E and F vs twins, the three m*ML sums
+# Clock cycles of the spin kernel that holds the card while a timed run of
+# launches is enqueued (`device_ms`): about 0.1 s, longer than any run
+# here takes the host to launch.
+HOLD_CYCLES = 200_000_000
 WRAPPERS = ("select_colors", "multiscale_feature_sums",
             "coarse_feature_sums_redmean", "coarse_feature_sums_ciede",
             "pooled_wins_redmean", "pooled_wins_ciede",
@@ -175,6 +183,37 @@ def median_ms(fn, runs: int = 20) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 50) -> float:
+    """Device time of fn() per call: CUDA events around `runs` calls,
+    enqueued while a spin kernel holds the card (HOLD_CYCLES), so that they
+    run back to back and the events read the card's time, not the rate at
+    which the host launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def host_wall_ms(fn, calls: int = 1000) -> float:
+    """Host-clock time per call of `calls` back-to-back calls, unfenced:
+    the clock stops when the last call returns, before the device ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return wall
 
 
 def nbytes(*tensors) -> int:
@@ -281,6 +320,19 @@ def _print_records(phase: str, records) -> None:
         for r in records), flush=True)
 
 
+def _print_a_cases(phase: str, cases) -> None:
+    print(f"{phase} kernel A vs twin (bit-equal): " + "; ".join(
+        f"{c['shape']} ({c['mode']}): kernel {c['ms']:.4f} ms wall, "
+        f"{c['device_ms']:.5f} ms device, {c['host_ms']:.4f} ms host; twin "
+        f"{c['plain_ms']:.4f} ms" + (
+            f" ({c['plain_device_ms']:.4f} ms device)"
+            if "plain_device_ms" in c else "")
+        + (f"; library {c['library_ms']:.4f} ms"
+           if c.get("library_ms") is not None else "")
+        + f"; bound {c['bound_ms']:.5f} ms ({c['bound_by']})"
+        for c in cases), flush=True)
+
+
 def _b_case(label: str, refp, frames, start: int, n: int, pre_ds: int):
     """Kernel B against its twin on `frames` for scales start..start+n-1
     after `pre_ds` 2x2 means."""
@@ -312,24 +364,39 @@ def _b_case(label: str, refp, frames, start: int, n: int, pre_ds: int):
 
 
 def _sum_cases(record: dict, cases) -> dict:
-    """`record` with the times and bounds of a kernel's call shapes summed."""
-    lib = [c.get("library_ms") for c in cases]
+    """`record` with the times and bounds of a kernel's call shapes summed.
+    `library_ms` sums the library calls of the cases that have one; where
+    other cases have none, `library_cases_ms` is the kernel's wall time over
+    the same cases, the number to hold against it."""
+    lib = [c for c in cases if c.get("library_ms") is not None]
     record.update(
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=sum(c["ms"] for c in cases),
         plain_ms=sum(c["plain_ms"] for c in cases),
-        library_ms=None if None in lib else sum(lib),
+        library_ms=sum(c["library_ms"] for c in lib) if lib else None,
         bound_ms=sum(c["bound_ms"] for c in cases),
         bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
         cases=list(cases),
     )
+    if lib and len(lib) < len(cases):
+        record["library_cases_ms"] = sum(c["ms"] for c in lib)
     return record
 
 
+def _a_times(fn) -> dict:
+    """Kernel A's times for one call shape: the median fenced wall time
+    (`ms`), the device time (`device_ms`), and the wrapper's host time
+    (`host_ms`): unfenced back-to-back calls per call less the device
+    time."""
+    dev, unfenced = device_ms(fn, runs=100), host_wall_ms(fn)
+    return dict(ms=median_ms(fn), device_ms=dev, unfenced_ms=unfenced,
+                host_ms=unfenced - dev)
+
+
 def _a_case(label: str, key, table):
-    """Kernel A against its twin, exact, on one key plane and table or on
-    a stack of them. Its library call is one gather from the table with
-    the transparent sentinel's zero column appended."""
+    """Kernel A's key/table entry against its twin, exact, on one key plane
+    and table or on a stack of them. Its library call is one gather from
+    the table with the transparent sentinel's zero column appended."""
     from snesimage_torch.ops import cuda_prescreen
 
     got = cuda_prescreen.select_colors(key, table)
@@ -350,13 +417,72 @@ def _a_case(label: str, key, table):
 
     check(torch.equal(library(), want), f"the gather differs from A ({label})")
     return dict(
-        shape=label, max_abs_err=float((got - want).abs().max()),
-        ms=median_ms(lambda: cuda_prescreen.select_colors(key, table)),
+        shape=label, mode="key/table",
+        max_abs_err=float((got - want).abs().max()),
+        **_a_times(lambda: cuda_prescreen.select_colors(key, table)),
         plain_ms=median_ms(
             lambda: cuda_prescreen._select_colors_plain(key, table)),
         library_ms=median_ms(library),
+        library_device_ms=device_ms(library, runs=100),
         **bound(nbytes(key, table, want)),
     )
+
+
+def _planes(out) -> list:
+    """The tensors of a kernel A result: a tensor, or a VisitPrologue."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for v in out for t in (v if isinstance(v, tuple) else (v,))]
+
+
+def _a_fused_case(label: str, mode: str, wrapper, twin, args):
+    """One of kernel A's fused entries against its twin (the torch code it
+    replaces) on the same card tensors: every output bit-equal. There is
+    no single library call; `plain_device_ms` is the card time of the
+    twin's torch sequence."""
+    got, want = _planes(wrapper(*args)), _planes(twin(*args))
+    check(len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        for g, w in zip(got, want)), f"kernel A's {mode} is not bit-exact "
+        f"({label})")
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    operands = [a for a in args if isinstance(a, torch.Tensor)]
+    return dict(
+        shape=label, mode=mode, max_abs_err=err,
+        **_a_times(lambda: wrapper(*args)),
+        plain_ms=median_ms(lambda: twin(*args)),
+        plain_device_ms=device_ms(lambda: twin(*args), runs=20),
+        library_ms=None,
+        **bound(nbytes(*operands, *got)),
+    )
+
+
+def _prologue_case(label: str, state, config):
+    """Kernel A's visit prologue at the first visit of the path of
+    `config`, slot (0, 0)."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_prescreen as cp
+
+    args = (refine.compute_d_all(state, config), state.tile_palettes,
+            state.alpha, state.palette, 0, 0)
+    return _a_fused_case(label, "prologue", cp.visit_prologue,
+                         cp._visit_prologue_plain, args)
+
+
+def _render_cases(label: str, state, cand5, maps):
+    """Kernel A on the dithered visit's maps: the render entry, and the
+    key/table entry on the keys and tables the render replaces."""
+    from snesimage_torch.ops import cuda_prescreen as cp
+
+    args = (maps, state.tile_palettes, state.alpha, state.palette, cand5, 0,
+            0)
+    return [
+        _a_fused_case(f"{label}, render", "render", cp.render_palette_maps,
+                      cp._render_plain, args),
+        _a_case(f"{label}, one table per candidate",
+                *cp.render_operands(*args)),
+    ]
 
 
 def _a_record(cases) -> dict:
@@ -380,12 +506,21 @@ def phase_kernels(img):
     from snesimage_torch.ops.remap import render_linear
     from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
 
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.ops.cuda_prescreen import no_candidate_key
+
     state, refp, ctx, cand8, cand_lin = first_visit(img, BALANCED)
+    config = QuantConfig(**BALANCED)
     records = []
 
-    # A: the no-candidate frame of an undithered visit.
+    # A: the undithered visit's prologue, and the key/table entry on the
+    # no-candidate key and table the prologue replaces.
+    *_, key_nc, table = no_candidate_key(
+        refine.compute_d_all(state, config), state.tile_palettes,
+        state.alpha, state.palette, 0, 0)
     records.append(_a_record([
-        _a_case("256x256, one table", ctx.key_nc, ctx.table)]))
+        _prologue_case("256x256, red-mean", state, config),
+        _a_case("256x256, one table", key_nc, table)]))
 
     # C: 32 channel values plus 16 explore draws, B = 48.
     args = refine.coarse_inputs(ctx, cand8, cand_lin, refp)
@@ -420,17 +555,23 @@ def phase_kernels(img):
     for r in records:
         r["route"] = "cuda"
     _print_records("phase 2", records)
+    _print_a_cases("phase 2", records[0]["cases"])
     return records
 
 
-def phase_kernel_d(img):
+def phase_kernel_d(img, a_record):
     """Kernel D against its twin on the bench image's perceptual state, at
-    the shapes of the perceptual path's first visit (B = 48)."""
+    the shapes of the perceptual path's first visit (B = 48); and kernel A's
+    prologue there."""
+    from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import refine
     from snesimage_torch.ops import cuda_metric
     from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
 
-    _, refp, ctx, cand8, cand_lin = first_visit(img, PERCEPTUAL)
+    state, refp, ctx, cand8, cand_lin = first_visit(img, PERCEPTUAL)
+    a_case = _prologue_case("256x256, perceptual", state,
+                            QuantConfig(**PERCEPTUAL))
+    a_record.update(_a_record(a_record["cases"] + [a_case]))
     args = refine.coarse_inputs(ctx, cand8, cand_lin, refp)
     sizes = [(256 >> s) ** 2 for s in range(2, 6)]
     sums, dcand = cuda_metric.coarse_feature_sums_ciede(*args)
@@ -453,6 +594,7 @@ def phase_kernel_d(img):
         **_coarse_bound(args, nbytes(sums, dcand), CIEDE_OPS_PER_PX),
     )
     _print_records("phase 5", [record])
+    _print_a_cases("phase 5", [a_case])
     return record
 
 
@@ -473,10 +615,11 @@ def _g_bound(state, b: int, s_entries: int, perceptual: bool, out):
 
 
 def _g_case(label: str, state, config, p: int, i: int, cand5):
-    """Kernel G against its twin for candidates `cand5` of slot (p, i).
-    Red-mean maps must be bit-equal. Perceptual maps may differ on at most
-    1 - DITHER_MAP_SHARE of the pixels; the case then names the first
-    differing pixel of the wavefront and both choices' distances there."""
+    """Kernel G against its twin for candidates `cand5` of slot (p, i):
+    the maps must be bit-equal in both distance modes. Where they are not,
+    the failure names the first differing pixel of the wavefront and both
+    choices' distances there. The time per step is the device time per
+    call over the W + 2H - 2 steps of the wavefront."""
     from snesimage_torch.ops import cuda_dither
     from snesimage_torch.ops.color import ciede2000_srgb_u8, expand_5bit_to_8bit
     from snesimage_torch.ops.dither import dither_candidates
@@ -495,14 +638,11 @@ def _g_case(label: str, state, config, p: int, i: int, cand5):
     check(bool(((got >= 0) & (got < config.subpalette_size)).all()),
           "kernel G wrote an entry index out of range")
     share = float((got == want).float().mean())
-    case = dict(shape=label, equal_share=share,
+    lanes, cluster = cuda_dither.variant(perceptual, *got.shape[1:])
+    case = dict(shape=label, equal_share=share, lanes=lanes,
+                blocks_per_candidate=cluster,
                 max_abs_err=float((got - want).abs().max()))
     if share < 1.0:
-        check(perceptual, f"red-mean maps differ from the twin's ({label}: "
-              f"{share} equal)")
-        check(share >= DITHER_MAP_SHARE,
-              f"perceptual maps differ from the twin's ({label}: {share} "
-              "equal)")
         # Up to the first differing pixel in wavefront order both sides saw
         # the same error, so the twin's target there is the kernel's too.
         h, w = got.shape[1:]
@@ -518,13 +658,17 @@ def _g_case(label: str, state, config, p: int, i: int, cand5):
         picks = (int(got[b, y, x]), int(want[b, y, x]))
         dists = [float(ciede2000_srgb_u8(
             expand_5bit_to_8bit(entries[k]), targets[b, y, x])) for k in picks]
-        case["first_difference"] = dict(
+        first = dict(
             candidate=b, y=y, x=x, kernel_entry=picks[0], twin_entry=picks[1],
             kernel_entry_distance=dists[0], twin_entry_distance=dists[1])
-    case["ms"] = median_ms(
-        lambda: cuda_dither.dither_remap_candidates(*args), runs=10)
+        check(False, f"kernel G's maps differ from the twin's ({label}: "
+              f"{share} equal; first difference {first})")
+    kernel = lambda: cuda_dither.dither_remap_candidates(*args)  # noqa: E731
+    case["ms"] = median_ms(kernel, runs=10)
+    case["device_ms"] = device_ms(kernel, runs=10)
     case["plain_ms"] = twin_ms  # one run: W + 2H - 2 steps of torch ops
-    case["ms_per_step"] = case["ms"] / (got.shape[2] + 2 * got.shape[1] - 2)
+    case["ms_per_step"] = case["device_ms"] / (got.shape[2]
+                                               + 2 * got.shape[1] - 2)
     case.update(_g_bound(state, len(cand5), config.subpalette_size,
                          perceptual, got))
     return case
@@ -539,10 +683,10 @@ def phase_kernel_g(img, a_record, b_record):
     candidate, and kernel B at the coarse shape, 48 full-resolution frames,
     two in-kernel 2x2 means, scales 2..5."""
     from snesimage_torch.core import refine
-    from snesimage_torch.ops import cuda_dither
+    from snesimage_torch.ops import cuda_dither, cuda_prescreen
     from snesimage_torch.testing import with_transparency
 
-    cases, render_case, frames_case = [], None, None
+    cases, a_cases, frames_case = [], [], None
     for label, params in (("red-mean", DITHER),
                           ("perceptual", DITHER_PERCEPTUAL)):
         state, config = prepared_state(img, params)
@@ -562,16 +706,14 @@ def phase_kernel_g(img, a_record, b_record):
             maps = cuda_dither.dither_remap_candidates(
                 state.rgb, state.alpha, state.tile_palettes, state.palette,
                 0, 0, cand5, False)
-            key, tables = refine.dithered_render_operands(
-                state, config, 0, 0, cand5, maps)
-            render_case = _a_case("B=48, 256x256, one table per candidate",
-                                  key, tables)
-            frames = refine.candidate_frames_dithered(state, config, 0, 0,
-                                                      cand5, maps)
+            a_cases = _render_cases("B=48, 256x256", state, cand5, maps)
+            frames = cuda_prescreen.render_palette_maps(
+                maps, state.tile_palettes, state.alpha, state.palette, cand5,
+                0, 0)
             frames_case = _b_case(
                 "B=48, pre_ds=2, n=4", refine.make_reference_pyramid(state),
                 frames, 2, 4, 2)
-    a_record.update(_a_record(a_record["cases"] + [render_case]))
+    a_record.update(_a_record(a_record["cases"] + a_cases))
     b_record.update(_b_record(b_record["cases"] + [frames_case]))
     main = cases[0]  # the dithered path's visit
     record = dict(
@@ -582,21 +724,28 @@ def phase_kernel_g(img, a_record, b_record):
         equal_share=min(c["equal_share"] for c in cases),
         ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        shape=main["shape"], ms_per_step=main["ms_per_step"], cases=cases,
+        shape=main["shape"], device_ms=main["device_ms"],
+        ms_per_step=main["ms_per_step"], lanes=main["lanes"],
+        blocks_per_candidate=main["blocks_per_candidate"], cases=cases,
     )
-    print("phase 8 kernel G vs twin: " + "; ".join(
-        f"{c['shape']}: equal share {c['equal_share']}, kernel "
-        f"{c['ms']:.4f} ms ({c['ms_per_step'] * 1e3:.3f} us a step), twin "
-        f"{c['plain_ms']:.1f} ms, bound {c['bound_ms']:.5f} ms "
-        f"({c['bound_by']})" + (f", first difference {c['first_difference']}"
-                                if "first_difference" in c else "")
-        for c in cases), flush=True)
-    print("phase 9 kernels A and B at the dithered shapes: " + "; ".join(
-        f"{k} {c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
-        f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
-        f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
-        for k, c in (("A", render_case), ("B", frames_case))), flush=True)
+    _print_g_cases("phase 8", cases)
+    _print_a_cases("phase 9", a_cases)
+    print("phase 9 kernel B at the dithered shape: "
+          f"{frames_case['shape']} max_abs_err "
+          f"{frames_case['max_abs_err']:.3g} kernel {frames_case['ms']:.4f} "
+          f"ms twin {frames_case['plain_ms']:.4f} ms bound "
+          f"{frames_case['bound_ms']:.5f} ms ({frames_case['bound_by']})",
+          flush=True)
     return record
+
+
+def _print_g_cases(phase: str, cases) -> None:
+    print(f"{phase} kernel G vs twin (bit-equal maps): " + "; ".join(
+        f"{c['shape']}: L = {c['lanes']} over {c['blocks_per_candidate']} "
+        f"block(s), kernel {c['ms']:.4f} ms wall, {c['device_ms']:.4f} ms "
+        f"device ({c['ms_per_step'] * 1e3:.3f} us a step), twin "
+        f"{c['plain_ms']:.1f} ms, bound {c['bound_ms']:.5f} ms "
+        f"({c['bound_by']})" for c in cases), flush=True)
 
 
 def _pooled_case(label: str, wrapper, twin, args, px_ops: float,
@@ -633,20 +782,26 @@ def _pooled_case(label: str, wrapper, twin, args, px_ops: float,
         **bound(nbytes(*args, *outputs), n_cand * h * w * px_ops))
 
 
-def phase_kernels_ef(img):
+def phase_kernels_ef(img, a_record):
     """Kernels E and F against their twins on the operands of the 256x240
     paths' first visit (B = 48), and on two images at once (the visit's
-    planes and their upside-down copies), the wrappers' leading axis."""
+    planes and their upside-down copies), the wrappers' leading axis; and
+    kernel A's prologue at that visit, red-mean and perceptual."""
+    from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import refine
     from snesimage_torch.ops import cuda_prescreen as cp
 
-    records = []
+    records, a_cases = [], []
     for params, name, wrapper, twin, px_ops, tpu_line in (
             (GEOMETRY, "pooled_wins_redmean", cp.pooled_wins_redmean,
              cp._pooled_wins_redmean_plain, REDMEAN_OPS_PER_PX, 124),
             (GEOMETRY_PERCEPTUAL, "pooled_wins_ciede", cp.pooled_wins_ciede,
              cp._pooled_wins_ciede_plain, CIEDE_OPS_PER_PX, 264)):
-        _, _, ctx, cand8, _ = first_visit(img, params)
+        state, _, ctx, cand8, _ = first_visit(img, params)
+        mode = ("perceptual" if params.get("perceptual_palettes")
+                else "red-mean")
+        a_cases.append(_prologue_case(f"256x240, {mode}", state,
+                                      QuantConfig(**params)))
         args = list(refine.pooled_inputs(ctx, cand8))
         exact = name == "pooled_wins_ciede"
         main = _pooled_case("B=48, 256x240", wrapper, twin, args, px_ops,
@@ -671,6 +826,8 @@ def phase_kernels_ef(img):
               f"kernel {c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
               f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
               for r in records for c in r["cases"]), flush=True)
+    _print_a_cases("phase 14", a_cases)
+    a_record.update(_a_record(a_record["cases"] + a_cases))
     return records
 
 
@@ -757,7 +914,7 @@ def phase_kernels_geometry_dither(img, a_record, b_record, g_record):
     rendered with one table per candidate, and 48 full 240x256 frames taken
     down twice inside kernel B to scales 2..5 (60x64, 30x32, 15x16, 8x8)."""
     from snesimage_torch.core import refine
-    from snesimage_torch.ops import cuda_dither
+    from snesimage_torch.ops import cuda_dither, cuda_prescreen
 
     state, config = prepared_state(img, GEOMETRY_DITHER)
     cand5 = visit_candidates(state)
@@ -765,29 +922,35 @@ def phase_kernels_geometry_dither(img, a_record, b_record, g_record):
     maps = cuda_dither.dither_remap_candidates(
         state.rgb, state.alpha, state.tile_palettes, state.palette, 0, 0,
         cand5, False)
-    a_case = _a_case("B=48, 256x240, one table per candidate",
-                     *refine.dithered_render_operands(state, config, 0, 0,
-                                                      cand5, maps))
-    frames = refine.candidate_frames_dithered(state, config, 0, 0, cand5,
-                                              maps)
+    a_cases = _render_cases("B=48, 256x240", state, cand5, maps)
+    frames = cuda_prescreen.render_palette_maps(
+        maps, state.tile_palettes, state.alpha, state.palette, cand5, 0, 0)
     b_case = _b_case("256x240: B=48, pre_ds=2, n=4",
                      refine.make_reference_pyramid(state), frames, 2, 4, 2)
-    a_record.update(_a_record(a_record["cases"] + [a_case]))
+    a_record.update(_a_record(a_record["cases"] + a_cases))
     b_record.update(_b_record(b_record["cases"] + [b_case]))
     g_record["cases"].append(g_case)
     g_record["max_abs_err"] = max(g_record["max_abs_err"],
                                   g_case["max_abs_err"])
     g_record["equal_share"] = min(g_record["equal_share"],
                                   g_case["equal_share"])
-    print("phase 27 kernels G, A and B at the 256x240 dithered shapes: "
-          f"G {g_case['shape']} equal share {g_case['equal_share']}, kernel "
-          f"{g_case['ms']:.4f} ms, twin {g_case['plain_ms']:.1f} ms, bound "
-          f"{g_case['bound_ms']:.5f} ms ({g_case['bound_by']}); "
-          + "; ".join(
-              f"{k} {c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
-              f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
-              f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
-              for k, c in (("A", a_case), ("B", b_case))), flush=True)
+    _print_g_cases("phase 27", [g_case])
+    _print_a_cases("phase 27", a_cases)
+    print(f"phase 27 kernel B at the 256x240 dithered shape: "
+          f"{b_case['shape']} max_abs_err {b_case['max_abs_err']:.3g} kernel "
+          f"{b_case['ms']:.4f} ms twin {b_case['plain_ms']:.4f} ms bound "
+          f"{b_case['bound_ms']:.5f} ms ({b_case['bound_by']})", flush=True)
+
+
+def phase_prologue_nes(state, params: dict, a_record):
+    """Kernel A's prologue at the first visit of the `nes-compat` run: a
+    4x3 palette, so a 12-entry table and S = 3 distance planes."""
+    from snesimage_torch.config import QuantConfig
+
+    a_case = _prologue_case("256x256, nes-compat 4x3", state,
+                            QuantConfig(**params))
+    a_record.update(_a_record(a_record["cases"] + [a_case]))
+    _print_a_cases("phase 22", [a_case])
 
 
 def phase_init_hash(img, params: dict, want: str, phase: str):
@@ -911,7 +1074,7 @@ def main() -> int:
     init_state = phase_init_hash(img, BALANCED, INIT_HASH, "phase 3")
     runs["balanced"] = phase_main_path(
         img, init_state, smi, BALANCED, "phase 4", "balanced", (a, b, c), 1)
-    records.append(phase_kernel_d(img))
+    records.append(phase_kernel_d(img, records[0]))
     init_state = phase_init_hash(img, PERCEPTUAL, INIT_HASH_PERCEPTUAL,
                                  "phase 6")
     runs["perceptual"] = phase_main_path(
@@ -930,7 +1093,8 @@ def main() -> int:
         "dithered perceptual", (a, b, g), 0)
 
     img240 = np.ascontiguousarray(img[:240])
-    records[-1:-1] = phase_kernels_ef(img240)  # A, B, C, D, E, F, G
+    records[-1:-1] = phase_kernels_ef(  # A, B, C, D, E, F, G
+        img240, by_name["select_colors"])
     phase_kernel_b_geometry(img240, by_name["multiscale_feature_sums"])
     init_state = phase_init_hash(img240, GEOMETRY, INIT_HASH_240, "phase 16")
     runs["geometry"] = phase_main_path(
@@ -950,6 +1114,7 @@ def main() -> int:
     nes = dict(preset_fields("nes-compat"), max_steps=NES_STEPS,
                converge_tol=0.0, seed=0)
     init_state = phase_init_hash(img, nes, INIT_HASH_NES, "phase 22")
+    phase_prologue_nes(init_state, nes, by_name["select_colors"])
     runs["nes"] = phase_main_path(
         img, init_state, smi, nes, "phase 23", "nes-compat", (a, b), 0,
         always_replaces=True)

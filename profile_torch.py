@@ -3,17 +3,22 @@
     python3 profile_torch.py [phase ...]
 
 Runs on the bench image (snesimage_torch.testing.bench_image(0)) with the
-balanced, perceptual and dithered profiles of chip_smoke.py, and on its
-first 240 rows (256x240, the route through kernels E and F) with the
-balanced and perceptual ones, after a warm-up run. With no arguments every
-phase runs; with arguments, only the phases named (kernels, pair, seeds,
-parity, walk, profile). The phases print one JSON line each, profiles last:
+balanced, perceptual, dithered and dithered perceptual profiles of
+chip_smoke.py, and on its first 240 rows (256x240, the route through
+kernels E and F) with the balanced and perceptual ones, after a warm-up
+run. With no arguments every phase runs; with arguments, only the phases
+named (kernels, pair, seeds, parity, walk, profile). The phases print one
+JSON line each, profiles last:
 
   kernels  device time per call, from CUDA events around 20 launches, of
-           kernel G (red-mean and perceptual, B = 48 and B = 1), of kernel
-           B at each call shape of the undithered and the dithered visit,
-           and, at 256x240, of kernels E and F (B = 48) and of kernel B on
-           the 48 quarter-resolution frames assembled from E's sums;
+           kernel G (red-mean and perceptual, B = 48 and B = 1), of every
+           variant of kernel G built (lanes per row slot, blocks per
+           candidate) at B = 48 with its maps checked against the default
+           variant's, and the compiler's register and spill report of each
+           (`-Xptxas -v`, from the build log); of kernel B at each call
+           shape of the undithered and the dithered visit, and, at
+           256x240, of kernels E and F (B = 48) and of kernel B on the 48
+           quarter-resolution frames assembled from E's sums;
   profile  one channel sweep (360 visits) under torch.profiler, once per
            profile: the device's busy time (the union of its kernel and
            copy intervals), its idle share of the sweep's host-clock time
@@ -21,7 +26,8 @@ parity, walk, profile). The phases print one JSON line each, profiles last:
            device operations per visit, device time by kernel, and device
            time per wrapper call of kernels A, B and C (balanced), A, B
            and D (perceptual), A, B and G (dithered) or A, B and E or F
-           (256x240);
+           (256x240); then the 8-step dithered perceptual run once
+           (seconds, step errors, launches);
   pair     seconds of the 8-step balanced run at 256x256 and at 256x240
            taken in turns (256, 240, 240, 256), red-mean and perceptual:
            the host's clock moves between calls and within one, so two
@@ -59,6 +65,7 @@ from chip_smoke import (
     GEOMETRY,
     GEOMETRY_PERCEPTUAL,
     PERCEPTUAL,
+    device_ms,
     first_visit,
     kernel_wrappers,
     prepared_state,
@@ -68,6 +75,8 @@ from chip_smoke import (
 # Device kernels of each wrapper (csrc/*.cu), by the name the profiler shows.
 KERNEL_OF = {
     "select_colors_kernel": "select_colors",
+    "prologue_kernel": "select_colors",
+    "render_kernel": "select_colors",
     "ds2_kernel": "multiscale_feature_sums",
     "tiled_scale_kernel": "multiscale_feature_sums",
     "reduce_tiles_kernel": "multiscale_feature_sums",
@@ -93,18 +102,70 @@ def _prepared(img, config, device="cuda"):
     return state, refp, refine.frame_error_fused(state, config, refp)
 
 
-def _device_ms(fn, runs: int = 20) -> float:
-    """Device time of fn() per call: CUDA events around `runs` launches."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / runs
+def _ptxas_report(names) -> dict:
+    """The compiler's resource lines (`-Xptxas -v`, kept in the build log)
+    of every kernel whose mangled name holds one of `names`."""
+    from snesimage_torch.ops import _kernels
+
+    report, current = {}, None
+    for line in _kernels.build().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = name if any(n in name for n in names) else None
+            if current:
+                report[current] = []
+        elif current and ("Used" in line or "spill" in line):
+            report[current].append(line.split(":", 1)[-1].strip())
+    return report
+
+
+def phase_g_variants(img):
+    """Device ms per call of every built variant of kernel G at the
+    dithered visit's shape (B = 48, 256x256), with its maps checked against
+    the default variant's, and each variant's register report."""
+    from snesimage_torch.ops import cuda_dither
+
+    out = {"phase": "g_variants", "variants": {}}
+    for label, params in (("red-mean", DITHER),
+                          ("perceptual", DITHER_PERCEPTUAL)):
+        state, config = prepared_state(img, params)
+        args = (state.rgb, state.alpha, state.tile_palettes, state.palette,
+                0, 0, visit_candidates(state), config.perceptual_palettes)
+        want = cuda_dither.dither_remap_candidates(*args)
+        steps = 256 + 2 * 256 - 2
+        perc = config.perceptual_palettes
+        for lanes, cluster in cuda_dither.VARIANTS[perc]:
+
+            def run(lanes=lanes, cluster=cluster):
+                return cuda_dither._dither_remap_cuda(
+                    *args, lanes=lanes, cluster=cluster)
+
+            ms = device_ms(run, runs=20 if not perc else 5)
+            out["variants"][f"{label}, L={lanes}, blocks={cluster}"] = {
+                "device_ms": ms, "us_per_step": ms * 1e3 / steps,
+                "maps_equal_default": torch.equal(run(), want),
+            }
+    out["ptxas"] = _ptxas_report(("dither_remap_kernel", "prologue_kernel",
+                                  "render_kernel"))
+    return out
+
+
+def phase_dither_perceptual_8(img):
+    """The dithered perceptual run at 8 steps, once: seconds, step errors
+    and each kernel's launches."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    _, errors, info = pipeline.run_fused(
+        img, QuantConfig(**dict(DITHER_PERCEPTUAL, max_steps=8)),
+        device="cuda")
+    return {"phase": "dither_perceptual_8", "steps": 8,
+            "seconds": info["total_seconds"], "step_errors": errors,
+            "final_error": info["final_error"],
+            "launches": {k: fn.launches for k, fn in wrappers.items()}}
 
 
 def phase_kernels(img):
@@ -123,7 +184,7 @@ def phase_kernels(img):
              GEOMETRY_PERCEPTUAL)):
         _, refp, ctx, cand8, cand_lin = first_visit(img240, params)
         args = refine.pooled_inputs(ctx, cand8)
-        out[name] = {"B=48, 256x240": _device_ms(lambda: wrapper(*args))}
+        out[name] = {"B=48, 256x240": device_ms(lambda: wrapper(*args))}
         if name == "pooled_wins_redmean":
             quarter = cuda_prescreen.coarse_frames(
                 wrapper(*args), cand_lin,
@@ -131,7 +192,7 @@ def phase_kernels(img):
             refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[s])
                          for s in range(2, 6))
             out["multiscale_feature_sums"]["256x240: B=48 of 60x64, n=4"] = (
-                _device_ms(lambda: cuda_metric.multiscale_feature_sums(
+                device_ms(lambda: cuda_metric.multiscale_feature_sums(
                     refs, quarter)))
     for label, params in (("red-mean", DITHER),
                           ("perceptual", DITHER_PERCEPTUAL)):
@@ -140,15 +201,16 @@ def phase_kernels(img):
         common = (state.rgb, state.alpha, state.tile_palettes, state.palette)
         for shape, args in (("B=48", (0, 0, cand5)),
                             ("B=1", (-1, 0, cand5[:1]))):
-            out["dither_remap_candidates"][f"{label}, {shape}"] = _device_ms(
+            out["dither_remap_candidates"][f"{label}, {shape}"] = device_ms(
                 lambda: cuda_dither.dither_remap_candidates(
                     *common, *args, config.perceptual_palettes),
                 runs=20 if label == "red-mean" else 5)
         if label == "red-mean":
             refp = refine.make_reference_pyramid(state)
             maps = cuda_dither.dither_remap_candidates(*common, 0, 0, cand5)
-            frames = refine.candidate_frames_dithered(state, config, 0, 0,
-                                                      cand5, maps)
+            frames = cuda_prescreen.render_palette_maps(
+                maps, state.tile_palettes, state.alpha, state.palette, cand5,
+                0, 0)
             for shape, fr, start, n, pre_ds in (
                     ("B=1, n=6", frames[:1], 0, 6, 0),
                     ("B=8, pre_ds=1, n=1", frames[:8], 1, 1, 1),
@@ -158,7 +220,7 @@ def phase_kernels(img):
                 refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
                              for s in range(n))
                 fr = fr.contiguous()
-                out["multiscale_feature_sums"][shape] = _device_ms(
+                out["multiscale_feature_sums"][shape] = device_ms(
                     lambda: cuda_metric.multiscale_feature_sums(
                         refs, fr, pre_ds=pre_ds))
     return out
@@ -437,7 +499,7 @@ def main() -> int:
     img = bench_image(0)
     img240 = np.ascontiguousarray(img[:240])
     profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
-                "dither": DITHER}
+                "dither": DITHER, "dither perceptual": DITHER_PERCEPTUAL}
     geometry = {"256x240": GEOMETRY, "256x240 perceptual": GEOMETRY_PERCEPTUAL}
     for image, group in ((img, profiles), (img240, geometry)):
         for params in group.values():  # build and warm up
@@ -455,15 +517,17 @@ def main() -> int:
     # the dithered path is walked over its first visits only.
     todo = [
         ("kernels", lambda: phase_kernels(img)),
+        ("kernels", lambda: phase_g_variants(img)),
         ("pair", lambda: phase_pair(img)),
         ("seeds", lambda: phase_seeds(img, SEEDS)),
         *(("parity", lambda label=label, p=p: phase_parity(
             img, label, p, PARITY_STEPS))
-          for label, p in profiles.items() if label != "dither"),
+          for label, p in profiles.items() if "dither" not in label),
         ("walk", lambda: phase_walk(img, PERCEPTUAL)),
         ("walk", lambda: phase_walk_dither(img, DITHER, WALK_DITHER_VISITS)),
         *(("profile", lambda label=label: phase_profile(
             label, *sweeps[label], walls[label])) for label in sweeps),
+        ("profile", lambda: phase_dither_perceptual_8(img)),
     ]
     ok = True
     for name, run in todo:

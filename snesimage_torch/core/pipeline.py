@@ -109,9 +109,10 @@ def run_fused(
     source_rgba: np.ndarray,
     config: QuantConfig,
     *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ) -> tuple[QuantState, list[float], dict]:
-    """Full pipeline on `device`: initialize, cluster, the reference
+    """Full pipeline on `device` (the card unless the caller asks for the
+    CPU; without a card it raises): initialize, cluster, the reference
     pyramid and the refinement loop. Returns (state, per-step errors,
     {"total_seconds", "final_error"}), like the JAX package's run_fused."""
     refine.check_slice(config)

@@ -40,14 +40,19 @@ target's Lab carried beside it) is carried across the visits of a sweep,
 and an accepted colour replaces one plane of it; ties between entries go
 to the lowest index (src/lib.rs:780-792).
 
+What a visit shares across its candidates (each pixel's best entry with
+and without slot i, the frame and palette map with slot i never winning,
+and the operands of the candidates' win rule) comes from one launch of
+kernel A's visit prologue (ops/cuda_prescreen.py `visit_prologue`).
+
 With `config.dither` the remap is the Floyd-Steinberg wavefront (kernel
 G, ops/cuda_dither.py) and there is no distance cache: a visit remaps the
 whole image once per candidate in one launch, renders every map to a
-full-resolution frame (kernel A, batched over candidates) and scores the
-frames in the same stages, kernel B taking them down for the coarse rank
-(two in-kernel 2x2 means). The accepted colour's map is its row of kernel
-G's output, which equals the full remap with the new palette, so no second
-wavefront runs.
+full-resolution frame (kernel A's render entry, over the candidate axis)
+and scores the frames in the same stages, kernel B taking them down for
+the coarse rank (two in-kernel 2x2 means). The accepted colour's map is
+its row of kernel G's output, which equals the full remap with the new
+palette, so no second wavefront runs.
 
 Everything stays on the device: accept, reject and the carried error are
 `torch.where`s, and a sweep never waits for the device.
@@ -82,13 +87,13 @@ from snesimage_torch.ops.cuda_prescreen import (
     coarse_frames,
     pooled_wins_ciede,
     pooled_wins_redmean,
-    select_colors,
+    render_palette_maps,
+    visit_prologue,
 )
 from snesimage_torch.ops.remap import (
     entry_distances,
     remap_undithered,
     render_linear,
-    tile_pixel_map,
 )
 from snesimage_torch.ops.ssimulacra2 import (
     NUM_SCALES,
@@ -97,10 +102,6 @@ from snesimage_torch.ops.ssimulacra2 import (
     reference_pyramid,
     score_from_features,
 )
-
-INT32_MAX = torch.iinfo(torch.int32).max
-INT32_MIN = torch.iinfo(torch.int32).min
-_BIG = 3.0e38  # the float cache's exclusion value (JAX package: _BIG)
 
 
 def check_slice(config: QuantConfig) -> None:
@@ -182,26 +183,35 @@ def _smallest(x: torch.Tensor, k: int) -> torch.Tensor:
 @dataclasses.dataclass
 class SlotContext:
     """What a visit of slot (p, i) shares across its candidates: the best
-    entry of every pixel with and without slot i, and the frame with slot
-    i never winning (`lnc`, channel-major linear RGB, built by kernel A
-    from `key_nc` and `table`)."""
+    entry of every pixel with and without slot i, and the frame (`lnc`,
+    channel-major linear RGB) and palette map with slot i never winning,
+    all from kernel A's visit prologue, with the operands of the
+    candidates' win rule (`rule`, `ml`: see `VisitPrologue`)."""
 
     p: int
     i: int
     target_u8: torch.Tensor  # (H, W, 3) int32
     target_lab: torch.Tensor | None  # (H, W, 3) float32 (perceptual)
+    # (3, H, W) the target planes kernels C to F take: int32 8-bit RGB, or
+    # float32 Lab in perceptual mode
+    target: torch.Tensor
+    alpha: torch.Tensor  # (H, W) int32
     best_val: torch.Tensor  # (H, W) int32 or float32, best without slot i
     best_idx: torch.Tensor  # (H, W) int32, its entry
     base_idx: torch.Tensor  # (H, W) int32, best entry with slot i
     affected: torch.Tensor  # (H, W) bool, pixels of subpalette p
-    opaque: torch.Tensor  # (H, W) bool
-    key_nc: torch.Tensor  # (H, W) int32 in [0, C*S]
-    table: torch.Tensor  # (3, C*S) float32 linear entry colours
+    map_nc: torch.Tensor  # (H, W) int32 palette map, slot i never winning
     lnc: torch.Tensor  # (3, H, W) float32
+    rule: tuple  # (bva,) red-mean, (bvalm, adj) perceptual
+    ml: torch.Tensor  # (3, H, W) float32, lnc where the candidate may win
 
     @property
     def perceptual(self) -> bool:
         return self.target_lab is not None
+
+    @property
+    def opaque(self) -> torch.Tensor:
+        return self.alpha > 0
 
     def cand_dist(self, cand8: torch.Tensor) -> torch.Tensor:
         """(..., H, W) scaled red-mean distances of every pixel to (..., 3)
@@ -216,35 +226,31 @@ class SlotContext:
             (d_c == self.best_val) & (self.i < self.best_idx)
         )
 
+    def win_mask(self, d_c: torch.Tensor) -> torch.Tensor:
+        """Where a candidate with distance planes `d_c` takes the pixel:
+        `wins` on the opaque pixels of subpalette p, nowhere else. The rule
+        of kernels C to F on the prologue's operands."""
+        if self.perceptual:
+            bvalm, adj = self.rule
+            return (d_c < bvalm) | ((d_c == bvalm) & (adj != 0))
+        return d_c < self.rule[0]
+
 
 def slot_context(state: QuantState, config: QuantConfig, p: int, i: int,
                  d_all: torch.Tensor, t_lab=None) -> SlotContext:
     """Everything a visit of slot (p, i) shares; `t_lab` is the target's
     Lab image (perceptual mode; computed here when not given)."""
-    s = config.subpalette_size
     if config.perceptual_palettes and t_lab is None:
         t_lab = target_lab(state, config)
-    entries8 = expand_5bit_to_8bit(state.palette)  # (C, S, 3)
-    tp_pix = tile_pixel_map(state.tile_palettes)
-    excl = (torch.arange(s, device=d_all.device) == i)[:, None, None]
-    big = INT32_MAX if d_all.dtype == torch.int32 else _BIG
-    best_val, best_idx = torch.min(torch.where(excl, big, d_all), dim=0)
-    best_idx = best_idx.to(torch.int32)
-    base_idx = torch.argmin(d_all, dim=0).to(torch.int32)
-    affected = tp_pix == p
-    opaque = state.alpha > 0
-    # Affected pixels take their best other entry, the rest their best
-    # entry, transparent pixels the sentinel (colour 0).
-    table = srgb_u8_to_linear(entries8).reshape(-1, 3).T.contiguous()
-    idx_nc = torch.where(affected, best_idx, base_idx)
-    key_nc = torch.where(opaque, tp_pix * s + idx_nc, table.shape[1]).to(
-        torch.int32
-    )
+    rgb, alpha = state.rgb, state.alpha
+    target = (t_lab if config.perceptual_palettes else rgb).permute(2, 0, 1)
+    pro = visit_prologue(d_all, state.tile_palettes, alpha, state.palette, p,
+                         i)
     return SlotContext(
-        p=p, i=i, target_u8=state.rgb, target_lab=t_lab, best_val=best_val,
-        best_idx=best_idx, base_idx=base_idx, affected=affected,
-        opaque=opaque, key_nc=key_nc, table=table,
-        lnc=select_colors(key_nc, table),
+        p=p, i=i, target_u8=rgb, target_lab=t_lab,
+        target=target.contiguous(), alpha=alpha, best_val=pro.best_val,
+        best_idx=pro.best_idx, base_idx=pro.base_idx, affected=pro.affected,
+        map_nc=pro.map_nc, lnc=pro.lnc, rule=pro.rule, ml=pro.ml,
     )
 
 
@@ -252,24 +258,8 @@ def pooled_inputs(ctx: SlotContext, cand8: torch.Tensor):
     """The arguments of kernel E (red-mean) or kernel F (perceptual) for
     8-bit candidates `cand8`; their last is the masked no-candidate
     frame."""
-    mask = ctx.affected & ctx.opaque
-    adj = (ctx.i < ctx.best_idx).to(torch.int32)
-    ml = torch.where(mask[None], ctx.lnc, 0.0)
-    if ctx.perceptual:
-        # Float win rule (d < bvalm) | (d == bvalm & adj): the tie rule
-        # cannot fold into the threshold; masked pixels never win.
-        bvalm = torch.where(mask, ctx.best_val, -_BIG)
-        return (ctx.target_lab.permute(2, 0, 1).contiguous(),
-                srgb_u8_to_lab(cand8), bvalm, adj, ml)
-    # Integer win threshold with the tie rule and the mask folded in: a
-    # candidate wins a pixel where its distance is below bva.
-    bva = torch.where(
-        mask,
-        torch.where(ctx.best_val == INT32_MAX, ctx.best_val,
-                    ctx.best_val + adj),
-        INT32_MIN,
-    )
-    return ctx.target_u8.permute(2, 0, 1).contiguous(), cand8, bva, ml
+    cand = srgb_u8_to_lab(cand8) if ctx.perceptual else cand8
+    return (ctx.target, cand, *ctx.rule, ctx.ml)
 
 
 def ds4_no_candidate(ctx: SlotContext) -> torch.Tensor:
@@ -295,12 +285,9 @@ def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
 def candidate_frames(ctx: SlotContext, dist: torch.Tensor,
                      cand_lin: torch.Tensor) -> torch.Tensor:
     """(n, 3, H, W) full-resolution linear frames of n candidates from
-    their (n, H, W) distance planes. In perceptual mode this is the win
-    rule of kernels D and F: (d < bvalm) | (d == bvalm & adj), bvalm =
-    -3e38 off the mask."""
-    wins = ctx.affected & ctx.opaque & ctx.wins(dist)
-    return torch.where(wins[:, None], cand_lin[:, :, None, None],
-                       ctx.lnc[None])
+    their (n, H, W) distance planes, by the win rule of kernels C to F."""
+    return torch.where(ctx.win_mask(dist)[:, None],
+                       cand_lin[:, :, None, None], ctx.lnc[None])
 
 
 def _keep(rank: torch.Tensor, k: int, base_rows: int) -> torch.Tensor:
@@ -415,12 +402,7 @@ def _undithered_machinery(
                                 carried_base)
 
     def final_map(dist):
-        idx = torch.where(
-            ctx.affected,
-            torch.where(ctx.wins(dist), i, ctx.best_idx),
-            ctx.base_idx,
-        )
-        return torch.where(ctx.opaque, idx, 0).to(torch.int32)
+        return torch.where(ctx.win_mask(dist), i, ctx.map_nc)
 
     def new_d_all(dist):
         out = d_all.clone()
@@ -428,32 +410,6 @@ def _undithered_machinery(
         return out
 
     return errors, final_map, new_d_all
-
-
-def dithered_render_operands(state: QuantState, config: QuantConfig, p: int,
-                             i: int, cand5: torch.Tensor, maps: torch.Tensor):
-    """What kernel A renders the (B, H, W) palette maps `maps` from: the
-    (B, H, W) int32 keys `subpalette * S + entry`, with the sentinel key for
-    transparent pixels, and one (3, C*S) linear colour table per candidate,
-    candidate b's colour in slot (p, i) of table b."""
-    s = config.subpalette_size
-    entries_lin = srgb_u8_to_linear(expand_5bit_to_8bit(state.palette))
-    tables = entries_lin.reshape(-1, 3).T[None].repeat(cand5.shape[0], 1, 1)
-    tables[:, :, p * s + i] = srgb_u8_to_linear(expand_5bit_to_8bit(cand5))
-    tp_pix = tile_pixel_map(state.tile_palettes)
-    key = torch.where(state.alpha > 0, tp_pix * s + maps, tables.shape[2])
-    return key.to(torch.int32), tables.contiguous()
-
-
-def candidate_frames_dithered(state: QuantState, config: QuantConfig, p: int,
-                              i: int, cand5: torch.Tensor,
-                              maps: torch.Tensor) -> torch.Tensor:
-    """(B, 3, H, W) linear frames of the (B, H, W) palette maps `maps`,
-    map b rendered with candidate b in slot (p, i): kernel A over the
-    candidate axis. The JAX package's one-hot contraction over S computes
-    the same frames."""
-    return select_colors(
-        *dithered_render_operands(state, config, p, i, cand5, maps))
 
 
 def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
@@ -465,11 +421,15 @@ def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
     maps. Without `carried_base` row 0 is the current colour and survives
     every ranking."""
     base_rows = 0 if carried_base else 1
+    alpha = state.alpha
     maps = dither_remap_candidates(
-        state.rgb, state.alpha, state.tile_palettes, state.palette, p, i,
-        cand5, config.perceptual_palettes,
+        state.rgb, alpha, state.tile_palettes, state.palette, p, i, cand5,
+        config.perceptual_palettes,
     )
-    frames = candidate_frames_dithered(state, config, p, i, cand5, maps)
+    # Map b rendered with candidate b in slot (p, i); the JAX package's
+    # one-hot contraction over S computes the same frames.
+    frames = render_palette_maps(maps, state.tile_palettes, alpha,
+                                 state.palette, cand5, p, i)
     if not _prescreens(config, cand5.shape[0], allow_prescreen, base_rows):
         feats = fused_scale_feature_block(refp, frames, 0, NUM_SCALES)
         return 100.0 - score_from_features(feats), maps

@@ -56,9 +56,10 @@ class QuantState:
 def new_state(
     source_rgba: np.ndarray | torch.Tensor,
     config: QuantConfig,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ) -> QuantState:
-    """Fresh all-black state for a source image (src/lib.rs:45-65)."""
+    """Fresh all-black state for a source image (src/lib.rs:45-65), on the
+    card unless the caller asks for the CPU."""
     device = torch.device(device)
     if isinstance(source_rgba, torch.Tensor):
         source = source_rgba.to(device=device, dtype=torch.uint8)

@@ -95,8 +95,16 @@ class DitherParams(ctypes.Structure):
     _fields_ = [("wgt", ctypes.c_float * 4), ("lab", LabParams)]
 
 
+
 _SIGNATURES = {
     "snes_select_colors": (_P, _P, _P, _I, _I, _I, _P),
+    "snes_select_colors_prologue": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P,
+    ),
+    "snes_select_colors_render": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+    ),
     "snes_ds2": (_P, _P, _I, _I, _I, _P),
     "snes_tiled_scale": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "snes_reduce_tiles": (_P, _P, _I, _I, _I, _I, _P),
@@ -115,7 +123,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
     ),
     "snes_dither_remap": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P,
     ),
 }
 
@@ -197,6 +206,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@lru_cache(maxsize=None)
+def entry(name: str):
+    """The library's C entry point `name`, looked up once."""
+    return getattr(library(), name)
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {rc}")
@@ -217,10 +232,11 @@ def require(t, name: str, dtype, shape: tuple, device) -> int:
 
 
 def stream(device) -> int:
-    """PyTorch's current CUDA stream on `device`, as a raw handle."""
+    """PyTorch's current CUDA stream on `device`, as a raw handle (read
+    without building a Stream object: this runs on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 @lru_cache(maxsize=None)
@@ -261,3 +277,9 @@ def dither_params() -> DitherParams:
     p.lab.lin_slope = color._recip(3.0 * color._DELTA**2)
     p.lab.lin_offset = color._f32(4.0 / 29.0)
     return p
+
+
+@lru_cache(maxsize=None)
+def dither_params_address() -> int:
+    """Where `dither_params()` lies, for the C entry point."""
+    return ctypes.addressof(dither_params())

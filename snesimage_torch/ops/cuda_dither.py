@@ -10,9 +10,15 @@ B = 1).
 
 On a CUDA tensor `dither_remap_candidates` launches csrc/dither.cu or
 raises; on a CPU tensor it runs the twin, ops/dither.py
-`dither_candidates`. Red-mean maps are bit-equal; so are perceptual ones
-unless the card's double `pow` or trigonometry lands across a float32
-rounding boundary from the host's.
+`dither_candidates`. The maps are bit-equal in both distance modes: the
+kernel takes the twin's float operations in the twin's order, and its
+CIEDE2000 rounds as the twin's does (csrc/ciede2000.cuh).
+
+The kernel gives each row slot L lanes that split the entry search
+(csrc/dither.cu). L is not a knob: each distance mode launches the variant
+measured fastest on the card (PERF.md, "Kernel G") where its blocks fit,
+and `VARIANTS` holds only what `variant` can choose. Every variant gives
+the same maps; `_dither_remap_cuda` can launch any of them for that check.
 
 The kernel's C interface takes a leading image axis N and the candidate
 axis B; this wrapper passes one image (N = 1). The seed-grouped form of the
@@ -22,42 +28,67 @@ portfolio, ROADMAP queue A item 16, and is not ported.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from snesimage_torch.ops import _kernels
-from snesimage_torch.ops.color import expand_5bit_to_8bit
 from snesimage_torch.ops.dither import dither_candidates
 
-MAX_ROWS = 256  # kMaxRows in csrc/dither.cu: one thread per image row
+# The variants csrc/dither.cu builds, per distance mode (perceptual) in
+# the order `variant` tries them: (lanes per row slot, blocks per
+# candidate). Red-mean L = 1 fits up to 512 row slots; perceptual L = 8
+# over a cluster of two blocks fits up to 128, L = 2 up to 256.
+VARIANTS = {False: ((1, 1),), True: ((8, 2), (2, 1), (1, 1))}
+MAX_THREADS = 512  # a block of any variant
+
+
+def row_slots(h: int, w: int) -> int:
+    """R = min(H, ceil(W/2)): rows y, y + R, ... share row slot y mod R."""
+    return min(h, (w + 1) // 2)
+
+
+def _threads(h: int, w: int, lanes: int, cluster: int) -> int:
+    per_block = -(-row_slots(h, w) // cluster)
+    return -(-per_block * lanes // 32) * 32
+
+
+def variant(perceptual: bool, h: int, w: int) -> tuple[int, int]:
+    """(lanes, cluster) of the launch for an H x W image: the first variant
+    of the mode whose blocks fit."""
+    for lanes, cl in VARIANTS[bool(perceptual)]:
+        if _threads(h, w, lanes, cl) <= MAX_THREADS:
+            return lanes, cl
+    raise NotImplementedError(
+        f"kernel G has no variant for {row_slots(h, w)} row slots "
+        f"({h}x{w}); images up to 1024 pixels wide fit")
 
 
 def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
-                       perceptual):
+                       perceptual, lanes=None, cluster=None):
     dev = rgb.device
     h, w, _ = rgb.shape
     c, s, _ = palette5.shape
     b = cand5.shape[0]
-    if h > MAX_ROWS or h % 8 or w % 8:
+    if h % 8 or w % 8:
         raise NotImplementedError(
-            f"kernel G takes images of whole 8x8 tiles with at most "
-            f"{MAX_ROWS} rows, not {h}x{w}"
-        )
+            f"kernel G takes images of whole 8x8 tiles, not {h}x{w}")
     if not -1 <= p < c or not 0 <= i < s:
         raise ValueError(f"slot ({p}, {i}) is outside the {c}x{s} palette")
-    entries8 = expand_5bit_to_8bit(palette5).contiguous()
-    cand8 = expand_5bit_to_8bit(cand5).contiguous()
+    if lanes is None:
+        lanes, cluster = variant(perceptual, h, w)
+    elif ((lanes, cluster) not in VARIANTS[bool(perceptual)]
+          or _threads(h, w, lanes, cluster) > MAX_THREADS):
+        raise ValueError(f"kernel G has no variant of {lanes} lanes over "
+                         f"{cluster} block(s) for {h}x{w}")
     out = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    rc = _kernels.library().snes_dither_remap(
+    rc = _kernels.entry("snes_dither_remap")(
         _kernels.require(rgb, "rgb", torch.int32, (h, w, 3), dev),
         _kernels.require(alpha, "alpha", torch.int32, (h, w), dev),
         _kernels.require(tile_palettes, "tile_palettes", torch.int32,
                          (h // 8, w // 8), dev),
-        _kernels.require(entries8, "entries8", torch.int32, (c, s, 3), dev),
-        _kernels.require(cand8, "cand8", torch.int32, (b, 3), dev),
-        1, b, h, w, c, s, p, i, int(bool(perceptual)),
-        ctypes.addressof(_kernels.dither_params()), out.data_ptr(),
+        _kernels.require(palette5, "palette5", torch.int32, (c, s, 3), dev),
+        _kernels.require(cand5, "cand5", torch.int32, (b, 3), dev),
+        1, b, h, w, c, s, p, i, int(bool(perceptual)), lanes, cluster,
+        _kernels.dither_params_address(), out.data_ptr(),
         _kernels.stream(dev),
     )
     _kernels.check(rc, "dither_remap")
@@ -84,9 +115,10 @@ def dither_remap_candidates(
     perceptual: CIEDE2000 instead of the red-mean distance.
     """
     if rgb.is_cuda:
-        return _dither_remap_cuda(rgb.contiguous(), alpha.contiguous(),
-                                  tile_palettes, palette5, p, i, cand5,
-                                  perceptual)
+        return _dither_remap_cuda(
+            rgb.contiguous(), alpha.contiguous(), tile_palettes.contiguous(),
+            palette5.to(torch.int32).contiguous(), p, i,
+            cand5.to(torch.int32).contiguous(), perceptual)
     return dither_candidates(rgb, alpha, tile_palettes, palette5, p, i,
                              cand5, perceptual)
 

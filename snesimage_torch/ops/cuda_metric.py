@@ -224,7 +224,7 @@ def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
         raise ValueError("kernel C reads tg, bva and ml as 16-byte vectors")
     refs = _ref_pyramid(triples, dev)
     out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
-    rc = _kernels.library().snes_coarse_redmean(
+    rc = _kernels.entry("snes_coarse_redmean")(
         *ptrs, ctypes.addressof(refs), 0, n, 1, b, h, w,
         ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
         _kernels.stream(dev),
@@ -286,7 +286,7 @@ def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     refs = _ref_pyramid(triples, dev)
     out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
     dcand = torch.empty((b, h, w), dtype=torch.float32, device=dev)
-    rc = _kernels.library().snes_coarse_ciede(
+    rc = _kernels.entry("snes_coarse_ciede")(
         *ptrs, ctypes.addressof(refs), 0, n, 1, b, h, w,
         ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
         dcand.data_ptr(), _kernels.stream(dev),

@@ -4,14 +4,19 @@ skip where no card is present. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-A is exact; B, C and D agree within 2e-4 on finalised features, and D's
-distance planes within 1e-4 (absolute plus relative). E's and F's mask
-counts equal their twins', their m*ML sums agree within 1e-5 (16 floats
-added in another order) and F's distance planes within 1e-4. B runs at
-pyramids with odd scales (240x256, 40x24, 60x60). G's red-mean maps
-equal its twin's; its perceptual maps on at least 0.99 of the pixels (the
-card's double pow and trigonometry may land across a float32 rounding
-boundary from the twin's, and error diffusion spreads one flipped pixel)."""
+A is exact in all three entries (key/table, the visit prologue and the
+render of palette maps); B, C and D agree within 2e-4 on finalised
+features, and D's distance planes within 1e-4 (absolute plus relative).
+E's and F's mask counts equal their twins', their m*ML sums agree within
+1e-5 (16 floats added in another order) and F's distance planes within
+1e-4. B runs at pyramids with odd scales (240x256, 40x24, 60x60). G's
+maps equal its twin's at the dithered paths' geometries (256x256,
+256x240), a narrow one and one whose row slots take several rows each, in
+both distance modes, and every variant built (lanes per row slot, blocks
+per candidate) gives the same maps; on random images in perceptual mode
+the older cases ask for 0.99 of the pixels (the card's double pow and
+trigonometry could land across a float32 rounding boundary from the
+twin's, and error diffusion spreads one flipped pixel)."""
 
 import pytest
 import torch
@@ -371,9 +376,105 @@ def test_dither_remap_candidates_rejects_bad_operands(dev):
         cuda_dither.dither_remap_candidates(
             rgb[:30].contiguous(), alpha[:30].contiguous(), tiles, pal, p, i,
             cand)
-    tall = _dither_args(dev, 264, 32, 2, 4, 2, 1)
-    with pytest.raises(NotImplementedError):  # more rows than threads
-        cuda_dither.dither_remap_candidates(*tall)
+    with pytest.raises(ValueError):  # a variant that is not built
+        cuda_dither._dither_remap_cuda(rgb, alpha, tiles, pal, p, i, cand,
+                                       False, lanes=4, cluster=1)
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize(
+    # the dithered paths' geometries; a narrow image (R = 12 row slots);
+    # slots that take three and more rows (H > 2 ceil(W/2)); and more rows
+    # than the old one-thread-per-row kernel took
+    "h,w,b", [(256, 256, 3), (240, 256, 3), (64, 24, 4), (48, 16, 5),
+              (264, 32, 2)],
+)
+def test_dither_maps_equal_twin(dev, h, w, b, perceptual):
+    args = _dither_args(dev, h, w, 4, 15, b, 3 * h + w)
+    got = cuda_dither.dither_remap_candidates(*args, perceptual)
+    want = dither_candidates(*args, perceptual)
+    assert got.shape == (b, h, w)
+    assert torch.equal(got, want), float((got == want).float().mean())
+    assert cuda_dither.row_slots(h, w) == min(h, w // 2)
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("h,w", [(256, 256), (64, 96), (64, 24)])
+def test_dither_variants_give_the_same_maps(dev, h, w, perceptual):
+    """Every variant of kernel G that is built gives the maps of the one
+    `variant` chooses: the lanes only split each pixel's entry search."""
+    args = _dither_args(dev, h, w, 8, 15, 3, h * w)
+    want = cuda_dither.dither_remap_candidates(*args, perceptual)
+    for lanes, cluster in cuda_dither.VARIANTS[perceptual]:
+        got = cuda_dither._dither_remap_cuda(*args, perceptual, lanes=lanes,
+                                             cluster=cluster)
+        assert torch.equal(got, want), (lanes, cluster)
+
+
+def _prologue_args(dev, h, w, c, s, perceptual, seed):
+    """Kernel A prologue operands on the card: distance planes full of
+    ties, transparency, duplicate palette entries."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if perceptual:
+        values = torch.tensor([0.0, 1.5, 2.25, 7.0], device=dev)
+        d_all = values[torch.randint(0, 4, (s, h, w), generator=g,
+                                     device=dev)]
+    else:
+        d_all = torch.randint(0, 5, (s, h, w), generator=g, device=dev,
+                              dtype=torch.int32) * 1000
+    alpha = torch.full((h, w), 255, dtype=torch.int32, device=dev)
+    alpha[::3, ::5] = 0
+    alpha[h // 2:h // 2 + 5, 2:9] = 0
+    tiles = torch.randint(0, c, (h // 8, w // 8), generator=g, device=dev,
+                          dtype=torch.int32)
+    pal = torch.randint(0, 32, (c, s, 3), generator=g, device=dev,
+                        dtype=torch.int32)
+    if s > 1:
+        pal[:, 1] = pal[:, 0]
+    return d_all.contiguous(), tiles, alpha, pal
+
+
+def _all_planes(out):
+    return [t for v in out for t in (v if isinstance(v, tuple) else (v,))]
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize(
+    "h,w,c,s,p,i", [(256, 256, 8, 15, 0, 0), (240, 256, 8, 15, 7, 14),
+                    (40, 24, 3, 4, 1, 2), (16, 24, 2, 1, 1, 0)],
+)
+def test_visit_prologue(dev, h, w, c, s, p, i, perceptual):
+    args = _prologue_args(dev, h, w, c, s, perceptual, h + w + s + i)
+    before = cuda_prescreen.select_colors.launches
+    got = cuda_prescreen.visit_prologue(*args, p, i)
+    assert cuda_prescreen.select_colors.launches == before + 1
+    want = cuda_prescreen._visit_prologue_plain(*args, p, i)
+    for a, b in zip(_all_planes(got), _all_planes(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert len(_all_planes(got)) == len(_all_planes(want))
+
+
+@pytest.mark.parametrize(
+    "h,w,c,s,b,p,i", [(256, 256, 8, 15, 48, 0, 0), (240, 256, 8, 15, 48, 3, 7),
+                      (40, 24, 3, 4, 5, 2, 3)],
+)
+def test_render_palette_maps(dev, h, w, c, s, b, p, i):
+    _, tiles, alpha, pal = _prologue_args(dev, h, w, c, s, False, b + i)
+    g = torch.Generator(device=dev).manual_seed(b)
+    maps = torch.randint(0, s, (b, h, w), generator=g, device=dev,
+                         dtype=torch.int32)
+    cand5 = torch.randint(0, 32, (b, 3), generator=g, device=dev,
+                          dtype=torch.int32)
+    before = cuda_prescreen.select_colors.launches
+    got = cuda_prescreen.render_palette_maps(maps, tiles, alpha, pal, cand5,
+                                             p, i)
+    assert cuda_prescreen.select_colors.launches == before + 1
+    want = cuda_prescreen._render_plain(maps, tiles, alpha, pal, cand5, p, i)
+    assert got.shape == (b, 3, h, w) and torch.equal(got, want)
+    with pytest.raises(ValueError):  # a slot outside the palette
+        cuda_prescreen.render_palette_maps(maps, tiles, alpha, pal, cand5, c,
+                                           0)
 
 
 def test_wrappers_reject_bad_operands(dev):

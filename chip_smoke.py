@@ -36,7 +36,11 @@ undithered path's first visit (256x256 and 256x240, red-mean and
 perceptual, and the 4x3 palette of `nes-compat`; the reference cycle's is
 the balanced one's shape), the dithered visit's render at 256x256 and
 256x240. A's `library_ms` is the gather's time over the key/table cases,
-and `library_cases_ms` A's own wall time over those same cases.
+and `library_cases_ms` A's own wall time over those same cases. C's and
+D's records also hold their device time at the first visit (`device_ms`)
+and how many of their four-block clusters the card holds at once
+(`active_clusters`); D's also the device times of kernels F and B on the
+same visit (`unfused`), the route that computes D's function unfused.
 
 Kernel F also serves every perceptual visit that has no prescreen, at any
 geometry: it alone writes the candidates' distance planes there, and its
@@ -300,6 +304,27 @@ def visit_candidates(state):
         0, 32, (16, 3), generator=gen, device="cuda", dtype=torch.int32)])
 
 
+def unfused_coarse_ms(ctx, cand8, cand_lin, refp) -> dict:
+    """Kernel D's function by the unfused route on the same visit: the
+    device ms of kernel F's pooled sums and distance planes and of kernel B
+    on the 48 quarter-resolution frames assembled from them (scales 2-5),
+    and F's planes."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_metric, cuda_prescreen
+
+    args = refine.pooled_inputs(ctx, cand8)
+    pooled, planes = cuda_prescreen.pooled_wins_ciede(*args)
+    frames = cuda_prescreen.coarse_frames(
+        pooled, cand_lin, refine.ds4_no_candidate(ctx)).contiguous()
+    refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[s])
+                 for s in range(2, 6))
+    return dict(
+        f_ms=device_ms(lambda: cuda_prescreen.pooled_wins_ciede(*args)),
+        b_ms=device_ms(
+            lambda: cuda_metric.multiscale_feature_sums(refs, frames)),
+        planes=planes)
+
+
 def _coarse_bound(args, out_bytes: int, px_ops: float):
     """Bound of a coarse kernel call (C or D) on `args`, with `px_ops`
     operations per full-resolution pixel and candidate."""
@@ -315,7 +340,9 @@ def _coarse_bound(args, out_bytes: int, px_ops: float):
 def _print_records(phase: str, records) -> None:
     print(f"{phase} kernels vs twins: " + "; ".join(
         f"{r['name']} max_abs_err {r['max_abs_err']:.3g} "
-        f"kernel {r['ms']:.4f} ms twin {r['plain_ms']:.4f} ms "
+        f"kernel {r['ms']:.4f} ms"
+        + (f" ({r['device_ms']:.4f} ms device)" if "device_ms" in r else "")
+        + f" twin {r['plain_ms']:.4f} ms "
         f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
         for r in records), flush=True)
 
@@ -528,12 +555,18 @@ def phase_kernels(img):
     raw = cuda_metric.coarse_feature_sums_redmean(*args)
     got = finalize_feature_sums(raw, sizes, 2)
     want = finalize_feature_sums(cuda_metric._coarse_plain(*args), sizes, 2)
+    again = cuda_metric.coarse_feature_sums_redmean(*args)
+    check(torch.equal(raw, again), "kernel C gave other bits a second time")
     records.append(dict(
         name="coarse_feature_sums_redmean",
         source="snesimage_torch/csrc/coarse_redmean.cu",
         replaces="snesimage_tpu/ops/pallas_metric.py:522",
         max_abs_err=max_err(got, want, FEATURE_TOL),
         ms=median_ms(lambda: cuda_metric.coarse_feature_sums_redmean(*args)),
+        device_ms=device_ms(
+            lambda: cuda_metric.coarse_feature_sums_redmean(*args)),
+        blocks_per_candidate=cuda_metric.CLUSTER_BLOCKS,
+        active_clusters=cuda_metric.active_clusters(False, 256, 256),
         plain_ms=median_ms(lambda: cuda_metric._coarse_plain(*args)),
         library_ms=None,
         shape="B=48, 256x256 -> scales 2-5",
@@ -580,6 +613,13 @@ def phase_kernel_d(img, a_record):
                        finalize_feature_sums(want_sums, sizes, 2),
                        FEATURE_TOL)
     d_err = max_err(dcand, want_d, DISTANCE_TOL)
+    check(torch.equal(dcand, want_d),
+          f"kernel D's distance planes differ from the twin's "
+          f"({float((dcand == want_d).float().mean())} equal)")
+    again = cuda_metric.coarse_feature_sums_ciede(*args)
+    check(torch.equal(sums, again[0]) and torch.equal(dcand, again[1]),
+          "kernel D gave other bits a second time")
+    kernel = lambda: cuda_metric.coarse_feature_sums_ciede(*args)  # noqa: E731
     record = dict(
         name="coarse_feature_sums_ciede", route="cuda",
         source="snesimage_torch/csrc/coarse_ciede.cu",
@@ -587,13 +627,22 @@ def phase_kernel_d(img, a_record):
         max_abs_err=max(feat_err, d_err), feature_max_abs_err=feat_err,
         distance_max_abs_err=d_err,
         distance_exact_share=float((dcand == want_d).float().mean()),
-        ms=median_ms(lambda: cuda_metric.coarse_feature_sums_ciede(*args)),
+        ms=median_ms(kernel), device_ms=device_ms(kernel),
+        blocks_per_candidate=cuda_metric.CLUSTER_BLOCKS,
+        active_clusters=cuda_metric.active_clusters(True, 256, 256),
         plain_ms=median_ms(lambda: cuda_metric._coarse_ciede_plain(*args)),
         library_ms=None,
         shape="B=48, 256x256 -> scales 2-5 and distance planes",
         **_coarse_bound(args, nbytes(sums, dcand), CIEDE_OPS_PER_PX),
+        unfused=unfused_coarse_ms(ctx, cand8, cand_lin, refp),
     )
+    check(torch.equal(dcand, record["unfused"].pop("planes")),
+          "kernel D's distance planes differ from kernel F's")
     _print_records("phase 5", [record])
+    u = record["unfused"]
+    print(f"phase 5 kernel D {record['device_ms']:.4f} ms device against "
+          f"F + B on the same visit {u['f_ms']:.4f} + {u['b_ms']:.4f} = "
+          f"{u['f_ms'] + u['b_ms']:.4f} ms", flush=True)
     _print_a_cases("phase 5", [a_case])
     return record
 

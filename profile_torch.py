@@ -18,7 +18,10 @@ JSON line each, profiles last:
            (`-Xptxas -v`, from the build log); of kernel B at each call
            shape of the undithered and the dithered visit, and, at
            256x240, of kernels E and F (B = 48) and of kernel B on the 48
-           quarter-resolution frames assembled from E's sums;
+           quarter-resolution frames assembled from E's sums; of kernels C
+           and D at the first visit (B = 48, 256x256), with the clusters the
+           card holds at once, their register report, and F and B on the
+           perceptual visit, D's yardstick;
   profile  one channel sweep (360 visits) under torch.profiler, once per
            profile: the device's busy time (the union of its kernel and
            copy intervals), its idle share of the sweep's host-clock time
@@ -69,6 +72,7 @@ from chip_smoke import (
     first_visit,
     kernel_wrappers,
     prepared_state,
+    unfused_coarse_ms,
     visit_candidates,
 )
 
@@ -147,6 +151,35 @@ def phase_g_variants(img):
             }
     out["ptxas"] = _ptxas_report(("dither_remap_kernel", "prologue_kernel",
                                   "render_kernel"))
+    return out
+
+
+def phase_coarse(img):
+    """Device ms per call of kernels C and D at the first visit's shapes
+    (B = 48, 256x256), with the clusters the card holds at once and each
+    kernel's register report; kernels F and B on the perceptual visit (the
+    unfused route, D's yardstick)."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_metric
+
+    out = {"phase": "coarse"}
+    for label, params, wrapper in (
+            ("red-mean", BALANCED, cuda_metric.coarse_feature_sums_redmean),
+            ("perceptual", PERCEPTUAL, cuda_metric.coarse_feature_sums_ciede)):
+        _, refp, ctx, cand8, cand_lin = first_visit(img, params)
+        args = refine.coarse_inputs(ctx, cand8, cand_lin, refp)
+        out[label] = {
+            "device_ms": device_ms(lambda: wrapper(*args)),
+            "blocks_per_candidate": cuda_metric.CLUSTER_BLOCKS,
+            "active_clusters": cuda_metric.active_clusters(
+                label == "perceptual", 256, 256),
+        }
+        if label == "perceptual":
+            unfused = unfused_coarse_ms(ctx, cand8, cand_lin, refp)
+            unfused.pop("planes")
+            out["unfused_f_plus_b"] = unfused
+    out["ptxas"] = _ptxas_report(("coarse_redmean_kernel",
+                                  "coarse_ciede_kernel"))
     return out
 
 
@@ -517,6 +550,7 @@ def main() -> int:
     # the dithered path is walked over its first visits only.
     todo = [
         ("kernels", lambda: phase_kernels(img)),
+        ("kernels", lambda: phase_coarse(img)),
         ("kernels", lambda: phase_g_variants(img)),
         ("pair", lambda: phase_pair(img)),
         ("seeds", lambda: phase_seeds(img, SEEDS)),

@@ -119,8 +119,8 @@ def run_fused(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_fused: no CUDA device is available")
-    t0 = time.perf_counter()
     state = new_state(source_rgba, config, device)
+    t0 = time.perf_counter()  # after new_state, as the JAX package's clock
     state = cluster(initialize(state, config), config)
     refp = refine.make_reference_pyramid(state)
     state, errs = _optimize(state, config, refp)

@@ -7,24 +7,26 @@
 //
 // Replaces snesimage_tpu/ops/pallas_metric.py _coarse_redmean_n
 // (pallas_call at :579, body _coarse_kernel_redmean :365-424).
-// One block per (image, candidate). The full-resolution target, bva and
-// ML planes are shared by every candidate of a visit and stay in L2; each
-// thread owns whole 4x4 pooled cells (pooled_cell.cuh, shared with kernel
-// E), so the pooled sums need no atomics.
-// The quarter-resolution frame (3 x 64 x 64 floats at 256x256) stays in
-// shared memory and scales 2..5 run there with kernel B's resident pass.
-// What bounds it on the card: one block per candidate under-fills the
-// 132 SMs (48 blocks per channel-sweep visit), and each block reads the
-// 1.8 MB of shared full-resolution planes from L2.
-#include "metric_common.cuh"
-#include "pooled_cell.cuh"
+// One (image, candidate) per thread-block cluster of four blocks
+// (coarse_cluster.cuh): the cluster pools the candidate's cells and hands
+// the quarter-resolution frame over through distributed shared memory;
+// three blocks run scale 2, one XYB channel each, while the fourth runs
+// scale 3; then the three run scales 4 and 5. The full-resolution target,
+// bva and ML planes are shared by every candidate of a visit and stay in
+// L2; each pooled cell belongs to one thread (pooled_cell.cuh, shared with
+// kernel E), so the pooled sums need no atomics.
+// What bounds it on the card: not its arithmetic or its bytes (a few
+// microseconds at peak rates) but the latency of each block's chain of
+// blurs and barriers with 8 warps an SM, and the pooling's loads of the
+// shared planes from L2.
+#include "coarse_cluster.cuh"
 
 namespace snes {
 
 // tg (N, 3, H, W) int32; cand8 (N, B, 3) int32; cand_lin (N, B, 3) f32;
 // bva (N, H, W) int32; ml (N, 3, H, W) f32; ds4 (N, 3, H/4, W/4) f32;
-// out (N, B, n_scales, 3, 6). Grid: N * B blocks.
-__global__ void __launch_bounds__(kResidentThreads)
+// out (N, B, n_scales, 3, 6). Grid: N * B clusters of kClusterBlocks blocks.
+__global__ void __launch_bounds__(kClusterThreads, 2)
 coarse_redmean_kernel(const int* __restrict__ tg,
                       const int* __restrict__ cand8,
                       const float* __restrict__ cand_lin,
@@ -33,9 +35,7 @@ coarse_redmean_kernel(const int* __restrict__ tg,
                       const float* __restrict__ ds4, RefPyramid refs,
                       int first_ref, int n_scales, int n_cand, int h, int w,
                       MetricParams p, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  __shared__ float red[(kResidentThreads / 32) * 6];
-  const int m = blockIdx.x;
+  const int m = blockIdx.x / kClusterBlocks;
   const int img = m / n_cand;
   const float lin_c[3] = {cand_lin[m * 3], cand_lin[m * 3 + 1],
                           cand_lin[m * 3 + 2]};
@@ -46,21 +46,10 @@ coarse_redmean_kernel(const int* __restrict__ tg,
       tr, tr + plane, tr + 2 * plane, bva + (size_t)img * plane,
       ml0, ml0 + plane, ml0 + 2 * plane, w,
       cand8[m * 3], cand8[m * 3 + 1], cand8[m * 3 + 2]};
-  const int hq = h / 4, wq = w / 4, n_q = hq * wq;
-  const float* ds4i = ds4 + (size_t)img * 3 * n_q;
-  const float inv16 = 1.0f / 16.0f;
-
-  for (int cell = threadIdx.x; cell < n_q; cell += blockDim.x) {
-    float pooled[4];
-    pool_cell_redmean(cell_in, cell / wq, cell % wq, pooled);
-    const float p0 = pooled[0], p1 = pooled[1], p2 = pooled[2], p3 = pooled[3];
-    smem[cell] = (lin_c[0] * p0 - p1) * inv16 + ds4i[cell];
-    smem[n_q + cell] = (lin_c[1] * p0 - p2) * inv16 + ds4i[n_q + cell];
-    smem[2 * n_q + cell] = (lin_c[2] * p0 - p3) * inv16 + ds4i[2 * n_q + cell];
-  }
-  __syncthreads();
-  resident_scales(smem, hq, wq, n_scales, refs, first_ref, img, p, red,
-                  out + (size_t)m * n_scales * 18);
+  const int hq = h / 4, wq = w / 4;
+  coarse_cluster_pass(cell_in, lin_c, ds4 + (size_t)img * 3 * hq * wq, hq,
+                      wq, refs, first_ref, n_scales, img, p,
+                      out + (size_t)m * n_scales * 18);
 }
 
 }  // namespace snes
@@ -73,16 +62,19 @@ extern "C" int snes_coarse_redmean(const void* tg, const void* cand8,
                                    int n_cand, int h, int w,
                                    const snes::MetricParams* params,
                                    void* out, void* stream) {
-  const size_t smem =
-      sizeof(float) * snes::resident_smem_floats(h / 4, w / 4);
-  cudaError_t err = cudaFuncSetAttribute(
+  return (int)snes::launch_coarse_cluster(
+      snes::coarse_redmean_kernel, n_img * n_cand,
+      sizeof(float) * snes::cluster_smem_floats(h / 4, w / 4),
+      (cudaStream_t)stream, (const int*)tg, (const int*)cand8,
+      (const float*)cand_lin, (const int*)bva, (const float*)ml,
+      (const float*)ds4, *refs, first_ref, n_scales, n_cand, h, w, *params,
+      (float*)out);
+}
+
+// Clusters of kernel C the card holds at once for h x w frames, or a
+// negative CUDA error.
+extern "C" int snes_coarse_redmean_active_clusters(int h, int w) {
+  return snes::coarse_active_clusters(
       snes::coarse_redmean_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  snes::coarse_redmean_kernel<<<n_img * n_cand, snes::kResidentThreads, smem,
-                                (cudaStream_t)stream>>>(
-      (const int*)tg, (const int*)cand8, (const float*)cand_lin,
-      (const int*)bva, (const float*)ml, (const float*)ds4, *refs, first_ref,
-      n_scales, n_cand, h, w, *params, (float*)out);
-  return (int)cudaGetLastError();
+      sizeof(float) * snes::cluster_smem_floats(h / 4, w / 4));
 }

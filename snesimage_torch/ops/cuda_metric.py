@@ -9,9 +9,10 @@ Counterparts of snesimage_tpu/ops/pallas_metric.py:
 - `coarse_feature_sums_redmean` (kernel C, csrc/coarse_redmean.cu): the
   fused coarse prescreen of one slot visit: per candidate the int32
   red-mean win mask, its 4x4 pooled sums, the exact quarter-resolution
-  frame and the raw sums of its scales. Twin: the JAX package's XLA chain
-  (pallas_prescreen.py `_pooled_wins_redmean_xla`, the coarse frame of
-  core/refine.py, then kernel B's twin).
+  frame and the raw sums of its scales, one thread-block cluster of four
+  blocks a candidate (csrc/coarse_cluster.cuh). Twin: the JAX package's
+  XLA chain (pallas_prescreen.py `_pooled_wins_redmean_xla`, the coarse
+  frame of core/refine.py, then kernel B's twin).
 - `coarse_feature_sums_ciede` (kernel D, csrc/coarse_ciede.cu): kernel C
   for perceptual mode. The win mask compares each pixel's CIEDE2000
   distance to the candidate (csrc/ciede2000.cuh, the standard formula of
@@ -49,6 +50,9 @@ from snesimage_torch.ops.ssimulacra2 import (
 # (kResidentMaxPixels in csrc/metric_common.cuh).
 RESIDENT_MAX_PIXELS = 64 * 64
 _TILE = 32  # kTile in csrc/multiscale.cu
+# Blocks per candidate of kernels C and D: a thread-block cluster of four
+# (kClusterBlocks in csrc/coarse_cluster.cuh).
+CLUSTER_BLOCKS = 4
 
 
 def _raw_sums(img1, mu1, s11, img2) -> torch.Tensor:
@@ -202,6 +206,16 @@ def _coarse_geometry(name, h, w, flat_refs, other):
         if tuple(t[0].shape[-2:]) != pyramid_size(h, w, 2 + si):
             raise ValueError(f"coarse scale {2 + si} has the wrong size")
     return triples
+
+
+def active_clusters(perceptual: bool, h: int, w: int) -> int:
+    """How many clusters of kernel D (perceptual) or C the card holds at
+    once for h x w frames: the occupancy calculator's answer."""
+    name = ("snes_coarse_ciede_active_clusters" if perceptual
+            else "snes_coarse_redmean_active_clusters")
+    n = _kernels.entry(name)(h, w)
+    _kernels.check(max(-n, 0), name)
+    return n
 
 
 def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):

@@ -6,7 +6,8 @@ skip where no card is present. On the card:
 
 A is exact in all three entries (key/table, the visit prologue and the
 render of palette maps); B, C and D agree within 2e-4 on finalised
-features, and D's distance planes within 1e-4 (absolute plus relative).
+features; D's distance planes equal kernel F's and the twin's. C and D
+give the same bits in two calls.
 E's and F's mask counts equal their twins', their m*ML sums agree within
 1e-5 (16 floats added in another order) and F's distance planes within
 1e-4. B runs at pyramids with odd scales (240x256, 40x24, 60x60). G's
@@ -89,32 +90,42 @@ def test_multiscale_feature_sums(dev, size, start, n, pre_ds, b):
     assert torch.equal(got, again)  # no atomics: the same bits every run
 
 
-@pytest.mark.parametrize("size,b", [(256, 48), (64, 5), (128, 9)])
-def test_coarse_feature_sums_redmean(dev, size, b):
-    refp, g = _pyramid(dev, size, size + b)
-    tg = torch.randint(0, 256, (3, size, size), generator=g, device=dev,
+# Kernels C and D at the fused geometries (256x256, 256x224, 128x128,
+# 64x64, 32x32), with lone candidates, grids short of a full wave of
+# clusters and more candidates than a visit has.
+COARSE_SHAPES = [(256, 256, 48), (64, 64, 5), (128, 128, 9), (256, 256, 1),
+                 (256, 256, 2), (256, 256, 9), (256, 256, 64),
+                 (224, 256, 9), (224, 256, 48), (64, 64, 48), (32, 32, 1),
+                 (32, 32, 64)]
+
+
+@pytest.mark.parametrize("h,w,b", COARSE_SHAPES)
+def test_coarse_feature_sums_redmean(dev, h, w, b):
+    refp, g = _pyramid(dev, h, h + w + b, width=w)
+    tg = torch.randint(0, 256, (3, h, w), generator=g, device=dev,
                        dtype=torch.int32)
     cand8 = torch.randint(0, 256, (b, 3), generator=g, device=dev,
                           dtype=torch.int32)
     cand8[-1] = cand8[0]
     cand_lin = (cand8 / 255.0) ** 2.2
-    bva = torch.randint(0, 150_000_000, (size, size), generator=g, device=dev,
+    bva = torch.randint(0, 150_000_000, (h, w), generator=g, device=dev,
                         dtype=torch.int32)
     bva[:8] = torch.iinfo(torch.int32).min
     bva[8:12] = torch.iinfo(torch.int32).max
-    lnc = torch.rand((3, size, size), generator=g, device=dev)
+    lnc = torch.rand((3, h, w), generator=g, device=dev)
     ml = torch.where(bva[None] > 0, lnc, 0.0)
-    ds4 = lnc.reshape(3, size // 4, 4, size // 4, 4).mean(dim=(2, 4))
+    ds4 = lnc.reshape(3, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
     flat = tuple(a.permute(2, 0, 1) for s in range(2, 6) for a in refp[s])
     args = (tg, cand8, cand_lin.float(), bva, ml, ds4.contiguous(), flat)
-    sizes = [(size >> s) ** 2 for s in range(2, 6)]
+    sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
     before = cuda_metric.coarse_feature_sums_redmean.launches
     got = cuda_metric.coarse_feature_sums_redmean(*args)
     assert cuda_metric.coarse_feature_sums_redmean.launches == before + 1
     want = cuda_metric._coarse_plain(*args)
     _close(finalize_feature_sums(got, sizes, 2),
            finalize_feature_sums(want, sizes, 2))
-    assert torch.equal(got[-1], got[0])
+    assert torch.equal(got[-1], got[0])  # duplicate candidates: equal rows
+    assert torch.equal(got, cuda_metric.coarse_feature_sums_redmean(*args))
 
 
 def _coarse_ciede_args(dev, h, w, b, seed):
@@ -142,7 +153,8 @@ def _coarse_ciede_args(dev, h, w, b, seed):
     return args
 
 
-@pytest.mark.parametrize("h,w,b", [(64, 96, 7), (256, 256, 1), (128, 128, 48)])
+@pytest.mark.parametrize("h,w,b", [(64, 96, 7), (128, 128, 48)]
+                         + COARSE_SHAPES[3:])
 def test_coarse_feature_sums_ciede(dev, h, w, b):
     args = _coarse_ciede_args(dev, h, w, b, h + w + b)
     sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
@@ -151,7 +163,11 @@ def test_coarse_feature_sums_ciede(dev, h, w, b):
     assert cuda_metric.coarse_feature_sums_ciede.launches == before + 1
     want_sums, want_d = cuda_metric._coarse_ciede_plain(*args)
     assert dcand.shape == (b, h, w)
+    # The distance planes: kernel F's (the same device code) and the twin's.
+    f_planes = cuda_prescreen.pooled_wins_ciede(*args[:2], *args[3:6])[1]
+    assert torch.equal(dcand, f_planes)
     _close(dcand, want_d, DISTANCE_TOL)
+    assert torch.equal(dcand, want_d), float((dcand == want_d).float().mean())
     _close(finalize_feature_sums(sums, sizes, 2),
            finalize_feature_sums(want_sums, sizes, 2))
     assert torch.equal(sums[-1], sums[0])

@@ -3,6 +3,8 @@ options the port does not cover yet. tests/test_torch_geometry.py and
 tests/test_torch_schedules.py hold the runs at other geometries and with
 the reference and NES schedules."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -60,6 +62,26 @@ def test_run_fused_cuda_without_a_card_raises(small_image):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         tpipe.run_fused(small_image, TConfig(**SMALL), device="cuda")
+
+
+def test_run_fused_clock_starts_after_new_state(small_image, monkeypatch):
+    """total_seconds leaves out new_state, as the JAX package's run_fused
+    does (ROADMAP C-10): a new_state slowed by 0.3 s leaves the reported
+    time at least 0.3 s below the call's wall time."""
+    slow = 0.3
+    real = tpipe.new_state
+
+    def slow_new_state(*args, **kwargs):
+        time.sleep(slow)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tpipe, "new_state", slow_new_state)
+    t0 = time.perf_counter()
+    _, errors, info = tpipe.run_fused(
+        small_image, TConfig(**dict(SMALL, max_steps=0)), device="cpu")
+    wall = time.perf_counter() - t0
+    assert errors == []
+    assert 0.0 < info["total_seconds"] <= wall - slow
 
 
 @pytest.fixture

@@ -41,6 +41,8 @@ D's records also hold their device time at the first visit (`device_ms`)
 and how many of their four-block clusters the card holds at once
 (`active_clusters`); D's also the device times of kernels F and B on the
 same visit (`unfused`), the route that computes D's function unfused.
+Kernel B's cases hold its device time per call (`device_ms`, CUDA events
+behind a spin kernel) at every shape, and B must give the same bits twice.
 
 Kernel F also serves every perceptual visit that has no prescreen, at any
 geometry: it alone writes the candidates' distance planes there, and its
@@ -151,6 +153,12 @@ REDMEAN_OPS_PER_PX = 17
 # code takes the transcendentals in double to round as its twin does,
 # which is the port's choice and not part of the work bounded here.
 CIEDE_OPS_PER_PX = 141 + 9
+# The same CIEDE2000 as kernels D and F run it, for a second bound of F:
+# each transcendental in double precision, an estimate of 25 double
+# multiply-adds (range reduction and polynomial; not measured), 50 FLOPs,
+# against the H100 SXM's 34 TFLOP/s of FP64 outside the tensor cores.
+CIEDE_F64_FLOPS_PER_CALL = 50
+F64_FLOPS_PER_S = 34e12
 # Kernel G (csrc/dither.cu), per pixel and candidate: the window update,
 # masks and hand-down 40; per live pixel the target and its quantisation 15
 # and, for each of the S entries, a red-mean distance and compare 14 (int32
@@ -382,12 +390,22 @@ def _b_case(label: str, refp, frames, start: int, n: int, pre_ds: int):
     raw = kernel()
     got = finalize_feature_sums(raw.reshape(b, -1, 6), sizes, start)
     want = finalize_feature_sums(plain().reshape(b, -1, 6), sizes, start)
+    check(torch.equal(raw, kernel()), "kernel B gave other bits a second time")
     return dict(
         shape=label, max_abs_err=max_err(got, want, FEATURE_TOL),
-        ms=median_ms(kernel), plain_ms=median_ms(plain),
-        **bound(nbytes(frames, *(a for t in refs for a in t), raw),
-                metric_ops(b, sizes) + pre_ds * b * frames[0].numel()),
+        ms=median_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=median_ms(plain), **b_bound(refs, frames, raw, pre_ds),
     )
+
+
+def b_bound(refs, frames, raw, pre_ds: int) -> dict:
+    """Bound of one call of kernel B: the frames, reference planes and sums
+    moved once; the metric's operations on every scale and the `pre_ds`
+    2x2 means (three operations a frame pixel and mean)."""
+    sizes = [t[0].shape[-2] * t[0].shape[-1] for t in refs]
+    return bound(nbytes(frames, *(a for t in refs for a in t), raw),
+                 metric_ops(len(frames), sizes)
+                 + pre_ds * len(frames) * frames[0].numel())
 
 
 def _sum_cases(record: dict, cases) -> dict:
@@ -519,10 +537,20 @@ def _a_record(cases) -> dict:
 
 
 def _b_record(cases) -> dict:
-    return _sum_cases(dict(
+    record = _sum_cases(dict(
         name="multiscale_feature_sums",
         source="snesimage_torch/csrc/multiscale.cu",
         replaces="snesimage_tpu/ops/pallas_metric.py:194"), cases)
+    record["device_ms"] = sum(c["device_ms"] for c in cases)
+    return record
+
+
+def _print_b_cases(phase: str, what: str, cases) -> None:
+    print(f"{phase} kernel B {what}: " + "; ".join(
+        f"{c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
+        f"{c['ms']:.4f} ms wall, {c['device_ms']:.5f} ms device, twin "
+        f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
+        f"({c['bound_by']})" for c in cases), flush=True)
 
 
 def phase_kernels(img):
@@ -589,6 +617,7 @@ def phase_kernels(img):
         r["route"] = "cuda"
     _print_records("phase 2", records)
     _print_a_cases("phase 2", records[0]["cases"])
+    _print_b_cases("phase 2", "at the main path's shapes", records[2]["cases"])
     return records
 
 
@@ -779,12 +808,7 @@ def phase_kernel_g(img, a_record, b_record):
     )
     _print_g_cases("phase 8", cases)
     _print_a_cases("phase 9", a_cases)
-    print("phase 9 kernel B at the dithered shape: "
-          f"{frames_case['shape']} max_abs_err "
-          f"{frames_case['max_abs_err']:.3g} kernel {frames_case['ms']:.4f} "
-          f"ms twin {frames_case['plain_ms']:.4f} ms bound "
-          f"{frames_case['bound_ms']:.5f} ms ({frames_case['bound_by']})",
-          flush=True)
+    _print_b_cases("phase 9", "at the dithered shape", [frames_case])
     return record
 
 
@@ -823,12 +847,26 @@ def _pooled_case(label: str, wrapper, twin, args, px_ops: float,
           f"pooled mask counts differ from the twin's ({label})")
     n_cand = args[1].shape[:-1].numel()
     h, w = args[2].shape[-2:]
-    return dict(
+    case = dict(
         shape=label, max_abs_err=max_err(got, want, POOLED_SUM_TOL),
         mask_count=float(got[..., 0, :, :].sum()),
         ms=median_ms(lambda: wrapper(*args)),
         plain_ms=median_ms(plain, runs=5), library_ms=None,
         **bound(nbytes(*args, *outputs), n_cand * h * w * px_ops))
+    if exact_planes:
+        case["bound_fp64_ms"] = ciede_fp64_bound_ms(
+            nbytes(*args, *outputs), n_cand * h * w)
+    return case
+
+
+def ciede_fp64_bound_ms(n_bytes: float, n_px: int) -> float:
+    """F's bound as its device code runs CIEDE2000: the float32 operations
+    without the transcendentals over the float32 rate, and the nine
+    double-precision transcendental calls, at CIEDE_F64_FLOPS_PER_CALL each,
+    over the FP64 rate; the larger of those and the bytes."""
+    t_f32 = n_px * (CIEDE_OPS_PER_PX - 9) / F32_OPS_PER_S
+    t_f64 = n_px * 9 * CIEDE_F64_FLOPS_PER_CALL / F64_FLOPS_PER_S
+    return max(n_bytes / MEMORY_BYTES_PER_S, t_f32, t_f64) * 1e3
 
 
 def phase_kernels_ef(img, a_record):
@@ -874,6 +912,8 @@ def phase_kernels_ef(img, a_record):
               f"{r['name']} {c['shape']} max_abs_err {c['max_abs_err']:.3g} "
               f"kernel {c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
               f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
+              + (f", with double transcendentals {c['bound_fp64_ms']:.5f} ms"
+                 if "bound_fp64_ms" in c else "")
               for r in records for c in r["cases"]), flush=True)
     _print_a_cases("phase 14", a_cases)
     a_record.update(_a_record(a_record["cases"] + a_cases))
@@ -907,11 +947,7 @@ def phase_kernel_b_geometry(img, b_record):
         _b_case("256x240: B=4, n=1", refp, finals[:4].contiguous(), 0, 1, 0),
     ]
     b_record.update(_b_record(b_record["cases"] + cases))
-    print("phase 15 kernel B at the 256x240 shapes: " + "; ".join(
-        f"{c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
-        f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
-        f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for c in cases),
-        flush=True)
+    _print_b_cases("phase 15", "at the 256x240 shapes", cases)
 
 
 def phase_kernel_b_unprescreened(img, b_record):
@@ -949,12 +985,7 @@ def phase_kernel_b_unprescreened(img, b_record):
     cases.append(_b_case("256x256: B=56, n=6 (NES visit)", refp,
                          frames_of(ctx, nes_palette_5bit("cuda")), 0, 6, 0))
     b_record.update(_b_record(b_record["cases"] + cases))
-    print("phase 26 kernel B at the unprescreened visits' shapes: "
-          + "; ".join(
-              f"{c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
-              f"{c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
-              f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for c in cases),
-          flush=True)
+    _print_b_cases("phase 26", "at the unprescreened visits' shapes", cases)
 
 
 def phase_kernels_geometry_dither(img, a_record, b_record, g_record):
@@ -985,10 +1016,7 @@ def phase_kernels_geometry_dither(img, a_record, b_record, g_record):
                                   g_case["equal_share"])
     _print_g_cases("phase 27", [g_case])
     _print_a_cases("phase 27", a_cases)
-    print(f"phase 27 kernel B at the 256x240 dithered shape: "
-          f"{b_case['shape']} max_abs_err {b_case['max_abs_err']:.3g} kernel "
-          f"{b_case['ms']:.4f} ms twin {b_case['plain_ms']:.4f} ms bound "
-          f"{b_case['bound_ms']:.5f} ms ({b_case['bound_by']})", flush=True)
+    _print_b_cases("phase 27", "at the 256x240 dithered shape", [b_case])
 
 
 def phase_prologue_nes(state, params: dict, a_record):

@@ -1,14 +1,14 @@
 """Where the time of the port's main paths goes on one CUDA card.
 
-    python3 profile_torch.py [phase ...]
+    python3 profile_torch.py [phase ...] [--parent DIR]
 
 Runs on the bench image (snesimage_torch.testing.bench_image(0)) with the
 balanced, perceptual, dithered and dithered perceptual profiles of
 chip_smoke.py, and on its first 240 rows (256x240, the route through
 kernels E and F) with the balanced and perceptual ones, after a warm-up
 run. With no arguments every phase runs; with arguments, only the phases
-named (kernels, pair, seeds, parity, walk, profile). The phases print one
-JSON line each, profiles last:
+named (kernels, multiscale, pair, seeds, parity, walk, profile). The
+phases print one JSON line each, profiles last:
 
   kernels  device time per call, from CUDA events around 20 launches, of
            kernel G (red-mean and perceptual, B = 48 and B = 1), of every
@@ -22,6 +22,18 @@ JSON line each, profiles last:
            and D at the first visit (B = 48, 256x256), with the clusters the
            card holds at once, their register report, and F and B on the
            perceptual visit, D's yardstick;
+  multiscale
+           kernel B at every call shape chip_smoke.py drives (14 shapes) and
+           kernels C and D at the first visit: device ms per call (CUDA
+           events around 50 calls behind a spin kernel, two runs), device
+           kernels per call (torch.profiler), bound, launches per call and
+           the clusters the card holds at once for each, B's register
+           report; with --parent DIR (a `git archive` of another commit
+           unpacked in a directory .gitignore lists, such as
+           snesimage_torch/build/parent) also that tree's kernels on the
+           same operands in a process of their own, before and after this
+           tree's (parent, this tree, this tree, parent), and whether their
+           sums are bit-equal;
   profile  one channel sweep (360 visits) under torch.profiler, once per
            profile: the device's busy time (the union of its kernel and
            copy intervals), its idle share of the sweep's host-clock time
@@ -54,6 +66,8 @@ JSON line each, profiles last:
 from __future__ import annotations
 
 import json
+import os
+import subprocess
 import sys
 import time
 
@@ -66,8 +80,11 @@ from chip_smoke import (
     DITHER_PERCEPTUAL,
     ERROR_TOL,
     GEOMETRY,
+    GEOMETRY_DITHER,
     GEOMETRY_PERCEPTUAL,
     PERCEPTUAL,
+    REFERENCE,
+    b_bound,
     device_ms,
     first_visit,
     kernel_wrappers,
@@ -81,10 +98,7 @@ KERNEL_OF = {
     "select_colors_kernel": "select_colors",
     "prologue_kernel": "select_colors",
     "render_kernel": "select_colors",
-    "ds2_kernel": "multiscale_feature_sums",
-    "tiled_scale_kernel": "multiscale_feature_sums",
-    "reduce_tiles_kernel": "multiscale_feature_sums",
-    "resident_kernel": "multiscale_feature_sums",
+    "multiscale_kernel": "multiscale_feature_sums",
     "coarse_redmean_kernel": "coarse_feature_sums_redmean",
     "coarse_ciede_kernel": "coarse_feature_sums_ciede",
     "pooled_wins_redmean_kernel": "pooled_wins_redmean",
@@ -180,6 +194,192 @@ def phase_coarse(img):
             out["unfused_f_plus_b"] = unfused
     out["ptxas"] = _ptxas_report(("coarse_redmean_kernel",
                                   "coarse_ciede_kernel"))
+    return out
+
+
+def _b_shapes(img):
+    """Kernel B's operands at every call shape chip_smoke.py drives, from
+    the same states: (label, refs, frames, pre_ds) each."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.models.presets import preset_fields
+    from snesimage_torch.ops import cuda_dither, cuda_prescreen
+    from snesimage_torch.ops.color import (
+        expand_5bit_to_8bit,
+        nes_palette_5bit,
+        srgb_u8_to_linear,
+    )
+    from snesimage_torch.ops.remap import render_linear
+
+    def refs_of(refp, start, n):
+        return tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
+                     for s in range(n))
+
+    def frames_of(ctx, cand5):
+        cand8 = expand_5bit_to_8bit(cand5)
+        return refine.candidate_frames(ctx, ctx.cand_dist(cand8),
+                                       srgb_u8_to_linear(cand8)).contiguous()
+
+    cases = []
+    img240 = np.ascontiguousarray(img[:240])
+    for tag, image, params in (("", img, BALANCED),
+                               ("256x240: ", img240, GEOMETRY)):
+        state, refp, ctx, cand8, cand_lin = first_visit(image, params)
+        frame = render_linear(state.palette_map, state.alpha,
+                              state.tile_palettes, state.palette)
+        finals = refine.candidate_frames(ctx, ctx.cand_dist(cand8[:8]),
+                                         cand_lin[:8])
+        cases += [
+            (f"{tag}B=1, n=6", refs_of(refp, 0, 6),
+             frame.permute(2, 0, 1)[None].contiguous(), 0),
+            (f"{tag}B=8, pre_ds=1, n=1", refs_of(refp, 1, 1), finals, 1),
+            (f"{tag}B=2, n=1", refs_of(refp, 0, 1),
+             finals[:2].contiguous(), 0),
+            (f"{tag}B=4, n=1", refs_of(refp, 0, 1),
+             finals[:4].contiguous(), 0),
+        ]
+        if tag:
+            pooled = cuda_prescreen.pooled_wins_redmean(
+                *refine.pooled_inputs(ctx, cand8))
+            quarter = cuda_prescreen.coarse_frames(
+                pooled, cand_lin, refine.ds4_no_candidate(ctx)).contiguous()
+            cases.append((f"{tag}B=48 of 60x64, n=4", refs_of(refp, 2, 4),
+                          quarter, 0))
+    for tag, image, params in (("", img, DITHER),
+                               ("256x240: ", img240, GEOMETRY_DITHER)):
+        state, _ = prepared_state(image, params)
+        cand5 = visit_candidates(state)
+        maps = cuda_dither.dither_remap_candidates(
+            state.rgb, state.alpha, state.tile_palettes, state.palette, 0, 0,
+            cand5, False)
+        frames = cuda_prescreen.render_palette_maps(
+            maps, state.tile_palettes, state.alpha, state.palette, cand5, 0,
+            0)
+        cases.append((f"{tag}B=48, pre_ds=2, n=4",
+                      refs_of(refine.make_reference_pyramid(state), 2, 4),
+                      frames, 2))
+    state, refp, ctx, _, _ = first_visit(img, REFERENCE)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    draws = torch.randint(0, 32, (64, 3), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    cases += [
+        ("B=64, n=6 (random visit)", refs_of(refp, 0, 6),
+         frames_of(ctx, draws), 0),
+        ("B=32, n=6 (channel visit)", refs_of(refp, 0, 6),
+         frames_of(ctx, visit_candidates(state)[:32]), 0),
+    ]
+    _, refp, ctx, _, _ = first_visit(
+        img, dict(preset_fields("nes-compat"), seed=0))
+    cases.append(("B=56, n=6 (NES visit)", refs_of(refp, 0, 6),
+                  frames_of(ctx, nes_palette_5bit("cuda")), 0))
+    return cases
+
+
+def _kernels_per_call(fn, calls: int = 5):
+    """Device kernels per call of fn(), over `calls` calls under
+    torch.profiler; None if three profiler sessions recorded no device
+    event at all (a session now and then records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n:
+            return n / calls
+    return None
+
+
+def kernel_times(cases) -> dict:
+    """Kernels B, C and D with whichever snesimage_torch is imported, at
+    each case (label, kernel, operands): the sums, device ms per call (50
+    calls behind a spin kernel) and device kernels per call."""
+    from snesimage_torch.ops import cuda_metric
+
+    wrappers = {
+        "B": lambda refs, frames, pre_ds: cuda_metric.multiscale_feature_sums(
+            refs, frames, pre_ds=pre_ds),
+        "C": cuda_metric.coarse_feature_sums_redmean,
+        "D": lambda *args: cuda_metric.coarse_feature_sums_ciede(*args)[0],
+    }
+    out = {}
+    for label, kernel, args in cases:
+
+        def run(fn=wrappers[kernel], args=args):
+            return fn(*args)
+
+        out[label] = {"sums": run().cpu(), "device_ms": device_ms(run),
+                      "kernels_per_call": _kernels_per_call(run)}
+    return out
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_multiscale(img, parent):
+    """Kernel B at every call shape chip_smoke.py drives: device ms per
+    call, kernels per call, bound and clusters held at once; kernels C and
+    D at the first visit (B = 48, 256x256), which share B's cluster pass.
+    With `parent` (an unpacked tree of another commit, in a directory
+    .gitignore lists) also that tree's kernels on the same operands, in
+    turns (parent, this tree, this tree, parent, each parent run in a
+    process of its own), and whether the sums are bit-equal."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import _kernels, cuda_metric
+
+    b_cases = _b_shapes(img)
+    cases = [(label, "B", (refs, frames, pre_ds))
+             for label, refs, frames, pre_ds in b_cases]
+    for kernel, params in (("C", BALANCED), ("D", PERCEPTUAL)):
+        _, refp, ctx, cand8, cand_lin = first_visit(img, params)
+        cases.append((f"kernel {kernel}, B=48", kernel,
+                      refine.coarse_inputs(ctx, cand8, cand_lin, refp)))
+    path = _kernels.BUILD_DIR / "multiscale_cases.pt"
+    torch.save(cases, path)
+
+    def parent_run(k):
+        dst = _kernels.BUILD_DIR / f"multiscale_parent_{k}.pt"
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--b-times", parent, str(path), str(dst)], check=True)
+        return torch.load(dst)
+
+    before = parent_run(0) if parent else None
+    runs = [kernel_times(cases), kernel_times(cases)]
+    after = parent_run(1) if parent else None
+    out = {"phase": "multiscale", "card": _card(), "shapes": {}}
+    for label, kernel, args in cases:
+        got = runs[0][label]
+        rec = {
+            "device_ms": [r[label]["device_ms"] for r in runs],
+            "kernels_per_call": got["kernels_per_call"],
+            "same_bits_twice": torch.equal(got["sums"], runs[1][label]["sums"]),
+        }
+        if kernel == "B":
+            held = cuda_metric.multiscale_launches(*args)
+            rec.update(launches_per_call=len(held), active_clusters=held,
+                       **b_bound(*args[:2], got["sums"], args[2]))
+        if parent:
+            rec.update(
+                parent_device_ms=[before[label]["device_ms"],
+                                  after[label]["device_ms"]],
+                parent_kernels_per_call=before[label]["kernels_per_call"],
+                bits_equal_parent=torch.equal(got["sums"],
+                                              before[label]["sums"]))
+        out["shapes"][label] = rec
+    out["ptxas"] = _ptxas_report(("multiscale_kernel",))
+    out["ok"] = all(r["same_bits_twice"]
+                    and r["kernels_per_call"] == r.get("launches_per_call", 1)
+                    and r.get("bits_equal_parent", True)
+                    for r in out["shapes"].values())
     return out
 
 
@@ -523,12 +723,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device is available", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    if args[:1] == ["--b-times"]:  # a parent tree's kernel B (multiscale)
+        parent, cases, dst = args[1:]
+        sys.path.insert(0, os.path.abspath(parent))
+        torch.save(kernel_times(torch.load(cases)), dst)
+        return 0
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline
     from snesimage_torch.testing import bench_image
 
-    phases = set(sys.argv[1:]) or {"kernels", "pair", "seeds", "parity",
-                                   "walk", "profile"}
+    phases = set(args) or {"kernels", "multiscale", "pair", "seeds",
+                           "parity", "walk", "profile"}
     img = bench_image(0)
     img240 = np.ascontiguousarray(img[:240])
     profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
@@ -551,6 +762,7 @@ def main() -> int:
     todo = [
         ("kernels", lambda: phase_kernels(img)),
         ("kernels", lambda: phase_coarse(img)),
+        ("multiscale", lambda: phase_multiscale(img, parent)),
         ("kernels", lambda: phase_g_variants(img)),
         ("pair", lambda: phase_pair(img)),
         ("seeds", lambda: phase_seeds(img, SEEDS)),

@@ -1,51 +1,54 @@
-// The cluster pass shared by kernels C and D (coarse_redmean.cu,
-// coarse_ciede.cu): one (image, candidate) per thread-block cluster of
-// kClusterBlocks = 4 blocks of 256 threads on neighbouring SMs, so that a
-// 48-candidate visit spreads 192 blocks over the card's 132 SMs.
+// The cluster pass of the small scales (64 x 64 pixels and fewer), shared
+// by kernels B, C and D (multiscale.cu, coarse_redmean.cu, coarse_ciede.cu):
+// one frame per thread-block cluster of kClusterBlocks = 4 blocks of 256
+// threads on neighbouring SMs, so that a 48-candidate visit spreads 192
+// blocks over the card's 132 SMs. C and D give it a candidate's
+// quarter-resolution frame from its pooled win mask (PooledFrame), kernel B
+// a frame's first small scale as nested 2x2 means of the caller's frame.
 //
-// 1. Pool over the whole cluster. Every block pools 4x4 cells of the
-//    candidate's full-resolution frame with the unchanged
-//    pool_cell_redmean / pool_cell_ciede of pooled_cell.cuh (kernels E and
-//    F pool with the same code), one warp of 32 consecutive cells at a time.
-//    A warp's first chunk of cells is fixed; it takes each later one from a
-//    counter in rank 0's shared memory, asked for before it pools the chunk
-//    in hand, so a block that shares its SM with another block takes fewer
-//    cells. The warp assembles each cell's value of the exact quarter-
-//    resolution frame, ds4 + (c * p0 - p_k) / 16, converts it to positive
-//    XYB and stores, through distributed shared memory, XYB channel c into
-//    rank c (c = 0, 1, 2) and the linear value into rank 3. One cluster
-//    barrier then hands the frame over.
-// 2. Scales. Rank c (0..2) runs the first scale (scale 2 of the pyramid)
-//    of XYB channel c. Rank 3 meanwhile takes the frame's 2x2 means twice,
-//    stores scale 4's linear frame into ranks 0-2 and runs scale 3, all
-//    three channels together; ranks 0-2 then run scales 4 and 5 of their
-//    channel. So each block works through about a quarter of the pixels
-//    and channels. Each scale is the horizontal 17-tap blur of x2, x2^2
-//    and x1 * x2 in tiles of kHTile outputs a thread, the vertical blur of
-//    each field in columns of kVTile outputs a thread (each input loaded
-//    once a tile, not once a tap), the SSIM, artifact and detail-loss maps
-//    and their raw sums. The reference planes img1 of a scale are staged in
-//    shared memory once (every pixel reads them at 17 taps; rank c stages
-//    scale 2's before it pools); mu1 and s11 are read once a pixel from
-//    device memory. No plane crosses blocks but the two hand-overs, so there
-//    are no halos.
+// 1. Assemble the first scale over the whole cluster, one warp of 32
+//    consecutive cells at a time. C and D pool each cell's 4x4 pixels with
+//    the unchanged pool_cell_redmean / pool_cell_ciede of pooled_cell.cuh
+//    (kernels E and F pool with the same code) into the exact quarter-
+//    resolution frame, ds4 + (c * p0 - p_k) / 16. A warp's first chunk of
+//    cells is fixed; it takes each later one from a counter in rank 0's
+//    shared memory, asked for before it works on the chunk in hand, so a
+//    block that shares its SM with another block takes fewer cells. The
+//    warp converts each cell to positive XYB and stores, through
+//    distributed shared memory, XYB channel c into rank c (c = 0, 1, 2) and
+//    the linear value into rank 3. One cluster barrier then hands the frame
+//    over.
+// 2. Scales. Rank c (0..2) runs the first scale (scale 2 of the pyramid in
+//    C and D) of XYB channel c. Rank 3 meanwhile takes the frame's 2x2
+//    means twice, stores the third scale's linear frame into ranks 0-2 and
+//    runs the second scale, all three channels together; ranks 0-2 then
+//    run the later scales of their channel. So each block works through
+//    about a quarter of the pixels and channels. Each scale is the
+//    horizontal 17-tap blur of x2, x2^2 and x1 * x2 in tiles of kHTile
+//    outputs a thread, the vertical blur of each field in columns of kVTile
+//    outputs a thread (each input loaded once a tile, not once a tap), the
+//    SSIM, artifact and detail-loss maps and their raw sums. The reference
+//    planes img1 of a scale are staged in shared memory once (every pixel
+//    reads them at 17 taps; rank c stages the first scale's before the
+//    frame is assembled); mu1 and s11 are read once a pixel from device
+//    memory. No plane crosses blocks but the two hand-overs, so there are
+//    no halos.
 //
-// The same bits as kernel B's resident pass (metric_common.cuh
-// `resident_scales`): the same XYB and 2x2 means, every blurred value adds
-// its taps in the same order (a tap outside the plane adds
-// fma(t, 0, s) = s), and the moments are summed in its order: 512 virtual
-// threads, thread v over pixels v, v + 512, ... in turn, a shuffle tree in
-// each warp, the 16 warps in order. A block of 256 threads keeps two
-// virtual threads' sums a thread. No float atomics: two runs give the same
-// bits.
+// The bits of one 512-thread block a frame: the same XYB and 2x2 means,
+// every blurred value adds its taps in one order (a tap outside the plane
+// adds fma(t, 0, s) = s), and the moments are summed in one order: 512
+// virtual threads, thread v over pixels v, v + 512, ... in turn, a shuffle
+// tree in each warp, the 16 warps in order. A block of 256 threads keeps
+// two virtual threads' sums a thread. No float atomics: two runs give the
+// same bits.
 //
-// Shared memory at a 64 x 64 quarter frame: rank c the three blurred fields
+// Shared memory at a 64 x 64 first scale: rank c the three blurred fields
 // (48 KB) and, 16 KB each, the spare plane the vertical blur writes to, its
-// XYB channel and staged img1, and scale 4's linear frame (3 KB); rank 3
-// the linear frame, reused for scale 3's blurred fields and spare planes
-// (48 KB), and scale 3's linear frame, XYB and img1 planes (12 KB each):
-// 99 KB, so two blocks fit on an SM and every cluster of a 48-candidate
-// visit is resident at once.
+// XYB channel and staged img1, and the third scale's linear frame (3 KB);
+// rank 3 the linear frame, reused for the second scale's blurred fields
+// and spare planes (48 KB), and the second scale's linear frame, XYB and
+// img1 planes (12 KB each): 99 KB, so two blocks fit on an SM and every
+// cluster of a 48-candidate visit is resident at once.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -288,15 +291,40 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-// The kernel body of C and D for one (image, candidate) per cluster:
-// `cell_in` holds the candidate's pooling operands, `lin_c` its linear
-// colour, `ds4i` the image's no-candidate quarter frame (3 x hq x wq).
-// Writes out[s * 18 + c * 6 + k].
+// The quarter-resolution frame of kernels C and D: cell `cell` of the
+// candidate's pooled win mask, ds4 + (c * p0 - p_k) / 16, from its pooling
+// operands `cell_in`, its linear colour `lin_c` and the image's
+// no-candidate quarter frame `ds4i` (3 x hq x wq).
 template <class Cell>
-static __device__ __forceinline__ void coarse_cluster_pass(
-    const Cell& cell_in, const float lin_c[3], const float* __restrict__ ds4i,
-    int hq, int wq, const RefPyramid& refs, int first_ref, int n_scales,
-    int img, const MetricParams& p, float* out) {
+struct PooledFrame {
+  Cell cell_in;
+  float lin_c[3];
+  const float* ds4i;
+  int wq;
+  int n_q;
+
+  __device__ __forceinline__ void operator()(int cell, float f[3]) const {
+    float pooled[4];
+    pool_cell(cell_in, cell / wq, cell % wq, pooled);
+    const float p0 = pooled[0], p1 = pooled[1], p2 = pooled[2],
+                p3 = pooled[3];
+    const float inv16 = 1.0f / 16.0f;
+    f[0] = (lin_c[0] * p0 - p1) * inv16 + ds4i[cell];
+    f[1] = (lin_c[1] * p0 - p2) * inv16 + ds4i[n_q + cell];
+    f[2] = (lin_c[2] * p0 - p3) * inv16 + ds4i[2 * n_q + cell];
+  }
+};
+
+// The cluster pass of one frame (kernels B, C and D): `frame(cell, f)`
+// gives the linear RGB of cell `cell` of the first scale (hq x wq), which
+// the cluster assembles and hands over; then the scales. Writes
+// out[s * 18 + c * 6 + k] for scales s < n_scales, whose reference planes
+// are refs.*[first_ref + s] of image `img`.
+template <class Frame>
+static __device__ __forceinline__ void cluster_pass(
+    const Frame& frame, int hq, int wq, const RefPyramid& refs,
+    int first_ref, int n_scales, int img, const MetricParams& p,
+    float* out) {
   extern __shared__ float4 smem_v4[];
   float* const smem = reinterpret_cast<float*>(smem_v4);
   __shared__ float red[3 * (kResidentThreads / 32) * 6];
@@ -322,29 +350,23 @@ static __device__ __forceinline__ void coarse_cluster_pass(
   int* const counter = cluster.map_shared_rank(&next_chunk, 0);
   const int lane = threadIdx.x & 31;
   const int n_chunks = (n_q + 31) / 32;
-  const float inv16 = 1.0f / 16.0f;
   int chunk = rank * kWarps + (threadIdx.x >> 5);
   while (chunk < n_chunks) {
-    // Ask for the next chunk before pooling this one: the round trip to
-    // rank 0 overlaps the pooling's loads.
+    // Ask for the next chunk before assembling this one: the round trip
+    // to rank 0 overlaps the cells' loads.
     int next = 0;
     if (lane == 0) next = atomicAdd(counter, 1);
     const int cell = chunk * 32 + lane;
     if (cell < n_q) {
-      float pooled[4];
-      pool_cell(cell_in, cell / wq, cell % wq, pooled);
-      const float p0 = pooled[0], p1 = pooled[1], p2 = pooled[2],
-                  p3 = pooled[3];
-      const float f0 = (lin_c[0] * p0 - p1) * inv16 + ds4i[cell];
-      const float f1 = (lin_c[1] * p0 - p2) * inv16 + ds4i[n_q + cell];
-      const float f2 = (lin_c[2] * p0 - p3) * inv16 + ds4i[2 * n_q + cell];
+      float f[3];
+      frame(cell, f);
       float v[3];
-      positive_xyb(p, f0, f1, f2, v);
+      positive_xyb(p, f[0], f[1], f[2], v);
 #pragma unroll
       for (int r = 0; r < 3; ++r) xyb_dst[r][cell] = v[r];
-      lin_dst[cell] = f0;
-      lin_dst[n_q + cell] = f1;
-      lin_dst[2 * n_q + cell] = f2;
+      lin_dst[cell] = f[0];
+      lin_dst[n_q + cell] = f[1];
+      lin_dst[2 * n_q + cell] = f[2];
     }
     chunk = __shfl_sync(0xffffffffu, next, 0);
   }
@@ -405,6 +427,20 @@ static __device__ __forceinline__ void coarse_cluster_pass(
   }
 }
 
+// The kernel body of C and D for one (image, candidate) per cluster:
+// `cell_in` holds the candidate's pooling operands, `lin_c` its linear
+// colour, `ds4i` the image's no-candidate quarter frame (3 x hq x wq).
+// Writes out[s * 18 + c * 6 + k].
+template <class Cell>
+static __device__ __forceinline__ void coarse_cluster_pass(
+    const Cell& cell_in, const float lin_c[3], const float* __restrict__ ds4i,
+    int hq, int wq, const RefPyramid& refs, int first_ref, int n_scales,
+    int img, const MetricParams& p, float* out) {
+  const PooledFrame<Cell> frame = {cell_in, {lin_c[0], lin_c[1], lin_c[2]},
+                                   ds4i, wq, hq * wq};
+  cluster_pass(frame, hq, wq, refs, first_ref, n_scales, img, p, out);
+}
+
 // Lets `kernel` take `smem` bytes of dynamic shared memory, with the SM's
 // whole carveout for shared memory, so that two of its blocks share an SM.
 template <class... Params>
@@ -417,18 +453,19 @@ static cudaError_t set_cluster_smem(void (*kernel)(Params...), size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The launch configuration of n_items clusters with `smem` bytes of
-// dynamic shared memory a block; `attr` must outlive it.
+// The launch configuration of n_items clusters of `blocks` blocks with
+// `smem` bytes of dynamic shared memory a block; `attr` must outlive it.
 static cudaLaunchConfig_t cluster_config(int n_items, size_t smem,
                                          cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr,
+                                         int blocks = kClusterBlocks) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_items * kClusterBlocks);
+  cfg.gridDim = dim3(n_items * blocks);
   cfg.blockDim = dim3(kClusterThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kClusterBlocks;
+  attr->val.clusterDim.x = blocks;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -436,27 +473,39 @@ static cudaLaunchConfig_t cluster_config(int n_items, size_t smem,
   return cfg;
 }
 
-// Launches `kernel` over n_items clusters.
+// Launches `kernel` over n_items clusters of `blocks` blocks.
+template <class... Params, class... Args>
+static cudaError_t launch_cluster(void (*kernel)(Params...), int n_items,
+                                  int blocks, size_t smem,
+                                  cudaStream_t stream, Args&&... args) {
+  cudaError_t err = set_cluster_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(n_items, smem, stream, &attr, blocks);
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+// Launches `kernel` over n_items clusters of kClusterBlocks blocks.
 template <class... Params, class... Args>
 static cudaError_t launch_coarse_cluster(void (*kernel)(Params...),
                                          int n_items, size_t smem,
                                          cudaStream_t stream,
                                          Args&&... args) {
-  cudaError_t err = set_cluster_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(n_items, smem, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return launch_cluster(kernel, n_items, kClusterBlocks, smem, stream,
+                        std::forward<Args>(args)...);
 }
 
-// How many clusters of `kernel` the card holds at once (the occupancy
-// calculator's answer), or a negative CUDA error.
+// How many clusters of `blocks` blocks of `kernel` the card holds at once
+// (the occupancy calculator's answer), or a negative CUDA error.
 template <class... Params>
-static int coarse_active_clusters(void (*kernel)(Params...), size_t smem) {
+static int coarse_active_clusters(void (*kernel)(Params...), size_t smem,
+                                  int blocks = kClusterBlocks) {
   cudaError_t err = set_cluster_smem(kernel, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(1, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, smem, nullptr, &attr, blocks);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err == cudaSuccess ? n : -(int)err;

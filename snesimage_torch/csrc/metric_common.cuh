@@ -122,13 +122,6 @@ __device__ __forceinline__ void block_reduce6(float acc[6], float* red,
 // column is replicated first (ops/ssimulacra2.py `downsample2`).
 __host__ __device__ constexpr int half_up(int n) { return (n + 1) / 2; }
 
-// Shared-memory floats `resident_scales` needs for a first plane of
-// h x w pixels: linear RGB, its 2x2 downsample, XYB, and the three
-// horizontally blurred fields.
-__host__ __device__ constexpr int resident_smem_floats(int h, int w) {
-  return 3 * h * w + 3 * half_up(h) * half_up(w) + 3 * h * w + 3 * h * w;
-}
-
 // The 2x2 mean at (y, x) of the h x w plane `src`, the last row or column
 // of an odd side averaged with itself.
 __device__ __forceinline__ float ds2_at(const float* src, int h, int w, int y,
@@ -137,95 +130,6 @@ __device__ __forceinline__ float ds2_at(const float* src, int h, int w, int y,
   const int y1 = min(y0 + 1, h - 1), x1 = min(x0 + 1, w - 1);
   return (src[y0 * w + x0] + src[y0 * w + x1] + src[y1 * w + x0] +
           src[y1 * w + x1]) * 0.25f;
-}
-
-// Runs scales [0, n_scales) of one frame whose first-scale linear RGB
-// planes (3 x h x w) sit at the start of `smem`, entirely in shared
-// memory, and writes the raw moments of scale s, channel c to
-// out[s * 18 + c * 6 + k]. Reference planes of scale s are
-// refs.*[first_ref + s] of image `img`. All threads of the block call it.
-static __device__ void resident_scales(float* smem, int h, int w, int n_scales,
-                                const RefPyramid& refs, int first_ref,
-                                int img, const MetricParams& p, float* red,
-                                float* out) {
-  const int p0 = h * w;
-  float* cur = smem;
-  float* nxt = smem + 3 * p0;
-  float* xyb = nxt + 3 * half_up(h) * half_up(w);
-  float* hb = xyb + 3 * p0;
-  for (int s = 0; s < n_scales; ++s) {
-    if (s) {
-      const int h2 = half_up(h), w2 = half_up(w);
-      for (int i = threadIdx.x; i < 3 * h2 * w2; i += blockDim.x) {
-        const int c = i / (h2 * w2), r = i % (h2 * w2);
-        nxt[i] = ds2_at(cur + c * h * w, h, w, r / w2, r % w2);
-      }
-      __syncthreads();
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-      h = h2;
-      w = w2;
-    }
-    const int n_px = h * w;
-    for (int i = threadIdx.x; i < n_px; i += blockDim.x) {
-      float v[3];
-      positive_xyb(p, cur[i], cur[n_px + i], cur[2 * n_px + i], v);
-      xyb[i] = v[0];
-      xyb[n_px + i] = v[1];
-      xyb[2 * n_px + i] = v[2];
-    }
-    __syncthreads();
-    const int rs = first_ref + s;
-    for (int c = 0; c < 3; ++c) {
-      const size_t plane = ((size_t)img * 3 + c) * n_px;
-      const float* x1g = refs.img1[rs] + plane;
-      const float* m1g = refs.mu1[rs] + plane;
-      const float* v1g = refs.s11[rs] + plane;
-      const float* x2 = xyb + c * n_px;
-      for (int i = threadIdx.x; i < n_px; i += blockDim.x) {
-        const int y = i / w, x = i % w;
-        float a = 0.0f, b = 0.0f, cc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kTaps; ++k) {
-          const int xx = x + k - kRadius;
-          if (xx >= 0 && xx < w) {
-            const float v2 = x2[y * w + xx];
-            const float v1 = x1g[y * w + xx];
-            a += p.taps[k] * v2;
-            b += p.taps[k] * (v2 * v2);
-            cc += p.taps[k] * (v1 * v2);
-          }
-        }
-        hb[i] = a;
-        hb[n_px + i] = b;
-        hb[2 * n_px + i] = cc;
-      }
-      __syncthreads();
-      float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int i = threadIdx.x; i < n_px; i += blockDim.x) {
-        const int y = i / w, x = i % w;
-        float mu2 = 0.0f, s22 = 0.0f, s12 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kTaps; ++k) {
-          const int yy = y + k - kRadius;
-          if (yy >= 0 && yy < h) {
-            mu2 += p.taps[k] * hb[yy * w + x];
-            s22 += p.taps[k] * hb[n_px + yy * w + x];
-            s12 += p.taps[k] * hb[2 * n_px + yy * w + x];
-          }
-        }
-        accumulate_moments(x1g[i], m1g[i], v1g[i], x2[i], mu2, s22, s12,
-                           p.ssim_c2, acc);
-      }
-      float tot[6];
-      block_reduce6(acc, red, tot);
-      if (threadIdx.x == 0) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) out[s * 18 + c * 6 + k] = tot[k];
-      }
-    }
-  }
 }
 
 }  // namespace snes

@@ -75,6 +75,35 @@ class RefPyramid(ctypes.Structure):
     ]
 
 
+MAX_LEVELS = 12  # kMaxLevels in csrc/multiscale.cu
+
+
+class Levels(ctypes.Structure):
+    """Mirror of snes::Levels (csrc/multiscale.cu)."""
+
+    _fields_ = [("h", _I * MAX_LEVELS), ("w", _I * MAX_LEVELS)]
+
+
+class MultiscaleCall(ctypes.Structure):
+    """Mirror of snes::MultiscaleCall (csrc/multiscale.cu)."""
+
+    _fields_ = [
+        ("frames", _P),
+        ("out", _P),
+        ("partial", _P),
+        ("tickets", _P),
+        ("n_frames", _I),
+        ("pre_ds", _I),
+        ("n_scales", _I),
+        ("n_tiled", _I),
+        ("n_resident_items", _I),
+        ("tiles_total", _I),
+        ("tiles_x", _I * MAX_SCALES),
+        ("tile_start", _I * (MAX_SCALES + 1)),
+        ("lv", Levels),
+    ]
+
+
 class LabParams(ctypes.Structure):
     """Mirror of snes::LabParams (csrc/srgb_lab.cuh)."""
 
@@ -105,12 +134,8 @@ _SIGNATURES = {
     "snes_select_colors_render": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
-    "snes_ds2": (_P, _P, _I, _I, _I, _P),
-    "snes_tiled_scale": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "snes_reduce_tiles": (_P, _P, _I, _I, _I, _I, _P),
-    "snes_resident_scales": (
-        _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
-    ),
+    "snes_multiscale": (_P, _P, _P, _P),
+    "snes_multiscale_active_clusters": (_P,),
     "snes_coarse_redmean": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),

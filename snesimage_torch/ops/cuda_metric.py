@@ -4,7 +4,9 @@ Counterparts of snesimage_tpu/ops/pallas_metric.py:
 
 - `multiscale_feature_sums` (kernel B, csrc/multiscale.cu): raw feature
   sums of several consecutive pyramid scales for a batch of linear-RGB
-  frames, after `pre_ds` 2x2 means. Twin: the maps of
+  frames, after `pre_ds` 2x2 means, in one launch: tile clusters for the
+  scales larger than 64x64, the cluster pass of kernels C and D for the
+  rest, every 2x2 mean taken in the loads. Twin: the maps of
   ops/ssimulacra2.py `scale_features`, summed instead of averaged.
 - `coarse_feature_sums_redmean` (kernel C, csrc/coarse_redmean.cu): the
   fused coarse prescreen of one slot visit: per candidate the int32
@@ -46,10 +48,17 @@ from snesimage_torch.ops.ssimulacra2 import (
     pyramid_size,
 )
 
-# Planes up to this many pixels run block-resident in shared memory
-# (kResidentMaxPixels in csrc/metric_common.cuh).
+# Planes up to this many pixels run resident in shared memory, on the
+# cluster pass (kResidentMaxPixels in csrc/metric_common.cuh); kernel B
+# tiles larger ones.
 RESIDENT_MAX_PIXELS = 64 * 64
 _TILE = 32  # kTile in csrc/multiscale.cu
+# From this many frames, a call with both tiled and resident scales launches
+# its tile clusters (three blocks, up to four an SM) and its resident
+# clusters apart: in one grid every block takes the resident clusters'
+# shared memory, two an SM, and at 32 frames or more the tiles then run
+# slower than in two launches (PERF.md).
+SPLIT_FRAMES = 16
 # Blocks per candidate of kernels C and D: a thread-block cluster of four
 # (kClusterBlocks in csrc/coarse_cluster.cuh).
 CLUSTER_BLOCKS = 4
@@ -90,21 +99,90 @@ def _ref_pyramid(triples, device) -> _kernels.RefPyramid:
     return refs
 
 
-def _ds2_cuda(lib, x: torch.Tensor, st: int) -> torch.Tensor:
-    b, c, h, w = x.shape
-    out = torch.empty((b, c, (h + 1) // 2, (w + 1) // 2),
-                      dtype=torch.float32, device=x.device)
-    _kernels.check(
-        lib.snes_ds2(x.data_ptr(), out.data_ptr(), b * c, h, w, st), "ds2"
-    )
-    return out
+# Tile sums and tickets of kernel B's tiled scales, per device: grown when
+# a call needs more, never shrunk. The kernel leaves every ticket at 0.
+_TILE_SCRATCH: dict = {}
+
+
+def _tile_scratch(dev, n_sums: int, n_tickets: int):
+    have = _TILE_SCRATCH.get(dev)
+    if have is None or have[0].numel() < n_sums or have[1].numel() < n_tickets:
+        n_sums = max(n_sums, have[0].numel() if have else 0)
+        n_tickets = max(n_tickets, have[1].numel() if have else 0)
+        have = (torch.empty(n_sums, dtype=torch.float32, device=dev),
+                torch.zeros(n_tickets, dtype=torch.int32, device=dev))
+        _TILE_SCRATCH[dev] = have
+    return have
+
+
+def _multiscale_call(frames, sizes, pre_ds: int) -> _kernels.MultiscaleCall:
+    """Kernel B's launch description for `frames` (B, 3, H, W) and scales of
+    `sizes`, after `pre_ds` 2x2 means: the leading scales larger than
+    RESIDENT_MAX_PIXELS take tile clusters, the rest one resident cluster a
+    frame. Leaves `out`, `partial` and `tickets` to the caller."""
+    b, _, h, w = frames.shape
+    n = len(sizes)
+    n_tiled = sum(hs * ws > RESIDENT_MAX_PIXELS for hs, ws in sizes)
+    resident = n_tiled < n
+    if pre_ds + n > _kernels.MAX_LEVELS:
+        raise ValueError(f"kernel B takes at most {_kernels.MAX_LEVELS} "
+                         f"pyramid levels, not pre_ds={pre_ds} + {n} scales")
+    call = _kernels.MultiscaleCall()
+    call.n_frames, call.pre_ds, call.n_scales = b, pre_ds, n
+    call.n_tiled, call.n_resident_items = n_tiled, b if resident else 0
+    for lv in range(pre_ds + n):
+        call.lv.h[lv], call.lv.w[lv] = pyramid_size(h, w, lv)
+    total = 0
+    for si, (hs, ws) in enumerate(sizes[:n_tiled]):
+        call.tiles_x[si] = -(-ws // _TILE)
+        call.tile_start[si] = total
+        total += call.tiles_x[si] * -(-hs // _TILE)
+    call.tile_start[n_tiled] = total
+    call.tiles_total = total
+    return call
+
+
+def _launches(call) -> list:
+    """The launches of one call: `call` itself, or from SPLIT_FRAMES frames
+    on, where it has tiled and resident scales, its tile clusters and its
+    resident clusters apart."""
+    if not (call.tiles_total and call.n_resident_items
+            and call.n_frames >= SPLIT_FRAMES):
+        return [call]
+    tiles = _kernels.MultiscaleCall.from_buffer_copy(call)
+    tiles.n_resident_items = 0
+    resident = _kernels.MultiscaleCall.from_buffer_copy(call)
+    resident.tiles_total = 0
+    return [tiles, resident]
 
 
 def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds):
     dev = frames.device
     b, _, h, w = frames.shape
     n = len(ref_scales)
-    _kernels.require(frames, "frames", torch.float32, (b, 3, h, w), dev)
+    call = _multiscale_call(frames, _check_scales(ref_scales, h, w, pre_ds),
+                            pre_ds)
+    call.frames = _kernels.require(frames, "frames", torch.float32,
+                                   (b, 3, h, w), dev)
+    refs = _ref_pyramid(ref_scales, dev)
+    out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
+    call.out = out.data_ptr()
+    if call.tiles_total:
+        sums, tickets = _tile_scratch(dev, b * call.tiles_total * 18,
+                                      b * call.n_tiled)
+        call.partial, call.tickets = sums.data_ptr(), tickets.data_ptr()
+    for c in _launches(call):
+        rc = _kernels.entry("snes_multiscale")(
+            ctypes.addressof(c), ctypes.addressof(refs),
+            ctypes.addressof(_kernels.metric_params()), _kernels.stream(dev))
+        _kernels.check(rc, "multiscale")
+    multiscale_feature_sums.launches += 1
+    return out
+
+
+def _check_scales(ref_scales, h: int, w: int, pre_ds: int) -> list:
+    """The (h_s, w_s) of each scale; raises unless they are the pyramid's
+    from h x w frames after `pre_ds` 2x2 means."""
     sizes = [tuple(t[0].shape[-2:]) for t in ref_scales]
     for si, size in enumerate(sizes):
         if size != pyramid_size(h, w, pre_ds + si):
@@ -112,39 +190,24 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds):
                 f"scale {si} is {size[0]}x{size[1]}, not the "
                 f"{pre_ds + si}-fold 2x2 downsample of the {h}x{w} frames"
             )
-    lib = _kernels.library()
-    st = _kernels.stream(dev)
-    params = ctypes.addressof(_kernels.metric_params())
-    refs = _ref_pyramid(ref_scales, dev)
-    out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
-    cur = frames
-    for _ in range(pre_ds):
-        cur = _ds2_cuda(lib, cur, st)
-    for si, (hs, ws) in enumerate(sizes):
-        if si:
-            cur = _ds2_cuda(lib, cur, st)
-        if hs * ws <= RESIDENT_MAX_PIXELS:
-            rc = lib.snes_resident_scales(
-                cur.data_ptr(), ctypes.addressof(refs), si, n - si, b, b,
-                hs, ws, params, out.data_ptr(), n, si, st,
-            )
-            _kernels.check(rc, "resident_scales")
-            break
-        n_tiles = (-(-hs // _TILE)) * (-(-ws // _TILE))
-        partial = torch.empty((b, 3, n_tiles, 6), dtype=torch.float32,
-                              device=dev)
-        img1, mu1, s11 = ref_scales[si]
-        rc = lib.snes_tiled_scale(
-            cur.data_ptr(), img1.data_ptr(), mu1.data_ptr(), s11.data_ptr(),
-            partial.data_ptr(), b, b, hs, ws, params, st,
-        )
-        _kernels.check(rc, "tiled_scale")
-        rc = lib.snes_reduce_tiles(
-            partial.data_ptr(), out.data_ptr(), b, n_tiles, n, si, st
-        )
-        _kernels.check(rc, "reduce_tiles")
-    multiscale_feature_sums.launches += 1
-    return out
+    return sizes
+
+
+def multiscale_launches(ref_scales, frames, pre_ds: int = 0) -> list:
+    """For each launch of kernel B's call on these operands, how many
+    clusters of it the card holds at once: the occupancy calculator's
+    answer. One launch a call, two from SPLIT_FRAMES frames on where the
+    call has both tiled and resident scales."""
+    _, _, h, w = frames.shape
+    call = _multiscale_call(frames, _check_scales(ref_scales, h, w, pre_ds),
+                            pre_ds)
+    held = []
+    for c in _launches(call):
+        n = _kernels.entry("snes_multiscale_active_clusters")(
+            ctypes.addressof(c))
+        _kernels.check(max(-n, 0), "snes_multiscale_active_clusters")
+        held.append(n)
+    return held
 
 
 def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):

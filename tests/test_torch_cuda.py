@@ -10,7 +10,11 @@ features; D's distance planes equal kernel F's and the twin's. C and D
 give the same bits in two calls.
 E's and F's mask counts equal their twins', their m*ML sums agree within
 1e-5 (16 floats added in another order) and F's distance planes within
-1e-4. B runs at pyramids with odd scales (240x256, 40x24, 60x60). G's
+1e-4. B runs at pyramids with odd scales (240x256, 40x24, 60x60), in one
+kernel launch a call. B's, C's and D's sums equal, bit for bit, the ones
+kept in tests/data/kernel_sums_frozen.npz (written by
+`python tests/test_torch_cuda.py --freeze PATH`, run against the kernels
+they were taken from). G's
 maps equal its twin's at the dithered paths' geometries (256x256,
 256x240), a narrow one and one whose row slots take several rows each, in
 both distance modes, and every variant built (lanes per row slot, blocks
@@ -19,6 +23,11 @@ the older cases ask for 0.99 of the pixels (the card's double pow and
 trigonometry could land across a float32 rounding boundary from the
 twin's, and error diffusion spreads one flipped pixel)."""
 
+import sys
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +43,7 @@ from snesimage_torch.ops.ssimulacra2 import (
 pytestmark = pytest.mark.cuda
 TOL = 2e-4
 DISTANCE_TOL = 1e-4
+FROZEN = Path(__file__).with_name("data") / "kernel_sums_frozen.npz"
 
 
 @pytest.fixture
@@ -47,6 +57,44 @@ def _close(got, want, tol=TOL):
     diff = (got - want).abs()
     assert bool(torch.isfinite(got).all())
     assert bool((diff <= tol + tol * want.abs()).all()), float(diff.max())
+
+
+@lru_cache(maxsize=None)
+def _frozen() -> dict:
+    with np.load(FROZEN) as data:
+        return {k: torch.from_numpy(data[k]) for k in data.files}
+
+
+def _key(kernel: str, *params) -> str:
+    return "_".join([kernel, *(str(p) for p in params)])
+
+
+def _assert_frozen(key: str, got) -> None:
+    """`got` equals the sums kept under `key`, bit for bit."""
+    want = _frozen()[key]
+    assert got.shape == want.shape and torch.equal(got.cpu(), want), key
+
+
+def _one_launch(refs, frames, pre_ds):
+    """Kernel B under torch.profiler: the call must run kernel B's kernel
+    once on the card and nothing else (twice where a call of many frames
+    has tiled and resident scales). Returns its output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = len(cuda_metric.multiscale_launches(refs, frames, pre_ds))
+    assert want == 1 or len(frames) >= cuda_metric.SPLIT_FRAMES
+    for _ in range(3):  # a profiler session now and then records no event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = cuda_metric.multiscale_feature_sums(refs, frames,
+                                                      pre_ds=pre_ds)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == want, kernels
+    assert all("multiscale_kernel" in k for k in kernels), kernels
+    return out
 
 
 @pytest.mark.parametrize("h,w,k", [(256, 256, 120), (64, 96, 7), (8, 8, 240)])
@@ -68,17 +116,25 @@ def _pyramid(dev, size, seed, width=None):
     return reference_pyramid(ref), g
 
 
-@pytest.mark.parametrize(
-    "size,start,n,pre_ds,b",
-    [(256, 0, 6, 0, 1), (256, 1, 1, 1, 8), (256, 0, 1, 0, 2), (256, 0, 2, 0, 3),
-     (128, 1, 3, 1, 5), (64, 0, 6, 0, 4), (256, 2, 4, 0, 48)],
-)
-def test_multiscale_feature_sums(dev, size, start, n, pre_ds, b):
+# The last two take their small scales three and four 2x2 means deep,
+# past the depths kernel B unrolls into its loads.
+B_SHAPES = [(256, 0, 6, 0, 1), (256, 1, 1, 1, 8), (256, 0, 1, 0, 2),
+            (256, 0, 2, 0, 3), (128, 1, 3, 1, 5), (64, 0, 6, 0, 4),
+            (256, 2, 4, 0, 48), (512, 0, 6, 0, 2), (512, 4, 2, 4, 3)]
+
+
+def _b_inputs(dev, size, start, n, pre_ds, b):
     refp, g = _pyramid(dev, size, 7 * size + n)
     edge = size >> (start - pre_ds)
     frames = torch.rand((b, 3, edge, edge), generator=g, device=dev) ** 2.2
     refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
                  for s in range(n))
+    return refs, frames
+
+
+@pytest.mark.parametrize("size,start,n,pre_ds,b", B_SHAPES)
+def test_multiscale_feature_sums(dev, size, start, n, pre_ds, b):
+    refs, frames = _b_inputs(dev, size, start, n, pre_ds, b)
     sizes = [(size >> (start + s)) ** 2 for s in range(n)]
     before = cuda_metric.multiscale_feature_sums.launches
     got = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
@@ -86,8 +142,9 @@ def test_multiscale_feature_sums(dev, size, start, n, pre_ds, b):
     want = cuda_metric._multiscale_feature_sums_plain(refs, frames, pre_ds)
     _close(finalize_feature_sums(got.reshape(b, -1, 6), sizes, start),
            finalize_feature_sums(want.reshape(b, -1, 6), sizes, start))
-    again = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
-    assert torch.equal(got, again)  # no atomics: the same bits every run
+    _assert_frozen(_key("B", size, start, n, pre_ds, b), got)
+    again = _one_launch(refs, frames, pre_ds)
+    assert torch.equal(got, again)  # no float atomics: the same bits
 
 
 # Kernels C and D at the fused geometries (256x256, 256x224, 128x128,
@@ -99,8 +156,7 @@ COARSE_SHAPES = [(256, 256, 48), (64, 64, 5), (128, 128, 9), (256, 256, 1),
                  (32, 32, 64)]
 
 
-@pytest.mark.parametrize("h,w,b", COARSE_SHAPES)
-def test_coarse_feature_sums_redmean(dev, h, w, b):
+def _coarse_redmean_args(dev, h, w, b):
     refp, g = _pyramid(dev, h, h + w + b, width=w)
     tg = torch.randint(0, 256, (3, h, w), generator=g, device=dev,
                        dtype=torch.int32)
@@ -116,7 +172,12 @@ def test_coarse_feature_sums_redmean(dev, h, w, b):
     ml = torch.where(bva[None] > 0, lnc, 0.0)
     ds4 = lnc.reshape(3, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
     flat = tuple(a.permute(2, 0, 1) for s in range(2, 6) for a in refp[s])
-    args = (tg, cand8, cand_lin.float(), bva, ml, ds4.contiguous(), flat)
+    return (tg, cand8, cand_lin.float(), bva, ml, ds4.contiguous(), flat)
+
+
+@pytest.mark.parametrize("h,w,b", COARSE_SHAPES)
+def test_coarse_feature_sums_redmean(dev, h, w, b):
+    args = _coarse_redmean_args(dev, h, w, b)
     sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
     before = cuda_metric.coarse_feature_sums_redmean.launches
     got = cuda_metric.coarse_feature_sums_redmean(*args)
@@ -126,6 +187,7 @@ def test_coarse_feature_sums_redmean(dev, h, w, b):
            finalize_feature_sums(want, sizes, 2))
     assert torch.equal(got[-1], got[0])  # duplicate candidates: equal rows
     assert torch.equal(got, cuda_metric.coarse_feature_sums_redmean(*args))
+    _assert_frozen(_key("C", h, w, b), got)
 
 
 def _coarse_ciede_args(dev, h, w, b, seed):
@@ -153,8 +215,10 @@ def _coarse_ciede_args(dev, h, w, b, seed):
     return args
 
 
-@pytest.mark.parametrize("h,w,b", [(64, 96, 7), (128, 128, 48)]
-                         + COARSE_SHAPES[3:])
+CIEDE_SHAPES = [(64, 96, 7), (128, 128, 48)] + COARSE_SHAPES[3:]
+
+
+@pytest.mark.parametrize("h,w,b", CIEDE_SHAPES)
 def test_coarse_feature_sums_ciede(dev, h, w, b):
     args = _coarse_ciede_args(dev, h, w, b, h + w + b)
     sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
@@ -173,6 +237,7 @@ def test_coarse_feature_sums_ciede(dev, h, w, b):
     assert torch.equal(sums[-1], sums[0])
     again = cuda_metric.coarse_feature_sums_ciede(*args)
     assert torch.equal(sums, again[0]) and torch.equal(dcand, again[1])
+    _assert_frozen(_key("D", h, w, b), sums)
 
 
 def test_coarse_feature_sums_ciede_rejects_uneven_frames(dev):
@@ -200,21 +265,28 @@ def test_select_colors_batched(dev, batched):
     assert torch.equal(got, cuda_prescreen._select_colors_plain(key, table))
 
 
-@pytest.mark.parametrize(
-    # 240x256 (rows x columns of a 256x240 image): the frame error, the
-    # coarse stage on E's frames, the scale-1 rank, the scale-0 finalists
-    # and the dithered coarse stage; then small pyramids odd from early on
-    "h,w,start,n,pre_ds,b",
-    [(240, 256, 0, 6, 0, 1), (240, 256, 2, 4, 0, 48), (240, 256, 1, 1, 1, 8),
-     (240, 256, 0, 1, 0, 2), (240, 256, 2, 4, 2, 48), (40, 24, 0, 6, 0, 3),
-     (60, 60, 0, 6, 0, 2), (120, 72, 1, 5, 1, 5), (256, 256, 0, 6, 0, 65)],
-)
-def test_multiscale_feature_sums_odd_pyramids(dev, h, w, start, n, pre_ds, b):
+# 240x256 (rows x columns of a 256x240 image): the frame error, the coarse
+# stage on E's frames, the scale-1 rank, the scale-0 finalists and the
+# dithered coarse stage; then small pyramids odd from early on
+ODD_SHAPES = [(240, 256, 0, 6, 0, 1), (240, 256, 2, 4, 0, 48),
+              (240, 256, 1, 1, 1, 8), (240, 256, 0, 1, 0, 2),
+              (240, 256, 2, 4, 2, 48), (40, 24, 0, 6, 0, 3),
+              (60, 60, 0, 6, 0, 2), (120, 72, 1, 5, 1, 5),
+              (256, 256, 0, 6, 0, 65)]
+
+
+def _b_odd_inputs(dev, h, w, start, n, pre_ds, b):
     refp, g = _pyramid(dev, h, 3 * h + w + n, width=w)
     fh, fw = pyramid_size(h, w, start - pre_ds)
     frames = torch.rand((b, 3, fh, fw), generator=g, device=dev) ** 2.2
     refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
                  for s in range(n))
+    return refp, refs, frames
+
+
+@pytest.mark.parametrize("h,w,start,n,pre_ds,b", ODD_SHAPES)
+def test_multiscale_feature_sums_odd_pyramids(dev, h, w, start, n, pre_ds, b):
+    refp, refs, frames = _b_odd_inputs(dev, h, w, start, n, pre_ds, b)
     sizes = [refp[start + s][0].shape[0] * refp[start + s][0].shape[1]
              for s in range(n)]
     assert sizes == [hs * ws for hs, ws in
@@ -223,7 +295,8 @@ def test_multiscale_feature_sums_odd_pyramids(dev, h, w, start, n, pre_ds, b):
     want = cuda_metric._multiscale_feature_sums_plain(refs, frames, pre_ds)
     _close(finalize_feature_sums(got.reshape(b, -1, 6), sizes, start),
            finalize_feature_sums(want.reshape(b, -1, 6), sizes, start))
-    again = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
+    _assert_frozen(_key("Bodd", h, w, start, n, pre_ds, b), got)
+    again = _one_launch(refs, frames, pre_ds)
     assert torch.equal(got, again)
 
 
@@ -561,3 +634,31 @@ def test_run_fused_nes_perceptual(dev):
     assert len(errors) == 1 and errors[0] == errors[0] < float("inf")
     nes = {tuple(c) for c in nes_palette_5bit(state.device).tolist()}
     assert {tuple(c) for c in state.palette.reshape(-1, 3).tolist()} <= nes
+
+
+def freeze(path) -> None:
+    """Writes the sums of kernels B, C and D at the shapes above, on the
+    card, with whichever snesimage_torch is imported, to `path`."""
+    dev = torch.device("cuda")
+    sums = {}
+    for shape in B_SHAPES:
+        refs, frames = _b_inputs(dev, *shape)
+        sums[_key("B", *shape)] = cuda_metric.multiscale_feature_sums(
+            refs, frames, pre_ds=shape[3])
+    for shape in ODD_SHAPES:
+        _, refs, frames = _b_odd_inputs(dev, *shape)
+        sums[_key("Bodd", *shape)] = cuda_metric.multiscale_feature_sums(
+            refs, frames, pre_ds=shape[4])
+    for h, w, b in COARSE_SHAPES:
+        sums[_key("C", h, w, b)] = cuda_metric.coarse_feature_sums_redmean(
+            *_coarse_redmean_args(dev, h, w, b))
+    for h, w, b in CIEDE_SHAPES:
+        sums[_key("D", h, w, b)] = cuda_metric.coarse_feature_sums_ciede(
+            *_coarse_ciede_args(dev, h, w, b, h + w + b))[0]
+    np.savez_compressed(path, **{k: v.cpu().numpy() for k, v in sums.items()})
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["--freeze"] or len(sys.argv) != 3:
+        sys.exit("usage: python tests/test_torch_cuda.py --freeze PATH")
+    freeze(sys.argv[2])

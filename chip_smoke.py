@@ -43,6 +43,11 @@ and how many of their four-block clusters the card holds at once
 same visit (`unfused`), the route that computes D's function unfused.
 Kernel B's cases hold its device time per call (`device_ms`, CUDA events
 behind a spin kernel) at every shape, and B must give the same bits twice.
+E's and F's cases are the first visit of each subpalette p = 0..7 at
+256x240, which the kernels compute on the tiles of p only, as the visit
+calls them, each with its tile count, device time and two bounds (the
+tiles of p, `bound_ms`, and the whole image), their means over p
+(`mean_over_p`), and the first visit over every tile and for two images.
 
 Kernel F also serves every perceptual visit that has no prescreen, at any
 geometry: it alone writes the candidates' distance planes there, and its
@@ -291,22 +296,31 @@ def first_visit(img, params: dict):
     kernels: the state's pyramid and slot context, and its 32 channel
     values plus 16 explore draws (B = 48) in 8-bit and linear RGB."""
     from snesimage_torch.core import refine
-    from snesimage_torch.ops.color import expand_5bit_to_8bit, srgb_u8_to_linear
+    from snesimage_torch.ops.color import srgb_u8_to_linear
 
     state, config = prepared_state(img, params)
     refp = refine.make_reference_pyramid(state)
-    ctx = refine.slot_context(state, config, 0, 0,
-                              refine.compute_d_all(state, config))
-    cand8 = expand_5bit_to_8bit(visit_candidates(state))
+    ctx, cand8 = visit_of(state, config, refine.compute_d_all(state, config),
+                          0)
     return state, refp, ctx, cand8, srgb_u8_to_linear(cand8)
 
 
-def visit_candidates(state):
-    """The 5-bit candidates of the main path's first visit: the 32 values
-    of channel 0 of slot (0, 0) and 16 explore draws (B = 48)."""
+def visit_of(state, config, d_all, p: int):
+    """The slot context and 8-bit candidates of the first visit of
+    subpalette p, slot (p, 0) channel 0 (`visit_candidates`)."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops.color import expand_5bit_to_8bit
+
+    ctx = refine.slot_context(state, config, p, 0, d_all)
+    return ctx, expand_5bit_to_8bit(visit_candidates(state, p))
+
+
+def visit_candidates(state, p: int = 0):
+    """The 5-bit candidates of the first visit of subpalette p: the 32
+    values of channel 0 of slot (p, 0) and 16 explore draws (B = 48)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cand5 = state.palette[0, 0][None].repeat(32, 1)
+    cand5 = state.palette[p, 0][None].repeat(32, 1)
     cand5[:, 0] = torch.arange(32, dtype=torch.int32, device="cuda")
     return torch.cat([cand5, torch.randint(
         0, 32, (16, 3), generator=gen, device="cuda", dtype=torch.int32)])
@@ -314,14 +328,17 @@ def visit_candidates(state):
 
 def unfused_coarse_ms(ctx, cand8, cand_lin, refp) -> dict:
     """Kernel D's function by the unfused route on the same visit: the
-    device ms of kernel F's pooled sums and distance planes and of kernel B
-    on the 48 quarter-resolution frames assembled from them (scales 2-5),
-    and F's planes."""
+    device ms of kernel F's pooled sums and distance planes on the tiles of
+    the visited subpalette, as the visit calls it, and of kernel B on the
+    48 quarter-resolution frames assembled from them (scales 2-5); and F's
+    planes over the whole image (F without the tile map), which equal
+    D's."""
     from snesimage_torch.core import refine
     from snesimage_torch.ops import cuda_metric, cuda_prescreen
 
     args = refine.pooled_inputs(ctx, cand8)
-    pooled, planes = cuda_prescreen.pooled_wins_ciede(*args)
+    planes = cuda_prescreen.pooled_wins_ciede(*args[:-2])[1]
+    pooled, _ = cuda_prescreen.pooled_wins_ciede(*args)
     frames = cuda_prescreen.coarse_frames(
         pooled, cand_lin, refine.ds4_no_candidate(ctx)).contiguous()
     refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[s])
@@ -823,14 +840,24 @@ def _print_g_cases(phase: str, cases) -> None:
 
 def _pooled_case(label: str, wrapper, twin, args, px_ops: float,
                  exact_planes: bool):
-    """Kernel E or F against its twin on the operands `args` (with or
-    without the image axis): mask counts equal, the three m*ML sums within
-    POOLED_SUM_TOL, F's distance planes bit-equal."""
-    batched = args[0].dim() == 4
-    twin_args = args if batched else [a[None] for a in args]
+    """Kernel E or F against its twin on the operands `args` (those of
+    `refine.pooled_inputs`, with or without the image axis; with or without
+    its last two, the tile map and the subpalette p): mask counts equal,
+    the three m*ML sums within POOLED_SUM_TOL, F's distance planes
+    bit-equal. Its bound counts the work of this call: with a tile map,
+    the operands' pixels on the tiles of p and the arithmetic there
+    (`bound_ms`), beside the bound of the whole image (`bound_whole_ms`)."""
+    from snesimage_torch.ops.cuda_prescreen import tile_masks
+
+    restricted = isinstance(args[-1], int)
+    tensors = list(args[:-2] if restricted else args)
+    tiles, p = args[-2:] if restricted else (None, None)
+    batched = tensors[0].dim() == 4
+    twin_args = [*tensors, tiles] if batched else [
+        None if a is None else a[None] for a in (*tensors, tiles)]
 
     def plain():
-        out = twin(*twin_args)
+        out = twin(*twin_args, p=p)
         if batched:
             return out
         return tuple(o[0] for o in out) if exact_planes else out[0]
@@ -845,17 +872,35 @@ def _pooled_case(label: str, wrapper, twin, args, px_ops: float,
     check(got.shape == want.shape, f"pooled sums of shape {tuple(got.shape)}")
     check(torch.equal(got[..., 0, :, :], want[..., 0, :, :]),
           f"pooled mask counts differ from the twin's ({label})")
-    n_cand = args[1].shape[:-1].numel()
-    h, w = args[2].shape[-2:]
+    again = wrapper(*args)
+    check(all(torch.equal(a, b) for a, b in zip(
+        outputs, again if exact_planes else (again,))),
+        f"kernel {'F' if exact_planes else 'E'} gave other bits a second "
+        f"time ({label})")
+    h, w = tensors[2].shape[-2:]
+    n_img = tensors[0].shape[0] if batched else 1
+    b = tensors[1].shape[-2]  # candidates an image
+    n_px = whole_px = n_img * h * w
+    per_px = nbytes(*(a for a in tensors if a.shape[-2:] == (h, w))) / n_px
+    other = nbytes(*(a for a in tensors if a.shape[-2:] != (h, w)), *outputs)
+    if restricted:
+        n_px = int(tile_masks(tiles, p)[1].sum())
+        other += nbytes(tiles)
     case = dict(
-        shape=label, max_abs_err=max_err(got, want, POOLED_SUM_TOL),
+        shape=label, tiles=n_px // 64,
+        max_abs_err=max_err(got, want, POOLED_SUM_TOL),
         mask_count=float(got[..., 0, :, :].sum()),
         ms=median_ms(lambda: wrapper(*args)),
+        device_ms=device_ms(lambda: wrapper(*args)),
         plain_ms=median_ms(plain, runs=5), library_ms=None,
-        **bound(nbytes(*args, *outputs), n_cand * h * w * px_ops))
+        **bound(per_px * n_px + other, b * n_px * px_ops),
+        bound_whole_ms=bound(per_px * whole_px + other,
+                             b * whole_px * px_ops)["bound_ms"])
     if exact_planes:
-        case["bound_fp64_ms"] = ciede_fp64_bound_ms(
-            nbytes(*args, *outputs), n_cand * h * w)
+        case["bound_fp64_ms"] = ciede_fp64_bound_ms(per_px * n_px + other,
+                                                    b * n_px)
+        case["bound_fp64_whole_ms"] = ciede_fp64_bound_ms(
+            per_px * whole_px + other, b * whole_px)
     return case
 
 
@@ -870,11 +915,13 @@ def ciede_fp64_bound_ms(n_bytes: float, n_px: int) -> float:
 
 
 def phase_kernels_ef(img, a_record):
-    """Kernels E and F against their twins on the operands of the 256x240
-    paths' first visit (B = 48), and on two images at once (the visit's
-    planes and their upside-down copies), the wrappers' leading axis; and
-    kernel A's prologue at that visit, red-mean and perceptual."""
-    from snesimage_torch.config import QuantConfig
+    """Kernels E and F against their twins at 256x240 (B = 48) on the
+    operands of the first visit of each subpalette p = 0..7 (slot (p, 0),
+    channel 0), restricted to the tiles of p as the visit calls them; on
+    the first visit's operands also over every tile (no tile map) and on
+    two images at once (the visit's planes and tile map and their
+    upside-down copies), the wrappers' leading axis; and kernel A's
+    prologue at that visit, red-mean and perceptual."""
     from snesimage_torch.core import refine
     from snesimage_torch.ops import cuda_prescreen as cp
 
@@ -884,37 +931,58 @@ def phase_kernels_ef(img, a_record):
              cp._pooled_wins_redmean_plain, REDMEAN_OPS_PER_PX, 124),
             (GEOMETRY_PERCEPTUAL, "pooled_wins_ciede", cp.pooled_wins_ciede,
              cp._pooled_wins_ciede_plain, CIEDE_OPS_PER_PX, 264)):
-        state, _, ctx, cand8, _ = first_visit(img, params)
+        state, config = prepared_state(img, params)
         mode = ("perceptual" if params.get("perceptual_palettes")
                 else "red-mean")
-        a_cases.append(_prologue_case(f"256x240, {mode}", state,
-                                      QuantConfig(**params)))
-        args = list(refine.pooled_inputs(ctx, cand8))
+        a_cases.append(_prologue_case(f"256x240, {mode}", state, config))
+        d_all = refine.compute_d_all(state, config)
         exact = name == "pooled_wins_ciede"
-        main = _pooled_case("B=48, 256x240", wrapper, twin, args, px_ops,
-                            exact)
+        visits = [refine.pooled_inputs(*visit_of(state, config, d_all, p))
+                  for p in range(config.subpalette_count)]
+        per_p = [_pooled_case(f"B=48, 256x240, p={p}", wrapper, twin,
+                              list(args), px_ops, exact)
+                 for p, args in enumerate(visits)]
+        main = per_p[0]
         check(main["mask_count"] > 0, f"no candidate of {name} wins a pixel")
-        plane = tuple(args[2].shape)  # planes flip, the candidates stay
+        *tensors, tiles, p = visits[0]
+        plane = tuple(tensors[2].shape)  # planes flip, the candidates stay
         pair = [torch.stack([a, a.flip(-2) if a.shape[-2:] == plane else a])
-                for a in args]
-        cases = [main, _pooled_case("N=2, B=48, 256x240", wrapper, twin, pair,
-                                    px_ops, exact)]
+                for a in tensors]
+        cases = per_p + [
+            _pooled_case("B=48, 256x240, p=0, every tile", wrapper, twin,
+                         tensors, px_ops, exact),
+            _pooled_case("N=2, B=48, 256x240, p=0", wrapper, twin,
+                         pair + [torch.stack([tiles, tiles.flip(0)]), p],
+                         px_ops, exact)]
+        mean = {k: statistics.mean(c[k] for c in per_p)
+                for k in ("device_ms", "bound_ms", "bound_whole_ms", "tiles")}
         records.append(dict(
             name=name, route="cuda",
             source="snesimage_torch/csrc/pooled_wins.cu",
             replaces=f"snesimage_tpu/ops/pallas_prescreen.py:{tpu_line}",
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+            ms=main["ms"], device_ms=main["device_ms"],
+            plain_ms=main["plain_ms"], library_ms=None,
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            shape=main["shape"], cases=cases))
+            bound_whole_ms=main["bound_whole_ms"], shape=main["shape"],
+            mean_over_p=mean, cases=cases))
     print("phase 14 kernels E and F vs twins (mask counts equal, F's "
           "distance planes bit-equal): " + "; ".join(
-              f"{r['name']} {c['shape']} max_abs_err {c['max_abs_err']:.3g} "
-              f"kernel {c['ms']:.4f} ms twin {c['plain_ms']:.4f} ms bound "
-              f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
-              + (f", with double transcendentals {c['bound_fp64_ms']:.5f} ms"
+              f"{r['name']} {c['shape']} ({c['tiles']} tiles) max_abs_err "
+              f"{c['max_abs_err']:.3g} kernel {c['ms']:.4f} ms wall, "
+              f"{c['device_ms']:.5f} ms device, twin {c['plain_ms']:.4f} ms, "
+              f"bound {c['bound_ms']:.5f} ms ({c['bound_by']}; whole image "
+              f"{c['bound_whole_ms']:.5f})"
+              + (f", with double transcendentals {c['bound_fp64_ms']:.5f} "
+                 f"(whole image {c['bound_fp64_whole_ms']:.5f})"
                  if "bound_fp64_ms" in c else "")
               for r in records for c in r["cases"]), flush=True)
+    print("phase 14 mean over p = 0..7: " + "; ".join(
+        f"{r['name']} {r['mean_over_p']['tiles']:.1f} tiles, "
+        f"{r['mean_over_p']['device_ms']:.5f} ms device, bound "
+        f"{r['mean_over_p']['bound_ms']:.5f} ms (whole image "
+        f"{r['mean_over_p']['bound_whole_ms']:.5f})" for r in records),
+        flush=True)
     _print_a_cases("phase 14", a_cases)
     a_record.update(_a_record(a_record["cases"] + a_cases))
     return records

@@ -17,7 +17,10 @@ phases print one JSON line each, profiles last:
            variant's, and the compiler's register and spill report of each
            (`-Xptxas -v`, from the build log); of kernel B at each call
            shape of the undithered and the dithered visit, and, at
-           256x240, of kernels E and F (B = 48) and of kernel B on the 48
+           256x240, of kernels E and F (B = 48) at the first visit of each
+           subpalette p, restricted to its tiles as the visit calls them
+           (and at p = 0 over every tile), a sweep's E or F time estimated
+           from them, their register report, and of kernel B on the 48
            quarter-resolution frames assembled from E's sums; of kernels C
            and D at the first visit (B = 48, 256x256), with the clusters the
            card holds at once, their register report, and F and B on the
@@ -91,6 +94,7 @@ from chip_smoke import (
     prepared_state,
     unfused_coarse_ms,
     visit_candidates,
+    visit_of,
 )
 
 # Device kernels of each wrapper (csrc/*.cu), by the name the profiler shows.
@@ -401,6 +405,33 @@ def phase_dither_perceptual_8(img):
             "launches": {k: fn.launches for k, fn in wrappers.items()}}
 
 
+def _pooled_times(img, params: dict, wrapper) -> dict:
+    """Kernel E or F (`wrapper`), device ms per call at the first visit of
+    each subpalette p (slot (p, 0), channel 0, B = 48) as the visit calls
+    it, on the tiles of p; at p = 0 also over every tile (no tile map);
+    and the device ms of a sweep's calls estimated from them: each
+    subpalette's S * 3 visits at its first visit's time."""
+    from snesimage_torch.core import refine
+
+    state, config = prepared_state(img, params)
+    d_all = refine.compute_d_all(state, config)
+    out = {"card": _card(), "by_p": {}}
+    for p in range(config.subpalette_count):
+        ctx, cand8 = visit_of(state, config, d_all, p)
+        args = refine.pooled_inputs(ctx, cand8)
+        out["by_p"][p] = {
+            "tiles": int((state.tile_palettes == p).sum()),
+            "device_ms": device_ms(lambda: wrapper(*args))}
+        if p == 0:
+            out["B=48, 256x240, p=0, every tile"] = device_ms(
+                lambda: wrapper(*args[:-2]))
+    times = [r["device_ms"] for r in out["by_p"].values()]
+    out["mean_device_ms"] = sum(times) / len(times)
+    out["sweep_device_ms_estimate"] = config.subpalette_size * 3 * sum(times)
+    out["ptxas"] = _ptxas_report((f"{wrapper.__name__}_kernel",))
+    return out
+
+
 def phase_kernels(img):
     """Device ms per call of kernels G, B, E and F at the paths' call
     shapes."""
@@ -415,9 +446,9 @@ def phase_kernels(img):
              GEOMETRY),
             ("pooled_wins_ciede", cuda_prescreen.pooled_wins_ciede,
              GEOMETRY_PERCEPTUAL)):
+        out[name] = _pooled_times(img240, params, wrapper)
         _, refp, ctx, cand8, cand_lin = first_visit(img240, params)
         args = refine.pooled_inputs(ctx, cand8)
-        out[name] = {"B=48, 256x240": device_ms(lambda: wrapper(*args))}
         if name == "pooled_wins_redmean":
             quarter = cuda_prescreen.coarse_frames(
                 wrapper(*args), cand_lin,

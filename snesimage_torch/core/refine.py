@@ -196,6 +196,7 @@ class SlotContext:
     # float32 Lab in perceptual mode
     target: torch.Tensor
     alpha: torch.Tensor  # (H, W) int32
+    tile_palettes: torch.Tensor  # (H/8, W/8) int32
     best_val: torch.Tensor  # (H, W) int32 or float32, best without slot i
     best_idx: torch.Tensor  # (H, W) int32, its entry
     base_idx: torch.Tensor  # (H, W) int32, best entry with slot i
@@ -248,7 +249,8 @@ def slot_context(state: QuantState, config: QuantConfig, p: int, i: int,
                          i)
     return SlotContext(
         p=p, i=i, target_u8=rgb, target_lab=t_lab,
-        target=target.contiguous(), alpha=alpha, best_val=pro.best_val,
+        target=target.contiguous(), alpha=alpha,
+        tile_palettes=state.tile_palettes, best_val=pro.best_val,
         best_idx=pro.best_idx, base_idx=pro.base_idx, affected=pro.affected,
         map_nc=pro.map_nc, lnc=pro.lnc, rule=pro.rule, ml=pro.ml,
     )
@@ -256,10 +258,11 @@ def slot_context(state: QuantState, config: QuantConfig, p: int, i: int,
 
 def pooled_inputs(ctx: SlotContext, cand8: torch.Tensor):
     """The arguments of kernel E (red-mean) or kernel F (perceptual) for
-    8-bit candidates `cand8`; their last is the masked no-candidate
-    frame."""
+    8-bit candidates `cand8`: the target, the candidates, the win rule,
+    the masked no-candidate frame, and the tile map and subpalette p, so
+    that the kernel computes only the tiles of p (all the visit reads)."""
     cand = srgb_u8_to_lab(cand8) if ctx.perceptual else cand8
-    return (ctx.target, cand, *ctx.rule, ctx.ml)
+    return (ctx.target, cand, *ctx.rule, ctx.ml, ctx.tile_palettes, ctx.p)
 
 
 def ds4_no_candidate(ctx: SlotContext) -> torch.Tensor:
@@ -274,7 +277,7 @@ def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
     candidates (cand8, cand_lin): those of kernel E or F, the candidates'
     linear colours, the 4x4 means of the no-candidate frame and the
     reference planes of scales 2..5."""
-    target, cand, *rule, ml = pooled_inputs(ctx, cand8)
+    target, cand, *rule, ml, _, _ = pooled_inputs(ctx, cand8)
     flat_refs = tuple(
         a.permute(2, 0, 1) for sc in range(2, NUM_SCALES) for a in refp[sc]
     )
@@ -331,7 +334,8 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
                      carried_base: bool = True):
     """(B,) float32 exact errors of the candidates `cand5`, +inf for those
     a prescreen dropped; and `dists`, which gives the (n, H, W) distance
-    planes of candidates `ix` (kernel D's or F's rows in perceptual mode).
+    planes of candidates `ix` (kernel D's or F's rows in perceptual mode;
+    F's are +inf off the tiles of subpalette p, where nothing reads them).
     Without `carried_base` row 0 is the current colour and survives every
     ranking."""
     b = cand5.shape[0]
@@ -350,7 +354,8 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
             *coarse_inputs(ctx, cand8, cand_lin, refp))
     elif ctx.perceptual:
         # Also without a prescreen: the frames below need every
-        # candidate's distance plane, and kernel F writes them.
+        # candidate's distance plane on the tiles of p, and kernel F
+        # writes them.
         pooled, dcand = pooled_wins_ciede(*pooled_inputs(ctx, cand8))
     elif prescreened:
         pooled = pooled_wins_redmean(*pooled_inputs(ctx, cand8))

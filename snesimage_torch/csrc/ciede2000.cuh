@@ -18,8 +18,8 @@
 // from a kernel's distance planes agree with the distance cache and the
 // accepted palette map, which the torch code computes.
 //
-// Shared by kernels D and F (through pooled_cell.cuh: coarse_ciede.cu,
-// pooled_wins.cu) and G (dither.cu).
+// Shared by kernels D (through pooled_cell.cuh: coarse_ciede.cu), F
+// (pooled_wins.cu) and G (dither.cu).
 #pragma once
 
 #include <cuda_runtime.h>

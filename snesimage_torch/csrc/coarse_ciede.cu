@@ -16,15 +16,15 @@
 // three blocks run scale 2, one XYB channel each, while the fourth runs
 // scale 3; then the three run scales 4 and 5. The full-resolution Lab,
 // threshold, tie and ML planes are shared by every candidate of a visit and
-// stay in L2; each pooled cell belongs to one thread (pooled_cell.cuh,
-// shared with kernel F), which stores the cell's distances as one float4 per
-// row, so the pooled sums need no atomics.
+// stay in L2; each pooled cell belongs to one thread (pooled_cell.cuh),
+// which stores the cell's distances as one float4 per row, so the pooled
+// sums need no atomics.
 // What bounds it on the card: the arithmetic of CIEDE2000 (nine double-
 // precision transcendental calls per pixel and candidate) in the pooling,
-// on 192 blocks of 8 warps, at most two an SM: fewer warps an SM than
-// kernel F runs the same work with. The 12.6 MB of distance planes it
-// writes per 48-candidate visit at 256x256 take under 4 us at full memory
-// rate.
+// on 192 blocks of 8 warps, at most two an SM, over every pixel (kernel F
+// computes only the tiles of the visited subpalette). The 12.6 MB of
+// distance planes it writes per 48-candidate visit at 256x256 take under
+// 4 us at full memory rate.
 #include "coarse_cluster.cuh"
 
 namespace snes {

@@ -9,7 +9,7 @@
 // 1. Assemble the first scale over the whole cluster, one warp of 32
 //    consecutive cells at a time. C and D pool each cell's 4x4 pixels with
 //    the unchanged pool_cell_redmean / pool_cell_ciede of pooled_cell.cuh
-//    (kernels E and F pool with the same code) into the exact quarter-
+//    (kernels E and F pool in the same order) into the exact quarter-
 //    resolution frame, ds4 + (c * p0 - p_k) / 16. A warp's first chunk of
 //    cells is fixed; it takes each later one from a counter in rank 0's
 //    shared memory, asked for before it works on the chunk in hand, so a

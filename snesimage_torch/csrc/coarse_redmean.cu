@@ -13,8 +13,8 @@
 // three blocks run scale 2, one XYB channel each, while the fourth runs
 // scale 3; then the three run scales 4 and 5. The full-resolution target,
 // bva and ML planes are shared by every candidate of a visit and stay in
-// L2; each pooled cell belongs to one thread (pooled_cell.cuh, shared with
-// kernel E), so the pooled sums need no atomics.
+// L2; each pooled cell belongs to one thread (pooled_cell.cuh), so the
+// pooled sums need no atomics.
 // What bounds it on the card: not its arithmetic or its bytes (a few
 // microseconds at peak rates) but the latency of each block's chain of
 // blurs and barriers with 8 warps an SM, and the pooling's loads of the

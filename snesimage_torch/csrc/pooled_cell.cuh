@@ -1,6 +1,7 @@
-// The mask-and-pool step shared by the coarse prescreen kernels: C and E
-// (red-mean; coarse_redmean.cu, pooled_wins.cu) and D and F (CIEDE2000;
-// coarse_ciede.cu, pooled_wins.cu). For one candidate and one 4x4 cell of
+// The mask-and-pool step of the fused coarse prescreen kernels C
+// (red-mean, coarse_redmean.cu) and D (CIEDE2000, coarse_ciede.cu); kernels
+// E and F (pooled_wins.cu) pool in the same order. For one candidate and
+// one 4x4 cell of
 // the full-resolution image it computes each pixel's distance to the
 // candidate, the win mask m, and the cell's four pooled sums
 //   p[0] = sum m, p[1..3] = sum m * ML_r, m * ML_g, m * ML_b,

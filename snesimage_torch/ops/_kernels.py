@@ -145,9 +145,11 @@ _SIGNATURES = {
     ),
     "snes_coarse_redmean_active_clusters": (_I, _I),
     "snes_coarse_ciede_active_clusters": (_I, _I),
-    "snes_pooled_wins_redmean": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "snes_pooled_wins_redmean": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+    ),
     "snes_pooled_wins_ciede": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     "snes_dither_remap": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,

@@ -23,6 +23,9 @@ Counterpart of snesimage_tpu/ops/pallas_prescreen.py.
   quarter-resolution candidate frames. The visit takes them where the
   fused kernels C and D (ops/cuda_metric.py) cannot run: image sides that
   are not multiples of 32. F also returns the CIEDE2000 distance planes.
+  Given the tile map and the visited subpalette p, both compute only the
+  8x8 tiles of p (0 sums and +inf distances elsewhere), which is all a
+  visit of a slot of p reads; without them, every pixel.
   The twins take the same steps in plain torch; C's and D's twins pool
   with the same routine (`pooled_sums`). Mask counts are exact; the three
   m*ML sums add 16 floats in another order than torch does and agree
@@ -337,34 +340,67 @@ def coarse_frames(pooled, cand_lin, ds4_l) -> torch.Tensor:
     ) / 16.0 + ds4_l[None]
 
 
-def _pooled_geometry(name, n, b, h, w, ptrs):
+def tile_masks(tile_palettes, p: int):
+    """The 4x4 cells (..., H/4, W/4) and the pixels (..., H, W), as bool
+    masks, of the 8x8 tiles of subpalette p in the (..., H/8, W/8) tile
+    map."""
+    cells = (tile_palettes == p).repeat_interleave(2, -2).repeat_interleave(
+        2, -1)
+    return cells, cells.repeat_interleave(4, -2).repeat_interleave(4, -1)
+
+
+def _check_tiles(name, tile_palettes, p):
+    if (tile_palettes is None) != (p is None):
+        raise ValueError(f"{name} takes the tile map and p together")
+
+
+def _pooled_geometry(name, n, b, h, w, ptrs, tiles):
     if h % 4 or w % 4 or h < 4 or w < 4:
         raise ValueError(f"kernel {name} pools 4x4 cells; {h}x{w} has no "
                          "whole number of them")
+    if tiles is not None and (h % 8 or w % 8):
+        raise ValueError(f"kernel {name} takes a tile map only for whole 8x8 "
+                         f"tiles, not {h}x{w}")
     if not 0 < n * b <= 65535:
         raise ValueError(f"kernel {name} takes 1 to 65535 (image, candidate) "
                          f"pairs, not {n}x{b}")
+    if n * -(-h // 8) * -(-w // 8) * -(-b // 4) >= 2**31 or n * h * w >= 2**31:
+        raise ValueError(f"kernel {name} counts its tiles and pixels in int32")
     if any(p % 16 for p in ptrs):
         raise ValueError(f"kernel {name} reads its planes as 16-byte vectors")
 
 
+def _tiles_ptr(tile_palettes, n, h, w, dev):
+    if tile_palettes is None:
+        return None
+    return _kernels.require(tile_palettes, "tile_palettes", torch.int32,
+                            (n, h // 8, w // 8), dev)
+
+
 def _batched(fn, first, *rest):
     """fn over operands with a leading image axis, adding one (and taking
-    it off the results) where `first` has none."""
+    it off the results) where `first` has none; None operands pass as they
+    are."""
     if first.dim() == 4:
         return fn(first, *rest)
-    out = fn(first[None], *(a[None] for a in rest))
+    out = fn(first[None], *(a if a is None else a[None] for a in rest))
     return tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
 
 
-def _pooled_wins_redmean_plain(tg, cand8, bva, ml):
-    return torch.stack([
+def _pooled_wins_redmean_plain(tg, cand8, bva, ml, tile_palettes=None,
+                               p=None):
+    pooled = torch.stack([
         pooled_sums(redmean_wins(tg[n], cand8[n], bva[n]), ml[n])
         for n in range(tg.shape[0])
     ])
+    if tile_palettes is None:
+        return pooled
+    cells, _ = tile_masks(tile_palettes, p)
+    return torch.where(cells[:, None, None], pooled, 0.0)
 
 
-def _pooled_wins_redmean_cuda(tg, cand8, bva, ml):
+def _pooled_wins_redmean_cuda(tg, cand8, bva, ml, tile_palettes=None,
+                              p=None):
     dev = tg.device
     n, b = cand8.shape[:2]
     h, w = bva.shape[-2:]
@@ -374,17 +410,21 @@ def _pooled_wins_redmean_cuda(tg, cand8, bva, ml):
         _kernels.require(bva, "bva", torch.int32, (n, h, w), dev),
         _kernels.require(ml, "ml", torch.float32, (n, 3, h, w), dev),
     ]
-    _pooled_geometry("E", n, b, h, w, (ptrs[0], ptrs[2], ptrs[3]))
+    _pooled_geometry("E", n, b, h, w, (ptrs[0], ptrs[2], ptrs[3]),
+                     tile_palettes)
+    tiles = _tiles_ptr(tile_palettes, n, h, w, dev)
     out = torch.empty((n, b, 4, h // 4, w // 4), dtype=torch.float32,
                       device=dev)
     rc = _kernels.entry("snes_pooled_wins_redmean")(
-        *ptrs, n, b, h, w, out.data_ptr(), _kernels.stream(dev))
+        *ptrs, tiles, -1 if p is None else int(p), n, b, h, w,
+        out.data_ptr(), _kernels.stream(dev))
     _kernels.check(rc, "pooled_wins_redmean")
     pooled_wins_redmean.launches += 1
     return out
 
 
-def pooled_wins_redmean(tg, cand8, bva, ml) -> torch.Tensor:
+def pooled_wins_redmean(tg, cand8, bva, ml, tile_palettes=None,
+                        p=None) -> torch.Tensor:
     """Pooled win sums of a visit's candidates, red-mean distance.
 
     tg: (3, H, W) int32 target; cand8: (B, 3) int32 8-bit candidates; bva:
@@ -395,25 +435,41 @@ def pooled_wins_redmean(tg, cand8, bva, ml) -> torch.Tensor:
     Returns (B, 4, H/4, W/4) float32: per 4x4 cell the sums of m, m*ML_r,
     m*ML_g, m*ML_b. With a leading image axis N on every operand the
     result is (N, B, 4, H/4, W/4).
+
+    With the (H/8, W/8) int32 `tile_palettes` (N of them with the image
+    axis) and a subpalette `p`, only the 8x8 tiles of p are computed and
+    every other cell's sums are 0 (H and W are multiples of 8 then). The
+    visit of a slot of subpalette p passes them; its precondition, which
+    the prologue's win rule guarantees: no pixel off the tiles of p wins,
+    so the restricted sums equal the unrestricted ones everywhere.
     """
+    _check_tiles("pooled_wins_redmean", tile_palettes, p)
     fn = (_pooled_wins_redmean_cuda if tg.is_cuda
           else _pooled_wins_redmean_plain)
-    return _batched(fn, tg, cand8, bva, ml)
+    return _batched(lambda *a: fn(*a, p=p), tg, cand8, bva, ml,
+                    tile_palettes)
 
 
 pooled_wins_redmean.launches = 0
 
 
-def _pooled_wins_ciede_plain(tlab, cand_lab, bvalm, adj, ml):
+def _pooled_wins_ciede_plain(tlab, cand_lab, bvalm, adj, ml,
+                             tile_palettes=None, p=None):
     pooled, dcand = [], []
     for n in range(tlab.shape[0]):
         wins, d = ciede_wins(tlab[n], cand_lab[n], bvalm[n], adj[n])
         pooled.append(pooled_sums(wins, ml[n]))
         dcand.append(d)
-    return torch.stack(pooled), torch.stack(dcand)
+    pooled, dcand = torch.stack(pooled), torch.stack(dcand)
+    if tile_palettes is None:
+        return pooled, dcand
+    cells, pixels = tile_masks(tile_palettes, p)
+    return (torch.where(cells[:, None, None], pooled, 0.0),
+            torch.where(pixels[:, None], dcand, float("inf")))
 
 
-def _pooled_wins_ciede_cuda(tlab, cand_lab, bvalm, adj, ml):
+def _pooled_wins_ciede_cuda(tlab, cand_lab, bvalm, adj, ml,
+                            tile_palettes=None, p=None):
     dev = tlab.device
     n, b = cand_lab.shape[:2]
     h, w = bvalm.shape[-2:]
@@ -424,19 +480,21 @@ def _pooled_wins_ciede_cuda(tlab, cand_lab, bvalm, adj, ml):
         _kernels.require(adj, "adj", torch.int32, (n, h, w), dev),
         _kernels.require(ml, "ml", torch.float32, (n, 3, h, w), dev),
     ]
-    _pooled_geometry("F", n, b, h, w, (ptrs[0], *ptrs[2:]))
+    _pooled_geometry("F", n, b, h, w, (ptrs[0], *ptrs[2:]), tile_palettes)
+    tiles = _tiles_ptr(tile_palettes, n, h, w, dev)
     out = torch.empty((n, b, 4, h // 4, w // 4), dtype=torch.float32,
                       device=dev)
     dcand = torch.empty((n, b, h, w), dtype=torch.float32, device=dev)
     rc = _kernels.entry("snes_pooled_wins_ciede")(
-        *ptrs, n, b, h, w, out.data_ptr(), dcand.data_ptr(),
-        _kernels.stream(dev))
+        *ptrs, tiles, -1 if p is None else int(p), n, b, h, w,
+        out.data_ptr(), dcand.data_ptr(), _kernels.stream(dev))
     _kernels.check(rc, "pooled_wins_ciede")
     pooled_wins_ciede.launches += 1
     return out, dcand
 
 
-def pooled_wins_ciede(tlab, cand_lab, bvalm, adj, ml):
+def pooled_wins_ciede(tlab, cand_lab, bvalm, adj, ml, tile_palettes=None,
+                      p=None):
     """Pooled win sums of a visit's candidates, CIEDE2000 distance.
 
     tlab: (3, H, W) float32 target CIELAB planes; cand_lab: (B, 3) float32
@@ -448,9 +506,18 @@ def pooled_wins_ciede(tlab, cand_lab, bvalm, adj, ml):
     the standard formula of ops/color.py.
     Returns ((B, 4, H/4, W/4) float32 pooled sums, (B, H, W) float32
     distances); with a leading image axis N on every operand, both gain it.
+
+    With `tile_palettes` and `p` as for `pooled_wins_redmean`, only the
+    tiles of subpalette p are computed: every other cell's sums are 0 and
+    every other pixel's distance is +inf, which never wins there (bvalm is
+    -3e38) and which the visit never reads (it takes a distance plane only
+    on the pixels of subpalette p). Precondition as there: no pixel off the
+    tiles of p wins.
     """
+    _check_tiles("pooled_wins_ciede", tile_palettes, p)
     fn = _pooled_wins_ciede_cuda if tlab.is_cuda else _pooled_wins_ciede_plain
-    return _batched(fn, tlab, cand_lab, bvalm, adj, ml)
+    return _batched(lambda *a: fn(*a, p=p), tlab, cand_lab, bvalm, adj, ml,
+                    tile_palettes)
 
 
 pooled_wins_ciede.launches = 0

@@ -10,7 +10,8 @@ features; D's distance planes equal kernel F's and the twin's. C and D
 give the same bits in two calls.
 E's and F's mask counts equal their twins', their m*ML sums agree within
 1e-5 (16 floats added in another order) and F's distance planes within
-1e-4. B runs at pyramids with odd scales (240x256, 40x24, 60x60), in one
+1e-4; restricted to the tiles of one subpalette (none, all, or a ragged
+set of them), F's planes equal the twin's bit for bit. B runs at pyramids with odd scales (240x256, 40x24, 60x60), in one
 kernel launch a call. B's, C's and D's sums equal, bit for bit, the ones
 kept in tests/data/kernel_sums_frozen.npz (written by
 `python tests/test_torch_cuda.py --freeze PATH`, run against the kernels
@@ -378,6 +379,70 @@ def test_pooled_wins_ciede(dev, n, h, w, b):
     assert torch.equal(got, again[0]) and torch.equal(dcand, again[1])
 
 
+# Tile maps of the restricted calls, p = 2 in each: "none" has no tile of
+# p, "all" only tiles of p, "ragged" a random third of them with more along
+# the last row and column of the grid.
+TILE_CASES = ["none", "all", "ragged"]
+
+
+def _tile_map(dev, n, h, w, case, seed):
+    lead = (n,) if n else ()
+    shape = lead + (h // 8, w // 8)
+    if case == "all":
+        return torch.full(shape, 2, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tiles = torch.randint(0, 2 if case == "none" else 3, shape, generator=g,
+                          device=dev, dtype=torch.int32)
+    if case == "ragged":
+        tiles[..., -1, ::2] = 2
+        tiles[..., ::3, -1] = 2
+    return tiles
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("n,h,w,b", POOLED_SHAPES)
+def test_pooled_wins_restricted(dev, n, h, w, b, case, perceptual):
+    """E and F given a tile map and p = 2, against their twins given the
+    same: one launch, mask counts equal, sums within POOLED_SUM_TOL, F's
+    distance planes (+inf off the tiles of p) bit-equal, the same bits on
+    a second call; with every tile of p, the unrestricted call's bits."""
+    seed = h + 2 * w + b + 3 * TILE_CASES.index(case)
+    args = _pooled_args(dev, n, h, w, b, seed, perceptual)
+    tiles = _tile_map(dev, n, h, w, case, seed)
+    wrapper, twin = (
+        (cuda_prescreen.pooled_wins_ciede,
+         cuda_prescreen._pooled_wins_ciede_plain) if perceptual
+        else (cuda_prescreen.pooled_wins_redmean,
+              cuda_prescreen._pooled_wins_redmean_plain))
+    before = wrapper.launches
+    got = wrapper(*args, tiles, 2)
+    assert wrapper.launches == before + 1
+    want = twin(*(a if n else a[None] for a in [*args, tiles]), p=2)
+    want = want if n else (tuple(o[0] for o in want) if perceptual
+                           else want[0])
+    lead = (n,) if n else ()
+    if perceptual:
+        (got, dcand), (want, want_d) = got, want
+        assert dcand.shape == lead + (b, h, w)
+        assert torch.equal(dcand, want_d), float(
+            (dcand == want_d).float().mean())
+    assert got.shape == lead + (b, 4, h // 4, w // 4)
+    assert torch.equal(got[..., 0, :, :], want[..., 0, :, :])  # mask counts
+    assert float((got - want).abs().max()) <= POOLED_SUM_TOL
+    again = wrapper(*args, tiles, 2)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (got, dcand) if perceptual else (got,),
+        again if perceptual else (again,)))
+    if case == "none":
+        assert not bool(got.any())
+        assert not perceptual or bool(torch.isinf(dcand).all())
+    if case == "all":
+        full = wrapper(*args)
+        assert torch.equal(got, full[0] if perceptual else full)
+        assert not perceptual or torch.equal(dcand, full[1])
+
+
 def test_pooled_wins_reject_bad_operands(dev):
     args = _pooled_args(dev, 0, 24, 40, 3, 1, False)
     with pytest.raises(TypeError):
@@ -394,6 +459,20 @@ def test_pooled_wins_reject_bad_operands(dev):
         cuda_prescreen.pooled_wins_ciede(
             *(a[..., :22, :].contiguous() if a.dim() > 1 and a.shape[-1] == 40
               else a for a in odd))
+
+
+def test_pooled_wins_restricted_reject_bad_tile_maps(dev):
+    args = _pooled_args(dev, 0, 24, 40, 3, 1, False)
+    tiles = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # a tile map of another size
+        cuda_prescreen.pooled_wins_redmean(*args, tiles[:2], 0)
+    with pytest.raises(TypeError):
+        cuda_prescreen.pooled_wins_redmean(*args, tiles.long(), 0)
+    with pytest.raises(ValueError):  # p without the tile map
+        cuda_prescreen.pooled_wins_redmean(*args, None, 0)
+    odd = _pooled_args(dev, 0, 20, 40, 3, 1, True)
+    with pytest.raises(ValueError):  # whole 4x4 cells, not whole tiles
+        cuda_prescreen.pooled_wins_ciede(*odd, tiles[:2], 0)
 
 
 def _dither_args(dev, h, w, c, s, b, seed):

@@ -53,6 +53,19 @@ Kernel F also serves every perceptual visit that has no prescreen, at any
 geometry: it alone writes the candidates' distance planes there, and its
 pooled sums go unused. No path driven here is such a visit, so F's
 launches are 0 or one per visit of a 256x240 perceptual run.
+
+Then three more paths, each driven with the counts set to 0 just before it
+and read just after: BASELINE config 5 (phase 28: 64 images of the
+`nes-compat` preset, two steps, in four `batched_run` batches of 16, the
+first four images held to their own `run_fused` bit for bit, then
+`batch_cli` on 16 of them as PNGs, whose JSON must equal the batch's byte
+for byte); `cli.main --opt-profile robust` (phase 29: a K = 2 seed
+portfolio; portfolios of K = 1, 2 and 4 are timed beside `run_fused`, and
+K = 1 must give `run_fused`'s step errors to the bit); and a dithered
+K = 2 portfolio (phase 30: kernel G's two seed rows over the shared image
+against two one-seed launches). Phase 31 runs every kernel at N = 4 images
+against its N = 1 launches, bit for bit, and its twin, and adds device ms
+at N = 1 and N = 4 to each record (`image_axis`).
 """
 
 from __future__ import annotations
@@ -1120,14 +1133,15 @@ def kernel_wrappers() -> dict:
 
 def phase_main_path(img, init_state, smi, params: dict, phase: str,
                     label: str, present: tuple, timed_runs: int,
-                    always_replaces: bool = False):
+                    always_replaces: bool = False, record=None):
     """One run of a path through `run_fused`, checked; then its warm time
     as the best of `timed_runs` runs (with 0, the checked run's own time:
     the phases before it have warmed every kernel). Returns each wrapper's
     launches in the checked run: the wrappers in `present` must have
     launched and no other, kernel G once per visit and twice in the init
     where the path dithers, and kernel E or F once per channel visit.
-    `always_replaces` (NES) lifts the check that step errors never rise."""
+    `always_replaces` (NES) lifts the check that step errors never rise.
+    A `record` dict receives the run's step errors and warm seconds."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
     from snesimage_torch.io.json_out import state_to_json
@@ -1194,6 +1208,8 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
         pipeline.run_fused(img, config, device="cuda")
         runs.append(time.perf_counter() - t0)
     runs = runs or [info["total_seconds"]]
+    if record is not None:
+        record.update(errors=errors, seconds=min(runs), state=state)
     print(f"{phase} main path: {label} {config.width}x{config.height} "
           f"{config.subpalette_count}x{config.subpalette_size}, "
           f"{len(errors)} step(s), warm best of {len(runs)} {min(runs):.3f} s "
@@ -1202,6 +1218,427 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
           f"{errors}, frame error kernel {kernel_err} twin {twin_err}, "
           f"launches {launches}, card '{smi}'", flush=True)
     return launches
+
+
+# The image batch of BASELINE config 5 as benchmarks.py runs it: 64 images
+# of the `nes-compat` preset, two steps, in four batches of 16; the first
+# four images are held against their own single-image runs.
+BATCH_IMAGES = 64
+BATCH_CHUNK = 16
+BATCH_STEPS = 2
+BATCH_CHECKED = 4
+PORTFOLIO_KS = (1, 2, 4)  # seeds of the timed balanced portfolios
+N_RECORD = 4  # images of the kernels' image-axis records
+
+
+def _batch_seeds():
+    return np.random.default_rng(1).integers(0, 1 << 31, BATCH_IMAGES)
+
+
+def _zero_counts() -> dict:
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def _read_counts(wrappers: dict, label: str, present: tuple) -> dict:
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for name, n in launches.items():
+        if name in present:
+            check(n > 0, f"the {label} path never launched {name}")
+        else:
+            check(n == 0, f"the {label} path launched {name}")
+    return launches
+
+
+def phase_batch(smi, nes: dict):
+    """BASELINE config 5 through `batched_run`, then `batch_cli` on the
+    first 16 images written as PNGs: every JSON must equal `state_to_json`
+    of its image's batched state, byte for byte."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from snesimage_torch import batch_cli
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline
+    from snesimage_torch.core.state import image_of
+    from snesimage_torch.io.json_out import state_to_json
+    from snesimage_torch.parallel import batch as pb
+    from snesimage_torch.testing import bench_image
+
+    config = QuantConfig(**dict(nes, max_steps=BATCH_STEPS))
+    images = np.stack([bench_image(int(s)) for s in _batch_seeds()])
+    wrappers = _zero_counts()
+    chunks, secs = [], []
+    for c in range(0, BATCH_IMAGES, BATCH_CHUNK):
+        t0 = time.perf_counter()
+        chunks.append(pb.batched_run(images[c:c + BATCH_CHUNK], config,
+                                     device="cuda", image_errors=True))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    a, b = WRAPPERS[:2]
+    launches = _read_counts(wrappers, "image batch", (a, b))
+    for states, means, per in chunks:
+        check(per.shape == (BATCH_STEPS, BATCH_CHUNK), f"errors {per.shape}")
+        check(bool(np.isfinite(per).all()), "non-finite batch error")
+        check(tuple(states.palette.shape) == (BATCH_CHUNK, 4, 3, 3),
+              "batched palettes")
+    states0, _, per0 = chunks[0]
+    single_s = []
+    for n in range(BATCH_CHECKED):
+        t0 = time.perf_counter()
+        state, errors, _ = pipeline.run_fused(images[n], config,
+                                              device="cuda")
+        single_s.append(time.perf_counter() - t0)
+        check(np.array_equal(np.asarray(errors, np.float32), per0[:, n]),
+              f"image {n}: batch {per0[:, n]} vs single {errors}")
+        check(torch.equal(state.palette, states0.palette[n])
+              and torch.equal(state.palette_map, states0.palette_map[n]),
+              f"image {n}: batched palette or map differs from its run")
+    # Where a batch's seconds go: the init, image by image, against the
+    # sweeps, all images at once (the first batch again, split).
+    t0 = time.perf_counter()
+    states = pb.bcluster(pb.binit(pb.make_batched_states(
+        images[:BATCH_CHUNK], config, "cuda"), config), config)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pb.batched_optimize(states, config)
+    sweeps_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        indir, outdir = Path(tmp) / "in", Path(tmp) / "out"
+        indir.mkdir()
+        for n in range(BATCH_CHUNK):
+            Image.fromarray(images[n], "RGBA").save(indir / f"im{n:02d}.png")
+        t0 = time.perf_counter()
+        rc = batch_cli.main([str(indir), str(outdir), "--preset",
+                             "nes-compat", "--steps", str(BATCH_STEPS)])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"batch_cli exited {rc}")
+        for n in range(BATCH_CHUNK):
+            got = (outdir / f"im{n:02d}.json").read_text()
+            check(got == state_to_json(image_of(states0, n), config),
+                  f"batch_cli's im{n:02d}.json differs from the batch's")
+    total = sum(secs)
+    print(f"phase 28 image batch: BASELINE config 5, nes-compat 4x3, "
+          f"{BATCH_IMAGES} images in {len(secs)} batches of {BATCH_CHUNK}, "
+          f"{BATCH_STEPS} steps: {BATCH_IMAGES / total:.3f} images/s, "
+          f"seconds per batch {secs}, mean step errors "
+          f"{[c[1] for c in chunks]}; images 0-{BATCH_CHECKED - 1} equal "
+          f"their own run_fused (step errors {per0[:, :BATCH_CHECKED].T.tolist()}"
+          f"), {statistics.mean(single_s):.3f} s a single run; a batch "
+          f"split: init {init_s:.3f} s, sweeps {sweeps_s:.3f} s; batch_cli "
+          f"on {BATCH_CHUNK} PNGs {cli_s:.3f} s, every JSON "
+          f"equal; launches {launches}, card '{smi}'", flush=True)
+    return launches
+
+
+def phase_robust(img, smi, balanced: dict):
+    """`cli.main --opt-profile robust -c 8 -s 15` (a K = 2 portfolio of the
+    balanced recipe at config 2's geometry), the portfolio's checks, and
+    seconds at K = 1, 2, 4 beside run_fused's (phase 4's warm run,
+    `balanced`)."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from snesimage_torch import cli
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import refine
+    from snesimage_torch.io.json_out import state_to_json
+    from snesimage_torch.parallel.batch import portfolio_run
+
+    config = QuantConfig(**BALANCED)
+    init, _ = prepared_state(img, BALANCED)
+    err0 = float(refine.frame_error_fused(
+        init, config, refine.make_reference_pyramid(init)))
+    state, errors = balanced["state"], balanced["errors"]
+    secs = {"run_fused": balanced["seconds"]}
+    runs = {}
+    for k in PORTFOLIO_KS:
+        t0 = time.perf_counter()
+        runs[k] = portfolio_run(img, config, k, device="cuda")
+        secs[f"K={k}"] = time.perf_counter() - t0
+    best1, finals1, steps1 = runs[1]
+    check(steps1 == errors and float(finals1[0]) == errors[-1],
+          f"a portfolio of one gave {steps1}, run_fused {errors}")
+    check(torch.equal(best1.palette, state.palette)
+          and torch.equal(best1.palette_map, state.palette_map),
+          "a portfolio of one kept another state than run_fused's")
+    for k, (best, finals, steps) in runs.items():
+        check(bool(np.isfinite(finals).all()) and bool((finals < err0).all()),
+              f"K={k}: seed finals {finals} against the init's {err0}")
+        # The kept state's exact error, scored afresh, against the lowest
+        # carried final (the two round apart, as a run's final error and
+        # its frame error do in the main-path phases).
+        kept = float(refine.frame_error_fused(
+            best, config, refine.make_reference_pyramid(best)))
+        check(abs(kept - float(finals.min())) <= ERROR_TOL,
+              f"K={k}: kept error {kept}, seed finals {finals}")
+    best2, finals2, _ = runs[2]
+    check(finals2[0] != finals2[1], "the two seeds ran one trajectory")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "src.png", Path(tmp) / "out.json"
+        Image.fromarray(img, "RGBA").save(src)
+        wrappers = _zero_counts()
+        t0 = time.perf_counter()
+        # The profile's recipe at config 2's geometry, as BALANCED has it
+        # (the CLI's own default is the reference's 1 x 7).
+        rc = cli.main([str(src), str(out), "--opt-profile", "robust", "-c",
+                       str(config.subpalette_count), "-s",
+                       str(config.subpalette_size)])
+        secs["cli robust"] = time.perf_counter() - t0
+        a, b, c = WRAPPERS[:3]
+        launches = _read_counts(wrappers, "robust", (a, b, c))
+        check(rc == 0, f"cli.main robust exited {rc}")
+        check(out.read_text() == state_to_json(best2, config),
+              "the robust CLI's JSON is not the K = 2 portfolio's")
+    print(f"phase 29 robust: cli --opt-profile robust exit 0, seed finals "
+          f"{finals2.tolist()} kept {float(finals2.min())} (init error "
+          f"{err0}); K=1 equals run_fused (step errors {errors}); seconds "
+          f"{secs}; K=4 finals {runs[4][1].tolist()}; launches {launches}, "
+          f"card '{smi}'", flush=True)
+    return launches
+
+
+def phase_dither_portfolio(img, smi):
+    """A dithered balanced portfolio, K = 2, one step; kernel G at N = 2
+    seed rows over the shared image against two N = 1 launches."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_dither
+    from snesimage_torch.parallel.batch import portfolio_run
+
+    params = dict(DITHER, max_steps=1)
+    config = QuantConfig(**params)
+    init, _ = prepared_state(img, params)
+    err0 = float(refine.frame_error_fused(
+        init, config, refine.make_reference_pyramid(init)))
+    wrappers = _zero_counts()
+    t0 = time.perf_counter()
+    best, finals, steps = portfolio_run(img, config, 2, device="cuda")
+    secs = time.perf_counter() - t0
+    a, b = WRAPPERS[:2]
+    launches = _read_counts(wrappers, "dithered portfolio",
+                            (a, b, WRAPPERS[6]))
+    check(bool((finals < err0).all()), f"seed finals {finals} vs {err0}")
+    cand = torch.stack([visit_candidates(init, 0), visit_candidates(init, 1)])
+    pals = torch.stack([init.palette, init.palette.clone()])
+    pals[1, 1, 0] = cand[1, 5]
+    image = (init.rgb, init.alpha, init.tile_palettes)
+    got = cuda_dither.dither_remap_candidates(*image, pals, 0, 0, cand)
+    for n in range(2):
+        one = cuda_dither.dither_remap_candidates(*image, pals[n], 0, 0,
+                                                  cand[n])
+        check(torch.equal(got[n], one),
+              f"kernel G's seed row {n} differs from its own launch")
+    ms = {n: device_ms(lambda: cuda_dither.dither_remap_candidates(
+        *image, pals[:n], 0, 0, cand[:n]), runs=10) for n in (1, 2)}
+    print(f"phase 30 dithered portfolio: K=2, 1 step, {secs:.3f} s, seed "
+          f"finals {finals.tolist()} (init error {err0}); kernel G at N=2 "
+          f"seed rows equals two N=1 launches bit for bit; G device ms N=1 "
+          f"{ms[1]:.5f}, N=2 {ms[2]:.5f}; launches {launches}, card "
+          f"'{smi}'", flush=True)
+    return launches
+
+
+def _batch_visit(params: dict, rows=None):
+    """A batch of N_RECORD of config 5's images under `params`, after init,
+    and the first visit of subpalette 0 (slot (0, 0), channel 0): its
+    pyramids, slot context and per-image 5-bit candidates (N, 48, 3)."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import refine
+    from snesimage_torch.core.state import image_of
+    from snesimage_torch.parallel import batch as pb
+    from snesimage_torch.testing import bench_image
+
+    config = QuantConfig(**params)
+    images = np.stack([np.ascontiguousarray(bench_image(int(s))[:rows])
+                       for s in _batch_seeds()[:N_RECORD]])
+    states = pb.bcluster(pb.binit(
+        pb.make_batched_states(images, config, "cuda"), config), config)
+    refp = pb.brefp(states, config)
+    cand5 = torch.stack([visit_candidates(image_of(states, n), 0)
+                         for n in range(N_RECORD)])
+    ctx = None
+    if not config.dither:
+        ctx = refine.slot_context(states, config, 0, 0,
+                                  refine.compute_d_all(states, config))
+    return states, config, refp, ctx, cand5
+
+
+def _axis_case(label: str, fn, twin=None, tol=None, exact=True):
+    """One image-axis record: `fn(rows)` on the first n images for n = 1
+    and N_RECORD, the batched outputs held to the N = 1 launches of each
+    image bit for bit, and to `twin` (bit for bit, or within `tol` on the
+    tensors `twin` returns beside the kernel's); device ms at N = 1 and
+    N = N_RECORD."""
+    got = fn(N_RECORD)
+    for n in range(N_RECORD):
+        one = fn((n, n + 1))
+        for a, b in zip(_planes(got), _planes(one)):
+            check(torch.equal(a[n:n + 1], b),
+                  f"{label}: image {n} differs from its own launch")
+    case = dict(shape=label, n=N_RECORD, bits_equal_n1=True)
+    if twin is not None:
+        mine, want = twin(got)
+        if exact:
+            check(all(torch.equal(a, b) for a, b in zip(mine, want)),
+                  f"{label}: kernel and twin differ")
+            case["max_abs_err"] = 0.0
+        else:
+            case["max_abs_err"] = max(max_err(a, b, tol)
+                                      for a, b in zip(mine, want))
+    case["device_ms_n1"] = device_ms(lambda: fn(1))
+    case[f"device_ms_n{N_RECORD}"] = device_ms(lambda: fn(N_RECORD))
+    return case
+
+
+def _rows(x, sel):
+    """Images sel (an int n: the first n; a pair: a range) of a batched
+    operand; tuples of planes plane by plane."""
+    lo, hi = (0, sel) if isinstance(sel, int) else sel
+    if isinstance(x, tuple):
+        return tuple(_rows(a, sel) for a in x)
+    return x[lo:hi] if isinstance(x, torch.Tensor) and x.dim() else x
+
+
+def phase_image_axis(records):
+    """Every kernel at N = 4 images of config 5's bench images (the image
+    fold) against its N = 1 launches, bit for bit, and its twin; device ms
+    at N = 1 and N = 4, added to each kernel's record as `image_axis`."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.models.presets import preset_fields
+    from snesimage_torch.ops import cuda_dither, cuda_metric, cuda_prescreen
+    from snesimage_torch.ops.color import expand_5bit_to_8bit, srgb_u8_to_linear
+    from snesimage_torch.ops.dither import dither_candidates
+    from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
+
+    cases = {name: [] for name in WRAPPERS}
+    sizes = [(256 >> s) ** 2 for s in range(2, 6)]
+
+    # A's prologue and C on the balanced visit.
+    states, config, refp, ctx, cand5 = _batch_visit(BALANCED)
+    d_all = refine.compute_d_all(states, config)
+    pro_args = (d_all, states.tile_palettes, states.alpha, states.palette)
+    cases["select_colors"].append(_axis_case(
+        "prologue, 256x256 red-mean", lambda s: cuda_prescreen.visit_prologue(
+            *_rows(pro_args, s), 0, 0),
+        twin=lambda got: (_planes(got), _planes(cuda_prescreen._stack_prologues(
+            [cuda_prescreen._visit_prologue_plain(*(a[n] for a in pro_args),
+                                                  0, 0)
+             for n in range(N_RECORD)])))))
+    cand8 = expand_5bit_to_8bit(cand5)
+    c_args = refine.coarse_inputs(ctx, cand8, srgb_u8_to_linear(cand8), refp)
+    cases["coarse_feature_sums_redmean"].append(_axis_case(
+        "B=48, 256x256", lambda s: cuda_metric.coarse_feature_sums_redmean(
+            *_rows(c_args, s)),
+        twin=lambda got: ([finalize_feature_sums(got, sizes, 2)], [
+            finalize_feature_sums(cuda_metric._coarse_plain(*c_args), sizes,
+                                  2)]), tol=FEATURE_TOL, exact=False))
+
+    # D on the perceptual visit.
+    states, config, refp, ctx, cand5 = _batch_visit(PERCEPTUAL)
+    cand8 = expand_5bit_to_8bit(cand5)
+    d_args = refine.coarse_inputs(ctx, cand8, srgb_u8_to_linear(cand8), refp)
+
+    def d_twin(got):
+        want = cuda_metric._coarse_ciede_plain(*d_args)
+        return ([finalize_feature_sums(got[0], sizes, 2), got[1]],
+                [finalize_feature_sums(want[0], sizes, 2), want[1]])
+
+    cases["coarse_feature_sums_ciede"].append(_axis_case(
+        "B=48, 256x256", lambda s: cuda_metric.coarse_feature_sums_ciede(
+            *_rows(d_args, s)), twin=d_twin, tol=DISTANCE_TOL,
+        exact=False))
+
+    # E and F on the 256x240 visits, each image on its own tiles of p = 0.
+    for perceptual, name in ((False, "pooled_wins_redmean"),
+                             (True, "pooled_wins_ciede")):
+        states, config, refp, ctx, cand5 = _batch_visit(
+            GEOMETRY_PERCEPTUAL if perceptual else GEOMETRY, rows=240)
+        e_args = refine.pooled_inputs(ctx, expand_5bit_to_8bit(cand5))
+        wrapper = getattr(cuda_prescreen, name)
+
+        def ef_twin(got, name=name, a=e_args):
+            """The pooled sums within POOLED_SUM_TOL; the mask counts, and
+            F's distance planes (+inf off the tiles of p), bit for bit."""
+            want = getattr(cuda_prescreen, f"_{name}_plain")(*a[:-1],
+                                                             p=a[-1])
+            got, want = _planes(got), _planes(want)
+            check(all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+                  f"{name}'s distance planes differ from the twin's")
+            check(torch.equal(got[0][..., 0, :, :], want[0][..., 0, :, :]),
+                  f"{name}'s mask counts differ from the twin's")
+            return got[:1], want[:1]
+
+        cases[name].append(_axis_case(
+            "B=48, 256x240, tiles of p = 0",
+            lambda s, w=wrapper, a=e_args: w(*_rows(a[:-1], s), a[-1]),
+            twin=ef_twin, tol=POOLED_SUM_TOL, exact=False))
+
+    # B on the NES visit's 56 frames at six scales: a pyramid an image, and
+    # one pyramid that every row shares (a portfolio's seeds).
+    nes = dict(preset_fields("nes-compat"), max_steps=NES_STEPS,
+               converge_tol=0.0, seed=0)
+    states, config, refp, ctx, _ = _batch_visit(nes)
+    from snesimage_torch.ops.color import nes_palette_5bit
+
+    cand8 = expand_5bit_to_8bit(nes_palette_5bit("cuda"))
+    cand8 = cand8.expand(N_RECORD, *cand8.shape)
+    frames = refine.candidate_frames(ctx, ctx.cand_dist(cand8),
+                                     srgb_u8_to_linear(cand8))
+    triples = tuple(tuple(a.movedim(-1, -3) for a in sc) for sc in refp)
+    shared = tuple(tuple(a[0] for a in sc) for sc in triples)
+    six = [(256 >> s) ** 2 for s in range(6)]
+
+    def features(raw):
+        return finalize_feature_sums(raw.reshape(*raw.shape[:2], -1, 6), six,
+                                     0)
+
+    for label, refs in (("B=56 an image, six scales", triples),
+                        ("B=56, one shared pyramid", shared)):
+        cases["multiscale_feature_sums"].append(_axis_case(
+            label, lambda s, r=refs: cuda_metric.multiscale_feature_sums(
+                _rows(r, s) if r is triples else r, _rows(frames, s)),
+            twin=lambda got, r=refs: ([features(got)], [features(
+                cuda_metric._multiscale_feature_sums_plain(r, frames))]),
+            tol=FEATURE_TOL, exact=False))
+
+    # G and A's render on the dithered visit.
+    states, config, refp, _, cand5 = _batch_visit(DITHER)
+    g_args = (states.rgb, states.alpha, states.tile_palettes, states.palette)
+
+    def g_twin(got):  # image 0 only: the twin walks 766 steps in torch
+        return [got[0]], [dither_candidates(*(a[0] for a in g_args), 0, 0,
+                                            cand5[0])]
+
+    cases["dither_remap_candidates"].append(_axis_case(
+        "B=48, 256x256", lambda s: cuda_dither.dither_remap_candidates(
+            *_rows(g_args, s), 0, 0, _rows(cand5, s)), twin=g_twin))
+    maps = cuda_dither.dither_remap_candidates(*g_args, 0, 0, cand5)
+    r_args = (maps, states.tile_palettes, states.alpha, states.palette, cand5)
+    cases["select_colors"].append(_axis_case(
+        "render, B=48, 256x256", lambda s: cuda_prescreen.render_palette_maps(
+            *_rows(r_args, s), 0, 0),
+        twin=lambda got: ([got], [torch.stack([
+            cuda_prescreen._render_plain(*(a[n] for a in r_args), 0, 0)
+            for n in range(N_RECORD)])])))
+
+    for r in records:
+        r["image_axis"] = cases[r["name"]]
+    for name, cs in cases.items():
+        for c in cs:
+            print(f"phase 31 image axis: {name} {c['shape']}: N={N_RECORD} "
+                  f"equals N=1 launches bit for bit, max abs err vs twin "
+                  f"{c.get('max_abs_err')}, device ms N=1 "
+                  f"{c['device_ms_n1']:.5f}, N={N_RECORD} "
+                  f"{c[f'device_ms_n{N_RECORD}']:.5f}", flush=True)
 
 
 def main() -> int:
@@ -1215,10 +1652,11 @@ def main() -> int:
     smi, name = phase_device()
     records = phase_kernels(img)
     a, b, c, d, e, f, g = WRAPPERS
-    runs = {}
+    runs, balanced = {}, {}
     init_state = phase_init_hash(img, BALANCED, INIT_HASH, "phase 3")
     runs["balanced"] = phase_main_path(
-        img, init_state, smi, BALANCED, "phase 4", "balanced", (a, b, c), 1)
+        img, init_state, smi, BALANCED, "phase 4", "balanced", (a, b, c), 1,
+        record=balanced)
     records.append(phase_kernel_d(img, records[0]))
     init_state = phase_init_hash(img, PERCEPTUAL, INIT_HASH_PERCEPTUAL,
                                  "phase 6")
@@ -1272,6 +1710,10 @@ def main() -> int:
     phase_kernels_geometry_dither(
         img240, by_name["select_colors"], by_name["multiscale_feature_sums"],
         records[-1])
+    runs["batch"] = phase_batch(smi, nes)
+    runs["robust"] = phase_robust(img, smi, balanced)
+    runs["dither_portfolio"] = phase_dither_portfolio(img, smi)
+    phase_image_axis(records)
     path_of = {d: "perceptual", g: "dither", e: "geometry",
                f: "geometry_perceptual"}
     for r in records:

@@ -7,7 +7,7 @@ balanced, perceptual, dithered and dithered perceptual profiles of
 chip_smoke.py, and on its first 240 rows (256x240, the route through
 kernels E and F) with the balanced and perceptual ones, after a warm-up
 run. With no arguments every phase runs; with arguments, only the phases
-named (kernels, multiscale, pair, seeds, parity, walk, profile). The
+named (kernels, multiscale, pair, seeds, parity, walk, profile, batch). The
 phases print one JSON line each, profiles last:
 
   kernels  device time per call, from CUDA events around 20 launches, of
@@ -46,6 +46,12 @@ phases print one JSON line each, profiles last:
            and D (perceptual), A, B and G (dithered) or A, B and E or F
            (256x240); then the 8-step dithered perceptual run once
            (seconds, step errors, launches);
+  batch    the `profile` phase's record for one sweep of the image batch
+           and the seed portfolio (core/refine.py with a leading image
+           axis): a NES sweep of one `nes-compat` image and of a batch of
+           16 (BASELINE config 5's first 16 images, as chip_smoke.py
+           phase 28 makes them), and a balanced channel sweep of one image
+           and of portfolios of K = 2 and 4 seeds over it;
   pair     seconds of the 8-step balanced run at 256x256 and at 256x240
            taken in turns (256, 240, 240, 256), red-mean and perceptual:
            the host's clock moves between calls and within one, so two
@@ -520,11 +526,65 @@ def _sweeper(img, params: dict):
     return config, sweep
 
 
+def _batch_sweepers(img) -> dict:
+    """(config, sweep) of the `batch` phase's five sweeps, by label: sweep()
+    runs the first sweep of a batched run (or a single one), the same work
+    on every call, and returns its host-clock seconds."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import refine
+    from snesimage_torch.core.state import shared_states
+    from snesimage_torch.models.presets import preset_fields
+    from snesimage_torch.ops.ssimulacra2 import shared_pyramid
+    from snesimage_torch.parallel import batch as pb
+    from snesimage_torch.testing import bench_image
+
+    def timed(fn):
+        def sweep():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        return sweep
+
+    nes = QuantConfig(**dict(preset_fields("nes-compat"), max_steps=2,
+                             converge_tol=0.0, seed=0))
+    seeds = np.random.default_rng(1).integers(0, 1 << 31, 16)
+    images = np.stack([bench_image(int(s)) for s in seeds])
+    states = pb.bcluster(pb.binit(
+        pb.make_batched_states(images, nes, "cuda"), nes), nes)
+    refp = pb.brefp(states, nes)
+    err = refine.frame_error_fused(states, nes, refp)
+    one, one_refp, one_err = _prepared(images[0], nes)
+    out = {
+        "nes-compat, one image": (nes, timed(lambda: refine.sweep_nes(
+            one, nes, one_refp, one_err))),
+        "nes-compat, batch of 16": (nes, timed(lambda: refine.sweep_nes(
+            states, nes, refp, err))),
+    }
+    config = QuantConfig(**BALANCED)
+    state, refp1, err1 = _prepared(img, config)
+    for k in (1, 2, 4):
+        seeds_k = shared_states(state, k) if k > 1 else state
+        refp_k = shared_pyramid(refp1, k) if k > 1 else refp1
+        err_k = err1.expand(k).contiguous() if k > 1 else err1
+
+        def sweep(s=seeds_k, r=refp_k, e=err_k):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(config.seed)
+            refine.sweep_channel(s, config, r, e, gen)
+
+        out["balanced" if k == 1 else f"balanced, K = {k} seeds"] = (
+            config, timed(sweep))
+    return out
+
+
 def phase_profile(label: str, config, sweep, wall: float):
     """One profiled sweep; `wall` is the same sweep's unprofiled time."""
     from torch.profiler import ProfilerActivity, profile
 
-    visits = config.subpalette_count * config.subpalette_size * 3
+    visits = (config.subpalette_count * config.subpalette_size
+              * (1 if config.nes else 3))
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -770,7 +830,7 @@ def main() -> int:
     from snesimage_torch.testing import bench_image
 
     phases = set(args) or {"kernels", "multiscale", "pair", "seeds",
-                           "parity", "walk", "profile"}
+                           "parity", "walk", "profile", "batch"}
     img = bench_image(0)
     img240 = np.ascontiguousarray(img[:240])
     profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
@@ -787,6 +847,10 @@ def main() -> int:
                       for label, p in geometry.items())
         # Every unprofiled time is taken before any profiler has run.
         walls = {label: sweep() for label, (_, sweep) in sweeps.items()}
+    batch = _batch_sweepers(img) if "batch" in phases else {}
+    for _, sweep in batch.values():  # a first run at the batch's shapes
+        sweep()
+    walls.update((label, sweep()) for label, (_, sweep) in batch.items())
     # The explore-off parity runs again on the CPU with the twins; the
     # dithered twin takes too long there for whole sweeps at full size, so
     # the dithered path is walked over its first visits only.
@@ -805,6 +869,8 @@ def main() -> int:
         *(("profile", lambda label=label: phase_profile(
             label, *sweeps[label], walls[label])) for label in sweeps),
         ("profile", lambda: phase_dither_perceptual_8(img)),
+        *(("batch", lambda label=label: phase_profile(
+            label, *batch[label], walls[label])) for label in batch),
     ]
     ok = True
     for name, run in todo:

@@ -1,0 +1,515 @@
+"""Command-line interface of the port.
+
+Counterpart of snesimage_tpu/cli.py, flag for flag: the parser, the
+optimizer profiles, the logger and the merging of presets, profiles and
+explicit flags are copies of the JAX package's (tests/test_torch_cli.py
+pins them), because importing any module of that package imports JAX.
+
+`main` runs the single-image paths that are ported: `run_fused` (the
+default), the seed portfolio (`--portfolio K`; `--opt-profile robust` is
+K = 2) and init alone (`--skip-optimize`), and writes the reference JSON
+and, when asked, a checkpoint and a preview. A flag whose module is not
+ported exits 1 and names its ROADMAP item (`UNPORTED`).
+
+    python -m snesimage_torch.cli SRC.png OUT.json --opt-profile robust
+"""
+
+from __future__ import annotations
+
+
+import argparse
+import logging
+import os
+import sys
+
+
+class _ColorFormatter(logging.Formatter):
+    """Colored level names on TTYs (the reference colors its fern levels:
+    green INFO, bright-magenta DEBUG, src/util.rs:5-9)."""
+
+    _COLORS = {"INFO": "\x1b[32m", "DEBUG": "\x1b[95m", "WARNING": "\x1b[33m",
+               "ERROR": "\x1b[31m", "CRITICAL": "\x1b[31m"}
+
+    def format(self, record):
+        msg = super().format(record)
+        color = self._COLORS.get(record.levelname)
+        if color and sys.stdout.isatty():
+            return msg.replace(
+                record.levelname, f"{color}{record.levelname}\x1b[0m", 1
+            )
+        return msg
+
+
+def setup_logger(level: int = logging.INFO) -> None:
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(
+        _ColorFormatter(
+            "[%(asctime)s][%(levelname)-5s][%(name)s] %(message)s",
+            datefmt="%Y-%m-%d %H:%M:%S",
+        )
+    )
+    root = logging.getLogger()
+    root.handlers[:] = [handler]
+    root.setLevel(logging.WARNING)
+    logging.getLogger("snesimage_torch").setLevel(level)
+
+
+# Optimizer profiles: the measured schedule/prescreen/stop recipes from
+# BENCHMARKS.md, name -> (description, QuantConfig fields). 'reference'
+# pins the reference-parity defaults by name (empty: QuantConfig's
+# defaults ARE the reference semantics).
+OPT_PROFILES: dict[str, tuple[str, dict]] = {
+    "reference": (
+        "reference 4-random/1-channel schedule, full scoring",
+        {},
+    ),
+    "fast": (
+        "channel descent + two-level prescreen + rank1 gate, tol 0.5 "
+        "(the headline ~1 s configuration)",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            gate_margin=0.01, converge_tol=0.5, max_steps=10,
+        ),
+    ),
+    "quality": (
+        "channel descent + prescreen + 16 explore candidates + exact "
+        "accept threshold 0.005, tol 0.1 (beats the reference "
+        "schedule's plateau band at a fraction of its time)",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.1, max_steps=14,
+            accept_margin=0.005,
+        ),
+    ),
+    # The 'quality' recipe on a FIXED 8-step budget (tol 0 disables the
+    # plateau test: the budget IS the time contract). Chip-measured
+    # (round 5, tools/inband_exp.py, TPU v5 lite, bench image; re-run on
+    # the corrected cross-backend init): 1.75 s best-of-3 = 103x the
+    # reference's 180 s anchor, final error 115.11
+    # (seed 0) — inside the reference schedule's seed band 113.4-115.8.
+    # The first configuration to satisfy BOTH BASELINE criteria in one
+    # chip-measured run. Seed-sensitive like every explore schedule
+    # (seeds 0/1/2: 115.0 / 119.3 / 113.4); see BENCHMARKS.md.
+    "balanced": (
+        "the 'quality' recipe on a fixed 8-step budget — chip-measured "
+        "reference-band quality at >=100x (BENCHMARKS.md round-5 row)",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.0, max_steps=8,
+            accept_margin=0.005,
+        ),
+    ),
+    # Two-phase recipe (round 4, pipeline.run_fused_hybrid): the 'fast'
+    # profile to its plateau, then the 'quality' profile polishing that
+    # state. CPU-measured on the bench image (tools/hybrid_exp.py):
+    # final error 112.53 vs 115.04 for 'quality' alone. ROUND-5 CHIP
+    # CAVEAT: this does NOT transfer to the TPU — f32 trajectory
+    # divergence lands the gated phase 1 in a worse basin there that
+    # the polish cannot escape (chip final 116.84; BENCHMARKS.md
+    # "north star" section). Prefer --opt-profile balanced on TPU.
+    # The field dict below is PHASE 2 (explicit optimizer flags
+    # override phase 2; phase 1 is always the 'fast' recipe, with
+    # --steps capping both phases).
+    "hybrid": (
+        "fast gated descent to plateau, then explore polish — best "
+        "CPU-backend quality; on TPU prefer 'balanced' (BENCHMARKS.md)",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.1, max_steps=14,
+            accept_margin=0.005,
+        ),
+    ),
+    # 'balanced' + a K=2 seed portfolio: explore recipes are seed-
+    # sensitive (balanced seeds 0/1/2 land 115.0/119.3/113.4 on the
+    # bench image) and periodic tile reassignment measured as a
+    # non-fix, so best-of-2 trajectories is the supported robustness
+    # mechanism. Chip-measured (round 5, BENCHMARKS.md "Seed
+    # portfolio"): 3.40 s, kept 115.56 — in-band at ~2x balanced cost.
+    # The portfolio default (2) lives in main(), not here: K is a CLI
+    # dispatch concern, not a QuantConfig field.
+    "robust": (
+        "the 'balanced' recipe as a K=2 seed portfolio, keep the best "
+        "— in-band quality robust to the seed lottery at ~2x cost",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.0, max_steps=8,
+            accept_margin=0.005,
+        ),
+    ),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="snesimage-torch",
+        description="SNES image quantizer on an NVIDIA GPU (snesimage "
+        "rebuilt on PyTorch and CUDA).",
+    )
+    from snesimage_torch import __version__
+
+    p.add_argument(
+        "--version", action="version", version=f"%(prog)s {__version__}"
+    )
+    # Reference-parity arguments (src/config.rs:3-31).
+    p.add_argument("source_filename", help="Image to optimize")
+    p.add_argument("target_filename", help="Output JSON filename")
+    # Geometry flags default to None sentinels so an explicitly passed
+    # value always overrides a preset, even when it equals the effective
+    # default (e.g. `--preset snes-mode1-bg12 -c 1`); absent flags fall to
+    # the preset's fields, then to QuantConfig's defaults (1, 7, off).
+    p.add_argument(
+        "-c", "--subpalette-count", type=int, default=None,
+        help="Number of separate subpalettes (default 1)",
+    )
+    p.add_argument(
+        "-s", "--subpalette-size", type=int, default=None,
+        help="Colors per subpalette, excluding transparent (default 7)",
+    )
+    p.add_argument(
+        "-d", "--dither", action="store_true", default=None,
+        help="Dither the output",
+    )
+    p.add_argument(
+        "--perceptual-palettes", action="store_true", default=None,
+        help="CIELAB/CIEDE2000 color comparisons",
+    )
+    p.add_argument(
+        "--nes", action="store_true", default=None,
+        help="Restrict to NES-like colors",
+    )
+    # Framework extensions.
+    from snesimage_torch.models.presets import PRESETS
+
+    p.add_argument(
+        "--preset", choices=sorted(PRESETS),
+        help="Hardware-target preset for the palette geometry (e.g. "
+        "snes-mode1-bg12 = 8x15, nes-compat = 4x3 NES); explicit -c/-s/"
+        "--nes flags override preset fields",
+    )
+    p.add_argument(
+        "--opt-profile", choices=sorted(OPT_PROFILES),
+        # Built from the OPT_PROFILES descriptions so the help text can
+        # never drift from the selectable set.
+        help="Optimizer profile: the measured schedule/prescreen/stop "
+        "recipes from BENCHMARKS.md — "
+        + "; ".join(
+            f"'{name}': {desc}"
+            for name, (desc, _) in sorted(OPT_PROFILES.items())
+        )
+        + ". Explicit flags override profile fields",
+    )
+    p.add_argument(
+        "--steps", type=int, default=None,
+        help="Full optimization sweeps (the reference runs forever; "
+        "default 8)",
+    )
+    p.add_argument(
+        "--tol", type=float, default=None,
+        help="Stop when a full sweep improves error by less than this "
+        "(default 0 = fixed step budget)",
+    )
+    p.add_argument("--seed", type=int, default=0, help="Random-search seed")
+    p.add_argument(
+        "--prescreen", type=int, default=None, metavar="K",
+        help="Coarse-rank candidates and full-score only the top K "
+        "(0 = full scoring everywhere; measured to preserve selections "
+        "while skipping ~3/4 of the metric work on non-finalists)",
+    )
+    p.add_argument(
+        "--prescreen-full", type=int, default=None, metavar="M",
+        help="With --prescreen: rank finalists by their exact scale-1..5 "
+        "score and run the full metric's finest scale only on the top M "
+        "(0 = full-score every finalist; 2 is plateau-identical for "
+        "red-mean runs, use >= 4 with --perceptual-palettes)",
+    )
+    p.add_argument(
+        "--prescreen-pre", type=int, default=None, metavar="P",
+        help="With --prescreen (undithered): pre-rank ALL candidates by "
+        "their exact scale-3..5 score from 1/8-res frames and run the "
+        "quarter-res coarse stage only on the top P (must be > K; 0 = "
+        "every candidate runs the full coarse stage)",
+    )
+    p.add_argument(
+        "--schedule", choices=["reference", "channel"], default=None,
+        help="Step schedule: the reference's 4-random/1-channel cycle, or "
+        "pure channel sweeps (coordinate descent; converges several times "
+        "faster — pair with --channel-explore to escape its local minima; "
+        "see BENCHMARKS.md)",
+    )
+    p.add_argument(
+        "--channel-explore", type=int, default=None, metavar="E",
+        help="Add E random full-RGB candidates to every channel visit's "
+        "32-value sweep (escapes coordinate-descent local minima at a "
+        "fraction of a random step's cost; 0 = deterministic sweeps)",
+    )
+    p.add_argument(
+        "--channel-window", type=int, default=0, metavar="W",
+        help="Windowed channel descent: after 2 exhaustive warm-up "
+        "sweeps, restrict most channel visits to the 2*W values nearest "
+        "the current one (~2x faster sweeps); every 3rd post-warmup "
+        "sweep stays exhaustive so large jumps are still found, and "
+        "convergence is only tested on exhaustive sweeps "
+        "(0 = all sweeps exhaustive)",
+    )
+    p.add_argument(
+        "--gate-margin", type=float, default=None, metavar="G",
+        help="With --prescreen-full (undithered): skip a visit's exact "
+        "scale-0 scoring unless its best finalist's predicted full "
+        "error (carried scale-0 term + exact scale-1..5 score) beats "
+        "the current error by more than G — late sweeps are almost "
+        "all-reject, so gating skips their finest-scale cost. "
+        "Acceptance stays exact; SMALLER G is safer, 0 = off "
+        "(validated margins in BENCHMARKS.md)",
+    )
+    p.add_argument(
+        "--dither-proxy", type=int, default=None, metavar="K",
+        help="Dithered runs: rank each visit's candidates by their exact "
+        "undithered coarse-scale score and wavefront-dither only the top "
+        "K (the wavefront is the dithered visit's dominant cost). 0 = "
+        "off. Same missed-improvement-only safety as --prescreen "
+        "(validation: BENCHMARKS.md)",
+    )
+    p.add_argument(
+        "--gate-coarse", action="store_true", default=None,
+        help="With --gate-margin: add a coarse-stage gate that skips a "
+        "visit's entire finalist pipeline (frame build + scale-1 rank + "
+        "finest scale) when even the best coarse candidate isn't "
+        "predicted to improve by more than the margin — bigger skips "
+        "than the rank1 gate on late, all-reject sweeps, at a larger "
+        "prediction blind spot (validation: BENCHMARKS.md)",
+    )
+    p.add_argument(
+        "--accept-margin", type=float, default=None, metavar="T",
+        help="Accept a candidate only if it improves the exact error by "
+        "more than T (0 = reference strict-less-than rule). Filtering "
+        "weak accepts can steer the descent out of poor local optima; "
+        "applies to random/channel visits on any schedule, never to the "
+        "always-replace NES sweep",
+    )
+    p.add_argument(
+        "--trials", type=int, default=64,
+        help="Random candidates per slot visit (reference: 64)",
+    )
+    p.add_argument(
+        "--portfolio", type=int, default=None, metavar="K",
+        help="Optimize K independent random-seed trajectories as one "
+        "on-device batch and keep the best (extension; the reference runs "
+        "a single OS-seeded trajectory). Only meaningful with random "
+        "steps in the schedule; ignores -v/--profile-dir/--resume. "
+        "Default 1 (2 under --opt-profile robust)",
+    )
+    p.add_argument("--checkpoint", help="Write a resumable .npz checkpoint here")
+    p.add_argument("--resume", help="Resume from a .npz checkpoint")
+    p.add_argument("--preview", help="Write a [source|quantized|palette] PNG here")
+    p.add_argument(
+        "--skip-optimize", action="store_true",
+        help="Write output right after clustering (reference: blue button "
+        "pressed during the Clustering phase)",
+    )
+    p.add_argument(
+        "--reassign-every", type=int, default=0, metavar="N",
+        help="Re-fit tile->subpalette assignments every N optimization "
+        "steps (extension; the reference only supports manual reassignment)",
+    )
+    p.add_argument(
+        "--reassign-tiles", metavar="FILE",
+        help="Manual tile reassignment (the reference GUI's click "
+        "interaction): a text file with one tile per line — 'x y' cycles "
+        "that tile's subpalette once (one click), 'x y palette' sets it "
+        "directly; #-comments allowed. Applied after clustering (or after "
+        "--resume), then palettes are re-fit once, before optimization. "
+        "With --dump-every N the file is also RE-READ every N steps "
+        "during optimization and applied again whenever it changed on "
+        "disk (the reference GUI accepts tile clicks at any moment of "
+        "the optimization phase)",
+    )
+    p.add_argument(
+        "--dump-every", type=int, default=0, metavar="N",
+        help="Write the output JSON (and --preview/--checkpoint if given) "
+        "every N optimization steps, not just at the end — the reference "
+        "GUI writes output at any moment of its indefinite run (blue "
+        "button). Forces one host sync per step",
+    )
+    p.add_argument(
+        "--profile-dir",
+        help="Capture a jax.profiler trace of the optimization into this "
+        "directory (view with XProf/Perfetto)",
+    )
+    p.add_argument(
+        "-v", "--verbose", action="store_true",
+        help="Per-slot logging (reference granularity, src/lib.rs:906-915); "
+        "slower: forces one device round-trip per slot",
+    )
+    return p
+
+
+def merge_geometry(args) -> dict:
+    """Geometry fields for QuantConfig: explicitly passed flags (non-None)
+    override preset fields; anything else falls to QuantConfig defaults."""
+    explicit = {
+        k: v
+        for k, v in dict(
+            subpalette_count=args.subpalette_count,
+            subpalette_size=args.subpalette_size,
+            dither=args.dither,
+            perceptual_palettes=args.perceptual_palettes,
+            nes=args.nes,
+        ).items()
+        if v is not None
+    }
+    if args.preset:
+        from snesimage_torch.models.presets import preset_fields
+
+        return {**preset_fields(args.preset), **explicit}
+    return explicit
+
+
+def merge_opt_fields(args) -> dict:
+    """Optimizer fields for QuantConfig: explicit flags (non-None
+    sentinels) override --opt-profile fields; anything else falls to
+    QuantConfig defaults (which equal the reference-parity 'reference'
+    profile). Shared by the single-image and batch CLIs so the override
+    set cannot drift between them — a knob accepted by a parser but
+    missing from this dict would be silently ignored (gate_coarse had
+    already drifted out of the batch CLI's copy)."""
+    opt = dict(OPT_PROFILES[args.opt_profile][1]) if args.opt_profile else {}
+    opt.update(
+        {
+            k: v
+            for k, v in dict(
+                max_steps=args.steps,
+                converge_tol=args.tol,
+                schedule=args.schedule,
+                channel_explore=args.channel_explore,
+                prescreen=args.prescreen,
+                prescreen_full=args.prescreen_full,
+                prescreen_pre=args.prescreen_pre,
+                dither_proxy=args.dither_proxy,
+                gate_margin=args.gate_margin,
+                gate_coarse=getattr(args, "gate_coarse", None),
+                accept_margin=args.accept_margin,
+            ).items()
+            if v is not None
+        }
+    )
+    return opt
+
+
+def resolve_portfolio_k(args) -> int:
+    """The 'robust' profile is 'balanced' + a K=2 seed portfolio; an
+    explicit --portfolio always wins (None = not passed). K is a CLI
+    dispatch concern, not a QuantConfig field, so it is resolved here
+    rather than through OPT_PROFILES."""
+    if args.portfolio is not None:
+        return args.portfolio
+    return 2 if args.opt_profile == "robust" else 1
+
+
+# Flags whose module is not ported: (flag, whether the parsed arguments use
+# it, what it needs). `main` exits 1 naming the first one used.
+UNPORTED = (
+    ("--resume", lambda a: a.resume is not None,
+     "resuming (ROADMAP queue A item 15)"),
+    ("-v/--verbose", lambda a: a.verbose,
+     "per-slot logging in the host-stepped loop (ROADMAP queue A item 15)"),
+    ("--dump-every", lambda a: a.dump_every > 0,
+     "the host-stepped loop (ROADMAP queue A item 15)"),
+    ("--reassign-every", lambda a: a.reassign_every > 0,
+     "tile reassignment (ROADMAP queue A item 15)"),
+    ("--reassign-tiles", lambda a: a.reassign_tiles is not None,
+     "tile reassignment (ROADMAP queue A item 15)"),
+    ("--opt-profile fast", lambda a: a.opt_profile == "fast",
+     "the rank-1 gate (ROADMAP queue A item 11)"),
+    ("--gate-margin", lambda a: bool(a.gate_margin),
+     "the rank-1 gate (ROADMAP queue A item 11)"),
+    ("--opt-profile hybrid", lambda a: a.opt_profile == "hybrid",
+     "the hybrid recipe (ROADMAP queue A item 17)"),
+    ("--prescreen-pre", lambda a: bool(a.prescreen_pre),
+     "the three-level prescreen (ROADMAP queue A item 17)"),
+    ("--dither-proxy", lambda a: bool(a.dither_proxy),
+     "the dither proxy (ROADMAP queue A item 17)"),
+    ("--channel-window", lambda a: a.channel_window > 0,
+     "windowed visits (ROADMAP queue A item 17)"),
+    ("--gate-coarse", lambda a: bool(a.gate_coarse),
+     "the coarse gate (ROADMAP queue A item 17)"),
+    ("--profile-dir", lambda a: a.profile_dir is not None,
+     "utils/profiling.py (ROADMAP queue A item 19)"),
+)
+
+
+def check_ported(args) -> None:
+    """Raises NotImplementedError naming the ROADMAP item of the first flag
+    in `args` whose module is not ported."""
+    for flag, used, what in UNPORTED:
+        if used(args):
+            raise NotImplementedError(
+                f"{flag} needs {what}, which is not ported yet")
+
+
+def main(argv: list[str] | None = None, *,
+         device: str = "cuda") -> int:
+    """Run the CLI on `device`: the card unless a caller (the tests) asks
+    for the CPU. Returns the exit code: 0 ok, 1 an error or an unported
+    flag (logged), 2 from argparse."""
+    args = build_parser().parse_args(argv)
+    setup_logger(logging.INFO)
+    log = logging.getLogger("snesimage_torch")
+    args.portfolio = resolve_portfolio_k(args)
+
+    # Imports deferred so `--help` stays fast.
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline
+    from snesimage_torch.core.state import new_state
+    from snesimage_torch.io.checkpoint import save_checkpoint
+    from snesimage_torch.io.image import check_size, load_rgba
+    from snesimage_torch.io.json_out import write_json
+
+    try:
+        check_ported(args)
+        config = QuantConfig(
+            **merge_geometry(args),
+            **merge_opt_fields(args),
+            seed=args.seed,
+            random_trials=args.trials,
+            channel_window=args.channel_window,
+        )
+        log.info("Using source image: %s", args.source_filename)
+        img = load_rgba(args.source_filename)
+        check_size(img, config.width, config.height)
+        if args.skip_optimize:
+            state = new_state(img, config, device)
+            state = pipeline.cluster(pipeline.initialize(state, config),
+                                     config)
+            errors = []
+        elif args.portfolio > 1:
+            from snesimage_torch.parallel.batch import portfolio_run
+
+            state, seed_errs, errors = portfolio_run(
+                img, config, args.portfolio, device=device)
+            log.info(
+                "portfolio: per-seed final errors %s -> kept %.4f",
+                [round(float(e), 4) for e in seed_errs],
+                float(seed_errs.min()),
+            )
+        else:
+            state, errors, _ = pipeline.run_fused(img, config, device=device)
+
+        log.info("Writing output to %s", args.target_filename)
+        write_json(args.target_filename, state, config)
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, state, config, errors=errors,
+                            step=len(errors))
+            log.info("Checkpoint written to %s", args.checkpoint)
+        if args.preview:
+            from snesimage_torch.preview import save_preview
+
+            save_preview(args.preview, state, config)
+            log.info("Preview written to %s", args.preview)
+        return 0
+    except Exception as err:  # reference: log + exit(1) (src/main.rs:16-19)
+        log.error("Error running application: %s", err)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -70,21 +70,33 @@ def step_method(config: QuantConfig, step: int) -> str:
     return "random"
 
 
-def _optimize(state, config, refp):
-    """The sweeps of `step_method` with the stop rule of the JAX package's
-    `_optimize_fused`: stop once a step's exact error improves on the
-    error `_stop_cycle` steps before by less than `converge_tol` (0 = a
-    fixed budget of `max_steps` steps). Random candidates and explore
-    draws come from one generator seeded with `config.seed`. Returns
-    (state, per-step errors as a 1-d tensor)."""
+def plateau_stop(history: list, step: int, mean: float, cycle: int,
+                 tol: float) -> bool:
+    """The stop rule of `_optimize` (the JAX package's `_plateau_stop` and
+    `_optimize_fused`): stop once the error after step `step` (the mean
+    over a batch's images) improves on the one `cycle` steps before by
+    less than `tol`; the first cycle never stops a run."""
+    prev = history[step - cycle] if step >= cycle else float("inf")
+    return prev - mean < tol
+
+
+def _optimize(state, config, refp, max_steps=None):
+    """The sweeps of `step_method` with the stop rule `plateau_stop` (0 =
+    a fixed budget of `max_steps`, by default `config.max_steps`, steps).
+    Random candidates and explore draws come from one generator seeded
+    with `config.seed`; a batched state draws an (N, ...) block a visit,
+    row n for image (or seed) n, so one image draws what `run_fused` draws.
+    Returns (state, per-step errors as a (steps,) tensor, or (steps, N) for
+    a batched state). The stop rule reads each step's (mean) error on the
+    host; with `converge_tol` 0 nothing waits for the device."""
     generator = torch.Generator(device=state.device)
     generator.manual_seed(config.seed)
     explore = generator if config.channel_explore > 0 else None
     err = refine.frame_error_fused(state, config, refp)
-    errors = []
+    errors, history = [], []
     cycle = _stop_cycle(config)
-    window = [float("inf")] * cycle  # the first cycle never stops the run
-    for step in range(config.max_steps):
+    steps = config.max_steps if max_steps is None else max_steps
+    for step in range(steps):
         method = step_method(config, step)
         if method == "nes":
             state, err = refine.sweep_nes(state, config, refp, err)
@@ -96,12 +108,12 @@ def _optimize(state, config, refp):
                                               explore)
         errors.append(err)
         if config.converge_tol > 0:
-            full = float(err)
-            if window[step % cycle] - full < config.converge_tol:
+            history.append(float(err.mean()))
+            if plateau_stop(history, step, history[-1], cycle,
+                            config.converge_tol):
                 break
-            window[step % cycle] = full
     if not errors:
-        return state, err.new_empty((0,))
+        return state, err.new_empty((0, *err.shape))
     return state, torch.stack(errors)
 
 

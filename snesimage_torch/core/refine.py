@@ -57,6 +57,13 @@ palette, so no second wavefront runs.
 Everything stays on the device: accept, reject and the carried error are
 `torch.where`s, and a sweep never waits for the device.
 
+Every function here also takes a batched state (core/state.py: a leading
+image axis N on every field, and a reference pyramid an image, or one
+that a seed portfolio's K seeds share): all images visit the same slots
+in the same order, each with its own candidates, its own accept decision
+and its own carried error, and each kernel launch serves all N images. The
+single-image functions are the same code without the leading axis.
+
 Not ported yet, and raising NotImplementedError (`check_slice`): the dither
 proxy, the rank-1 gate, windowed visits and the three-level prescreen.
 """
@@ -64,12 +71,18 @@ proxy, the rank-1 gate, windowed visits and the three-level prescreen.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
 from snesimage_torch.config import QuantConfig
-from snesimage_torch.core.state import QuantState
+from snesimage_torch.core.state import (
+    QuantState,
+    image_of,
+    is_batched,
+    shares_image,
+)
 from snesimage_torch.ops.color import (
     expand_5bit_to_8bit,
     nes_palette_5bit,
@@ -101,6 +114,7 @@ from snesimage_torch.ops.ssimulacra2 import (
     fused_scale_feature_block,
     reference_pyramid,
     score_from_features,
+    stack_pyramids,
 )
 
 
@@ -124,25 +138,49 @@ def check_slice(config: QuantConfig) -> None:
 
 def make_reference_pyramid(state: QuantState):
     """Candidate-independent half of the metric for this image, from its
-    8-bit values (the exact sRGB-decode table applies)."""
+    8-bit values (the exact sRGB-decode table applies). A batched state
+    gets one pyramid an image, stacked (`stack_pyramids`)."""
+    if is_batched(state):
+        return stack_pyramids([reference_pyramid(state.rgb[n])
+                               for n in range(state.rgb.shape[0])])
     return reference_pyramid(state.rgb)
+
+
+def _per_image(state: QuantState, fn) -> torch.Tensor:
+    """fn(image) for one state, or stacked over a batched state's images."""
+    if is_batched(state):
+        return torch.stack([fn(image_of(state, n))
+                            for n in range(state.original.shape[0])])
+    return fn(state)
+
+
+def _image_operands(state: QuantState):
+    """(rgb, alpha, tile map) for kernel G: one image that every row remaps
+    where the state's images are one (a seed portfolio), else the state's
+    own, with its image axis if it has one."""
+    if shares_image(state):
+        original = state.original[0]
+        return (original[..., :3].to(torch.int32),
+                original[..., 3].to(torch.int32), state.tile_palettes[0])
+    return state.rgb, state.alpha, state.tile_palettes
 
 
 def full_remap(state: QuantState, config: QuantConfig) -> QuantState:
     """palette_map from the current palette (reference `optimize`,
     src/lib.rs:425-501). Dithered: kernel G with one candidate and no
-    slot overridden (p = -1)."""
+    slot overridden (p = -1), all images of a batched state in one
+    launch."""
     check_slice(config)
     if config.dither:
+        palette = state.palette
         pm = dither_remap_candidates(
-            state.rgb, state.alpha, state.tile_palettes, state.palette,
-            -1, 0, state.palette[0, 0][None], config.perceptual_palettes,
-        )[0]
+            *_image_operands(state), palette, -1, 0,
+            palette[..., 0, 0, :].unsqueeze(-2), config.perceptual_palettes,
+        )[..., 0, :, :]
     else:
-        pm = remap_undithered(
-            state.rgb, state.alpha, state.tile_palettes, state.palette,
-            config.perceptual_palettes,
-        )
+        pm = _per_image(state, lambda st: remap_undithered(
+            st.rgb, st.alpha, st.tile_palettes, st.palette,
+            config.perceptual_palettes))
     return state.replace(palette_map=pm)
 
 
@@ -150,22 +188,22 @@ def frame_error_fused(
     state: QuantState, config: QuantConfig, refp
 ) -> torch.Tensor:
     """Exact full-frame error, 100 - SSIMULACRA2, through kernel B (one
-    frame, six scales). A 0-dim float32 tensor on the state's device."""
-    rendered = render_linear(
-        state.palette_map, state.alpha, state.tile_palettes, state.palette
-    )
-    frames = rendered.permute(2, 0, 1).unsqueeze(0).contiguous()
+    frame, six scales). A 0-dim float32 tensor on the state's device, or
+    one error an image, (N,), for a batched state (one launch)."""
+    rendered = _per_image(state, lambda st: render_linear(
+        st.palette_map, st.alpha, st.tile_palettes, st.palette))
+    frames = rendered.movedim(-1, -3).unsqueeze(-4).contiguous()
     feats = fused_scale_feature_block(refp, frames, 0, NUM_SCALES)
-    return (100.0 - score_from_features(feats))[0]
+    return (100.0 - score_from_features(feats))[..., 0]
 
 
 def compute_d_all(state: QuantState, config: QuantConfig) -> torch.Tensor:
     """(S, H, W) distances of every pixel to each entry of its own
     subpalette (entry-major): int32 scaled red-mean, or float32 CIEDE2000
-    in perceptual mode."""
-    d = entry_distances(state.rgb, state.tile_palettes, state.palette,
-                        config.perceptual_palettes)
-    return d.permute(2, 0, 1).contiguous()
+    in perceptual mode; (N, S, H, W) for a batched state."""
+    return _per_image(state, lambda st: entry_distances(
+        st.rgb, st.tile_palettes, st.palette, config.perceptual_palettes,
+    ).permute(2, 0, 1).contiguous())
 
 
 def target_lab(state: QuantState, config: QuantConfig):
@@ -175,9 +213,27 @@ def target_lab(state: QuantState, config: QuantConfig):
 
 
 def _smallest(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k smallest values, ties to the lower index: the
-    order of jax.lax.top_k(-x, k). torch.topk promises no tie order."""
-    return torch.sort(x, stable=True).indices[:k]
+    """Indices of the k smallest values along the last axis, ties to the
+    lower index: the order of jax.lax.top_k(-x, k). torch.topk promises no
+    tie order."""
+    return torch.sort(x, stable=True).indices[..., :k]
+
+
+@functools.lru_cache(maxsize=None)
+def _image_rows(n: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(n, device=device)[:, None]
+
+
+def _take(x: torch.Tensor, ix: torch.Tensor | None) -> torch.Tensor:
+    """Rows `ix` of x on its candidate axis: x[ix] for (k,) indices of
+    (B, ...) rows, and image n's rows ix[n] for (N, k) indices of
+    (N, B, ...) rows; all rows for None. Plain indexing, which launches
+    one kernel (`take_along_dim` launches several)."""
+    if ix is None:
+        return x
+    if ix.dim() == 1:
+        return x[ix]
+    return x[_image_rows(ix.shape[0], ix.device), ix]
 
 
 @dataclasses.dataclass
@@ -186,7 +242,8 @@ class SlotContext:
     entry of every pixel with and without slot i, and the frame (`lnc`,
     channel-major linear RGB) and palette map with slot i never winning,
     all from kernel A's visit prologue, with the operands of the
-    candidates' win rule (`rule`, `ml`: see `VisitPrologue`)."""
+    candidates' win rule (`rule`, `ml`: see `VisitPrologue`). In a batched
+    visit every tensor has a leading image axis N."""
 
     p: int
     i: int
@@ -218,7 +275,10 @@ class SlotContext:
         """(..., H, W) scaled red-mean distances of every pixel to (..., 3)
         8-bit candidates. In perceptual mode kernel D writes the CIEDE2000
         planes instead (`candidate_errors`)."""
-        return red_mean_sq_scaled(self.target_u8, cand8[..., None, None, :])
+        target = self.target_u8
+        if cand8.dim() > target.dim() - 2:  # a candidate axis
+            target = target.unsqueeze(-4)
+        return red_mean_sq_scaled(target, cand8[..., None, None, :])
 
     def wins(self, d_c: torch.Tensor) -> torch.Tensor:
         """Strict less-than over entry index: the candidate (index i) wins
@@ -228,13 +288,13 @@ class SlotContext:
         )
 
     def win_mask(self, d_c: torch.Tensor) -> torch.Tensor:
-        """Where a candidate with distance planes `d_c` takes the pixel:
-        `wins` on the opaque pixels of subpalette p, nowhere else. The rule
-        of kernels C to F on the prologue's operands."""
+        """Where candidates with (..., n, H, W) distance planes `d_c` take
+        the pixel: `wins` on the opaque pixels of subpalette p, nowhere
+        else. The rule of kernels C to F on the prologue's operands."""
         if self.perceptual:
-            bvalm, adj = self.rule
+            bvalm, adj = (r.unsqueeze(-3) for r in self.rule)
             return (d_c < bvalm) | ((d_c == bvalm) & (adj != 0))
-        return d_c < self.rule[0]
+        return d_c < self.rule[0].unsqueeze(-3)
 
 
 def slot_context(state: QuantState, config: QuantConfig, p: int, i: int,
@@ -244,15 +304,15 @@ def slot_context(state: QuantState, config: QuantConfig, p: int, i: int,
     if config.perceptual_palettes and t_lab is None:
         t_lab = target_lab(state, config)
     rgb, alpha = state.rgb, state.alpha
-    target = (t_lab if config.perceptual_palettes else rgb).permute(2, 0, 1)
-    pro = visit_prologue(d_all, state.tile_palettes, alpha, state.palette, p,
-                         i)
+    tiles = state.tile_palettes.contiguous()
+    target = (t_lab if config.perceptual_palettes else rgb).movedim(-1, -3)
+    pro = visit_prologue(d_all, tiles, alpha, state.palette, p, i)
     return SlotContext(
         p=p, i=i, target_u8=rgb, target_lab=t_lab,
-        target=target.contiguous(), alpha=alpha,
-        tile_palettes=state.tile_palettes, best_val=pro.best_val,
-        best_idx=pro.best_idx, base_idx=pro.base_idx, affected=pro.affected,
-        map_nc=pro.map_nc, lnc=pro.lnc, rule=pro.rule, ml=pro.ml,
+        target=target.contiguous(), alpha=alpha, tile_palettes=tiles,
+        best_val=pro.best_val, best_idx=pro.best_idx, base_idx=pro.base_idx,
+        affected=pro.affected, map_nc=pro.map_nc, lnc=pro.lnc, rule=pro.rule,
+        ml=pro.ml,
     )
 
 
@@ -267,8 +327,9 @@ def pooled_inputs(ctx: SlotContext, cand8: torch.Tensor):
 
 def ds4_no_candidate(ctx: SlotContext) -> torch.Tensor:
     """(3, H/4, W/4) exact 4x4 means of the no-candidate frame."""
-    h, w = ctx.best_val.shape
-    return ctx.lnc.reshape(3, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
+    h, w = ctx.best_val.shape[-2:]
+    means = ctx.lnc.reshape(-1, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
+    return means.reshape(*ctx.lnc.shape[:-2], h // 4, w // 4)
 
 
 def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
@@ -279,7 +340,7 @@ def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
     reference planes of scales 2..5."""
     target, cand, *rule, ml, _, _ = pooled_inputs(ctx, cand8)
     flat_refs = tuple(
-        a.permute(2, 0, 1) for sc in range(2, NUM_SCALES) for a in refp[sc]
+        a.movedim(-1, -3) for sc in range(2, NUM_SCALES) for a in refp[sc]
     )
     return (target, cand, cand_lin, *rule, ml, ds4_no_candidate(ctx),
             flat_refs)
@@ -288,39 +349,41 @@ def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
 def candidate_frames(ctx: SlotContext, dist: torch.Tensor,
                      cand_lin: torch.Tensor) -> torch.Tensor:
     """(n, 3, H, W) full-resolution linear frames of n candidates from
-    their (n, H, W) distance planes, by the win rule of kernels C to F."""
-    return torch.where(ctx.win_mask(dist)[:, None],
-                       cand_lin[:, :, None, None], ctx.lnc[None])
+    their (n, H, W) distance planes, by the win rule of kernels C to F
+    (each with the context's leading image axis, if it has one)."""
+    return torch.where(ctx.win_mask(dist).unsqueeze(-3),
+                       cand_lin[..., None, None], ctx.lnc.unsqueeze(-4))
 
 
 def _keep(rank: torch.Tensor, k: int, base_rows: int) -> torch.Tensor:
-    """Indices of the k rows of `rank` with the lowest values (`_smallest`).
-    With an in-batch baseline (`base_rows` = 1) row 0 is kept besides, and
-    comes first."""
+    """Indices of the k rows of `rank` (..., B) with the lowest values
+    (`_smallest`). With an in-batch baseline (`base_rows` = 1) row 0 is
+    kept besides, and comes first."""
     if not base_rows:
         return _smallest(rank, k)
-    first = torch.zeros(1, dtype=torch.long, device=rank.device)
-    return torch.cat([first, _smallest(rank[1:], k) + 1])
+    first = torch.zeros(rank.shape[:-1] + (1,), dtype=torch.long,
+                        device=rank.device)
+    return torch.cat([first, _smallest(rank[..., 1:], k) + 1], dim=-1)
 
 
 def _score_finalists(refp, feats_c: torch.Tensor, build, config: QuantConfig,
                      base_rows: int) -> torch.Tensor:
-    """(B,) exact errors of the candidates that the prescreen keeps, +inf
-    for the rest, from all candidates' scale-2..5 features `feats_c`;
+    """(..., B) exact errors of the candidates that the prescreen keeps,
+    +inf for the rest, from all candidates' scale-2..5 features `feats_c`;
     `build(ix)` gives the full-resolution frames of candidates `ix`."""
     k, m = config.prescreen, config.prescreen_full
     sel = _keep(100.0 - score_from_features(feats_c), k, base_rows)
     if 0 < m < k:
         feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1)
-        rank1 = 100.0 - score_from_features(feats_1 + feats_c[sel])
+        rank1 = 100.0 - score_from_features(feats_1 + _take(feats_c, sel))
         sel2 = _keep(rank1, m, base_rows)
-        sel, feats_1 = sel[sel2], feats_1[sel2]
+        sel, feats_1 = _take(sel, sel2), _take(feats_1, sel2)
         fine = fused_scale_feature_block(refp, build(sel), 0, 1) + feats_1
     else:
         fine = fused_scale_feature_block(refp, build(sel), 0, 2)
-    full = 100.0 - score_from_features(fine + feats_c[sel])
-    errs = torch.full((feats_c.shape[0],), float("inf"), device=full.device)
-    return errs.scatter(0, sel, full)
+    full = 100.0 - score_from_features(fine + _take(feats_c, sel))
+    errs = torch.full(feats_c.shape[:-3], float("inf"), device=full.device)
+    return errs.scatter(-1, sel, full)
 
 
 def _prescreens(config: QuantConfig, b: int, allow_prescreen: bool,
@@ -332,15 +395,17 @@ def _prescreens(config: QuantConfig, b: int, allow_prescreen: bool,
 def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
                      cand5: torch.Tensor, allow_prescreen: bool = True,
                      carried_base: bool = True):
-    """(B,) float32 exact errors of the candidates `cand5`, +inf for those
-    a prescreen dropped; and `dists`, which gives the (n, H, W) distance
-    planes of candidates `ix` (kernel D's or F's rows in perceptual mode;
-    F's are +inf off the tiles of subpalette p, where nothing reads them).
-    Without `carried_base` row 0 is the current colour and survives every
-    ranking."""
-    b = cand5.shape[0]
+    """(B,) float32 exact errors of the candidates `cand5` (B, 3), +inf for
+    those a prescreen dropped; and `dists`, which gives the (n, H, W)
+    distance planes of candidates `ix` (n,) (kernel D's or F's rows in
+    perceptual mode; F's are +inf off the tiles of subpalette p, where
+    nothing reads them). Without `carried_base` row 0 is the current colour
+    and survives every ranking. In a batched visit every tensor has the
+    leading image axis N: (N, B, 3) candidates give (N, B) errors, and
+    `dists` takes (N, n) indices."""
+    b = cand5.shape[-2]
     base_rows = 0 if carried_base else 1
-    h, w = ctx.best_val.shape
+    h, w = ctx.best_val.shape[-2:]
     prescreened = _prescreens(config, b, allow_prescreen, base_rows)
     fused = prescreened and fused_coarse_ok(h, w)
     cand8 = expand_5bit_to_8bit(cand5)  # (B, 3)
@@ -361,17 +426,18 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
         pooled = pooled_wins_redmean(*pooled_inputs(ctx, cand8))
 
     def dists(ix):
-        return dcand[ix] if ctx.perceptual else ctx.cand_dist(cand8[ix])
+        if ctx.perceptual:
+            return _take(dcand, ix)
+        return ctx.cand_dist(_take(cand8, ix))
 
     def build(ix):
-        return candidate_frames(ctx, dists(ix), cand_lin[ix])
+        return candidate_frames(ctx, dists(ix), _take(cand_lin, ix))
 
     if not prescreened:
-        feats = fused_scale_feature_block(refp, build(slice(None)), 0,
-                                          NUM_SCALES)
+        feats = fused_scale_feature_block(refp, build(None), 0, NUM_SCALES)
         return 100.0 - score_from_features(feats), dists
     if fused:
-        sizes = [refp[sc][0].shape[0] * refp[sc][0].shape[1]
+        sizes = [refp[sc][0].shape[-3] * refp[sc][0].shape[-2]
                  for sc in range(2, NUM_SCALES)]
         feats_c = finalize_feature_sums(sums, sizes, 2)
     else:
@@ -396,7 +462,7 @@ def _undithered_machinery(
       new_d_all(dist) -> the distance cache with slot i set to the colour.
 
     `t_lab` is the target's Lab image in perceptual mode (computed here
-    when not given).
+    when not given). A batched state gives the batched forms.
     """
     if d_all is None:
         d_all = compute_d_all(state, config)
@@ -407,11 +473,13 @@ def _undithered_machinery(
                                 carried_base)
 
     def final_map(dist):
-        return torch.where(ctx.win_mask(dist), i, ctx.map_nc)
+        return torch.where(ctx.win_mask(dist.unsqueeze(-3)).squeeze(-3), i,
+                           ctx.map_nc)
 
     def new_d_all(dist):
         out = d_all.clone()
-        out[i] = torch.where(ctx.affected, dist, d_all[i])
+        out[..., i, :, :] = torch.where(ctx.affected, dist,
+                                        d_all[..., i, :, :])
         return out
 
     return errors, final_map, new_d_all
@@ -424,25 +492,26 @@ def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
     """(B,) float32 exact errors of the dithered candidates `cand5`, +inf
     for those a prescreen dropped, and all candidates' (B, H, W) palette
     maps. Without `carried_base` row 0 is the current colour and survives
-    every ranking."""
+    every ranking. A batched state gives (N, B) errors and (N, B, H, W)
+    maps, all images' candidates in one launch of kernel G."""
     base_rows = 0 if carried_base else 1
-    alpha = state.alpha
+    alpha, tiles = state.alpha, state.tile_palettes.contiguous()
     maps = dither_remap_candidates(
-        state.rgb, alpha, state.tile_palettes, state.palette, p, i, cand5,
+        *_image_operands(state), state.palette, p, i, cand5,
         config.perceptual_palettes,
     )
     # Map b rendered with candidate b in slot (p, i); the JAX package's
     # one-hot contraction over S computes the same frames.
-    frames = render_palette_maps(maps, state.tile_palettes, alpha,
-                                 state.palette, cand5, p, i)
-    if not _prescreens(config, cand5.shape[0], allow_prescreen, base_rows):
+    frames = render_palette_maps(maps, tiles, alpha, state.palette, cand5, p,
+                                 i)
+    if not _prescreens(config, cand5.shape[-2], allow_prescreen, base_rows):
         feats = fused_scale_feature_block(refp, frames, 0, NUM_SCALES)
         return 100.0 - score_from_features(feats), maps
     # The coarse rank takes the full-resolution frames down inside kernel B.
     feats_c = fused_scale_feature_block(refp, frames, 2, NUM_SCALES - 2,
                                         pre_ds=2)
-    errs = _score_finalists(refp, feats_c, lambda ix: frames[ix], config,
-                            base_rows)
+    errs = _score_finalists(refp, feats_c, lambda ix: _take(frames, ix),
+                            config, base_rows)
     return errs, maps
 
 
@@ -456,7 +525,7 @@ def _dithered_machinery(state: QuantState, config: QuantConfig, p: int,
     def errors(refp, cand5, allow_prescreen=True, carried_base=True):
         errs, maps = _candidate_errors_dithered(
             state, config, refp, p, i, cand5, allow_prescreen, carried_base)
-        return errs, lambda ix: maps[ix]
+        return errs, lambda ix: _take(maps, ix)
 
     return errors, lambda pm: pm, None
 
@@ -468,19 +537,20 @@ def _slot_machinery(state, config, p, i, d_all, t_lab):
 
 
 def _apply(state, d_all, p, i, color, changed, dist, final_map, new_d_all):
-    """(state, d_all) with slot (p, i) set to `color` where the 0-dim bool
-    `changed` holds, else as they came. `dist` is the colour's distance
-    plane, or its palette map on the dithered path, which carries no
-    cache (`d_all` and `new_d_all` are None there)."""
+    """(state, d_all) with slot (p, i) set to `color` where the bool
+    `changed` holds (one an image), else as they came. `dist` is the
+    colour's distance plane, or its palette map on the dithered path,
+    which carries no cache (`d_all` and `new_d_all` are None there)."""
     palette = state.palette.clone()
-    palette[p, i] = color
+    palette[..., p, i, :] = color
+    planes = changed[..., None, None]
     state_out = state.replace(
-        palette=torch.where(changed, palette, state.palette),
-        palette_map=torch.where(changed, final_map(dist), state.palette_map),
+        palette=torch.where(planes[..., None], palette, state.palette),
+        palette_map=torch.where(planes, final_map(dist), state.palette_map),
     )
     if d_all is None:
         return state_out, None
-    return state_out, torch.where(changed, new_d_all(dist), d_all)
+    return state_out, torch.where(planes[..., None], new_d_all(dist), d_all)
 
 
 def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
@@ -490,23 +560,35 @@ def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
     visit returns the incoming state and cache. With `base_err` the
     current error is the carried one; with None the current colour is
     scored inside the batch, as row 0, by the code that scores the
-    candidates."""
+    candidates. Each image of a batched visit decides on its own."""
     base_rows = 1 if base_err is None else 0
-    batch = torch.cat([current[None], cand5]) if base_rows else cand5
+    if base_rows:
+        batch = torch.cat([current.unsqueeze(-2), cand5], dim=-2)
+    else:
+        batch = cand5
     errs, dists = errors(refp, batch, carried_base=not base_rows)
-    base = errs[0] if base_rows else base_err
-    cand_errs = errs[base_rows:]
-    bidx = torch.argmin(cand_errs).view(1)  # first minimum
-    bmin = cand_errs[bidx][0]
+    base = errs[..., 0] if base_rows else base_err
+    cand_errs = errs[..., base_rows:]
+    bidx = torch.argmin(cand_errs, dim=-1, keepdim=True)  # first minimum
+    bmin = _take(cand_errs, bidx)[..., 0]
     accept = bmin < base - accept_margin
-    color = torch.where(accept, cand5[bidx][0], current)
-    changed = accept & torch.any(color != current)
+    color = torch.where(accept[..., None], _take(cand5, bidx)[..., 0, :],
+                        current)
+    changed = accept & torch.any(color != current, dim=-1)
     err_out = torch.where(changed, torch.minimum(bmin, base), base)
     # Where changed, the colour is candidate bidx of cand5.
     state_out, d_out = _apply(state, d_all, p, i, color, changed,
-                              dists(bidx + base_rows)[0], final_map,
-                              new_d_all)
+                              dists(bidx + base_rows)[..., 0, :, :],
+                              final_map, new_d_all)
     return state_out, err_out, d_out
+
+
+def _draws(generator, lead: tuple, n: int, device) -> torch.Tensor:
+    """(*lead, n, 3) uniform 5-bit colours from `generator`: row j of the
+    leading axis belongs to image (or seed) j, and one image draws what an
+    unbatched visit draws."""
+    return torch.randint(0, 32, (*lead, n, 3), generator=generator,
+                         device=device, dtype=torch.int32)
 
 
 def _slot_random(state, config, refp, p, i, d_all=None, base_err=None,
@@ -514,12 +596,10 @@ def _slot_random(state, config, refp, p, i, d_all=None, base_err=None,
     """One random visit of slot (p, i): `random_trials` uniform 5-bit
     candidates drawn from `generator` (or the given `cand5`); the best is
     kept only if it beats the current error (src/lib.rs:191-240)."""
-    current = state.palette[p, i]
+    current = state.palette[..., p, i, :]
     if cand5 is None:
-        cand5 = torch.randint(
-            0, 32, (config.random_trials, 3), generator=generator,
-            device=current.device, dtype=torch.int32,
-        )
+        cand5 = _draws(generator, current.shape[:-1], config.random_trials,
+                       current.device)
     errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
                                                    t_lab)
     return _pick(
@@ -533,16 +613,15 @@ def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
     """One visit: the 32 values of `channel` for slot (p, i), plus
     `channel_explore` uniform random full-RGB candidates drawn from
     `generator` when one is given."""
-    current = state.palette[p, i]
-    sweep5 = current[None, :].repeat(32, 1)
-    sweep5[:, channel] = torch.arange(32, dtype=torch.int32,
-                                      device=current.device)
+    current = state.palette[..., p, i, :]
+    lead = current.shape[:-1]
+    sweep5 = current.unsqueeze(-2).repeat(*(1,) * len(lead), 32, 1)
+    sweep5[..., channel] = torch.arange(32, dtype=torch.int32,
+                                        device=current.device)
     if generator is not None and config.channel_explore > 0:
-        rand5 = torch.randint(
-            0, 32, (config.channel_explore, 3), generator=generator,
-            device=current.device, dtype=torch.int32,
-        )
-        sweep5 = torch.cat([sweep5, rand5], dim=0)
+        rand5 = _draws(generator, lead, config.channel_explore,
+                       current.device)
+        sweep5 = torch.cat([sweep5, rand5], dim=-2)
     errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
                                                    t_lab)
     return _pick(
@@ -557,17 +636,18 @@ def _slot_nes(state, config, refp, p, i, d_all=None, t_lab=None):
     (src/lib.rs:242-284). No prescreen: a misranked candidate would be
     taken, not merely missed. Returns (state, the best colour's error,
     d_all)."""
-    current = state.palette[p, i]
-    cand5 = nes_palette_5bit(current.device)
+    current = state.palette[..., p, i, :]
+    nes = nes_palette_5bit(current.device)
+    cand5 = nes.expand(*current.shape[:-1], *nes.shape)
     errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
                                                    t_lab)
     errs, dists = errors(refp, cand5, allow_prescreen=False)
-    bidx = torch.argmin(errs).view(1)  # first minimum
-    color = cand5[bidx][0]
+    bidx = torch.argmin(errs, dim=-1, keepdim=True)  # first minimum
+    color = _take(cand5, bidx)[..., 0, :]
     state_out, d_out = _apply(
-        state, d_all, p, i, color, torch.any(color != current),
-        dists(bidx)[0], final_map, new_d_all)
-    return state_out, errs[bidx][0], d_out
+        state, d_all, p, i, color, torch.any(color != current, dim=-1),
+        dists(bidx)[..., 0, :, :], final_map, new_d_all)
+    return state_out, _take(errs, bidx)[..., 0], d_out
 
 
 class SlotResult(NamedTuple):
@@ -580,7 +660,8 @@ class SlotResult(NamedTuple):
 
 def _slot_result(before: QuantState, visit) -> SlotResult:
     state, err, _ = visit
-    return SlotResult(state, err, torch.any(state.palette != before.palette))
+    changed = (state.palette != before.palette).flatten(-3).any(-1)
+    return SlotResult(state, err, changed)
 
 
 def refine_slot_random(state, config, refp, generator, p, i) -> SlotResult:
@@ -618,7 +699,7 @@ def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
     """One random step: every slot visited once (src/lib.rs:888-932, steps
     with step % 5 < 4), C * S visits with their candidates drawn from
     `generator`. Returns (state, error), the exact error carried through
-    the visits."""
+    the visits (one an image for a batched state)."""
     check_slice(config)
     s = config.subpalette_size
     err = base_err
@@ -635,7 +716,8 @@ def sweep_channel(state: QuantState, config: QuantConfig, refp,
                   base_err=None, generator=None):
     """One channel step: every slot visited for channels 0, 1, 2 in turn
     (src/lib.rs:917-923), C * S * 3 visits. Returns (state, error): the
-    exact error of the resulting state, carried through the visits."""
+    exact error of the resulting state, carried through the visits (one an
+    image for a batched state)."""
     check_slice(config)
     s = config.subpalette_size
     err = base_err

@@ -6,6 +6,12 @@ Counterpart of snesimage_tpu/core/state.py. Fields:
   palette:       (C, S, 3) int32 5-bit palette entries.
   palette_map:   (H, W) int32 entry index per pixel.
 
+A batched state (the JAX package's `make_batched_states`) has a leading
+image axis N on every field: `stack_states` builds one from N states,
+`image_of` takes image n back out. A seed portfolio's state
+(`shared_states`) is a batched state of K seeds whose `original` and
+`tile_palettes` are views of one image's with stride 0 on the seed axis.
+
 `state_from_numpy` / `state_to_numpy` and their pyramid twins carry state
 and reference pyramids between numpy arrays (for example the JAX
 package's, converted with ``np.asarray``) and the port.
@@ -124,3 +130,37 @@ def pyramid_from_numpy(refp, device: torch.device | str):
 
 def pyramid_to_numpy(refp):
     return tuple(tuple(a.cpu().numpy() for a in scale) for scale in refp)
+
+
+def is_batched(state: QuantState) -> bool:
+    return state.original.dim() == 4
+
+
+def stack_states(states) -> QuantState:
+    """One batched state (leading image axis N) from N states."""
+    return QuantState(**{f: torch.stack([getattr(st, f) for st in states])
+                         for f in _FIELDS})
+
+
+def image_of(state: QuantState, n: int) -> QuantState:
+    """Image (or seed) n of a batched state."""
+    return QuantState(**{f: getattr(state, f)[n] for f in _FIELDS})
+
+
+def shared_states(state: QuantState, k: int) -> QuantState:
+    """K seeds of one state: `original` and `tile_palettes` as stride-0
+    views of the state's own, `palette` and `palette_map` as K copies that
+    each seed changes on its own."""
+    return QuantState(
+        original=state.original.expand(k, *state.original.shape),
+        tile_palettes=state.tile_palettes.expand(k,
+                                                 *state.tile_palettes.shape),
+        palette=state.palette.expand(k, *state.palette.shape).clone(),
+        palette_map=state.palette_map.expand(k,
+                                             *state.palette_map.shape).clone(),
+    )
+
+
+def shares_image(state: QuantState) -> bool:
+    """Whether a batched state's images are one image (`shared_states`)."""
+    return is_batched(state) and state.original.stride(0) == 0

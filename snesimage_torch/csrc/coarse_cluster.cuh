@@ -196,7 +196,8 @@ static __device__ __forceinline__ void run_scale(
       if (i < n_px) {
 #pragma unroll
         for (int ch = 0; ch < kCh; ++ch) {
-          const size_t plane = ((size_t)img * 3 + c0 + ch) * n_px;
+          const size_t plane =
+              img * refs.img_stride[rs] + (size_t)(c0 + ch) * n_px;
           accumulate_moments(x1[ch * n_px + i], refs.mu1[rs][plane + i],
                              refs.s11[rs][plane + i], x2[ch * n_px + i],
                              spare[ch * n_px + i], hb[ch * 3 * n_px + i],
@@ -245,7 +246,8 @@ static __device__ __forceinline__ void stage_img1(float* x1,
                                                   const RefPyramid& refs,
                                                   int rs, int img, int c0,
                                                   int n_ch, int n_px) {
-  const float* src = refs.img1[rs] + ((size_t)img * 3 + c0) * n_px;
+  const float* src =
+      refs.img1[rs] + img * refs.img_stride[rs] + (size_t)c0 * n_px;
   for (int i = threadIdx.x; i < n_ch * n_px; i += kClusterThreads) {
     x1[i] = src[i];
   }

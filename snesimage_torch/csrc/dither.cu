@@ -139,9 +139,10 @@ __device__ __forceinline__ unsigned long long search_key(float d, int s) {
 
 }  // namespace
 
-// rgb (N, H, W, 3) i32; alpha (N, H, W) i32; tiles (N, H/8, W/8) i32;
-// entries5 (N, C, S, 3) i32 5-bit entries; cand5 (N, B, 3) i32 5-bit
-// candidates; out (N, B, H, W) i32. Grid: N * B * kCluster blocks, each of
+// rgb (N, H, W, 3) i32; alpha (N, H, W) i32; tiles (N, H/8, W/8) i32 (one
+// image for all N where shared_image is set: a seed portfolio's palettes
+// over one image); entries5 (N, C, S, 3) i32 5-bit entries; cand5 (N, B, 3)
+// i32 5-bit candidates; out (N, B, H, W) i32. Grid: N * B * kCluster blocks, each of
 // at least slots_per_block * kLanes threads (a multiple of 32); slots
 // (kCluster * slots_per_block >= n_slots = R) are numbered block by block.
 template <bool kPerceptual, int kLanes, int kCluster>
@@ -150,8 +151,8 @@ dither_remap_kernel(const int* __restrict__ rgb,
                     const int* __restrict__ alpha,
                     const int* __restrict__ tiles,
                     const int* __restrict__ entries5,
-                    const int* __restrict__ cand5, int n_cand, int h, int w,
-                    int c_sub, int s_ent, int p, int i_slot, int n_slots,
+                    const int* __restrict__ cand5, int n_cand,
+                    int shared_image, int h, int w, int c_sub, int s_ent, int p, int i_slot, int n_slots,
                     int slots_per_block, DitherParams prm,
                     int* __restrict__ out) {
   static_assert(32 % kLanes == 0, "L divides the warp");
@@ -182,9 +183,10 @@ dither_remap_kernel(const int* __restrict__ rgb,
       kLanes == 32 ? kFullMask
                    : ((1u << kLanes) - 1u) << (lane & ~(kLanes - 1));
   const size_t plane = (size_t)h * w;
-  rgb += (size_t)img * plane * 3;
-  alpha += (size_t)img * plane;
-  tiles += (size_t)img * (h >> 3) * (w >> 3);
+  const size_t src = shared_image ? 0 : img;
+  rgb += src * plane * 3;
+  alpha += src * plane;
+  tiles += src * (h >> 3) * (w >> 3);
   entries5 += (size_t)img * n_ent * 3;
   int* omap = out + (size_t)m * plane;
 
@@ -388,8 +390,9 @@ cudaError_t launch_dither(int n_blocks, int n_slots, size_t smem,
                           cudaStream_t stream, const int* rgb,
                           const int* alpha, const int* tiles,
                           const int* entries5, const int* cand5, int n_cand,
-                          int h, int w, int c_sub, int s_ent, int p,
-                          int i_slot, const DitherParams& prm, int* out) {
+                          int shared_image, int h, int w, int c_sub,
+                          int s_ent, int p, int i_slot,
+                          const DitherParams& prm, int* out) {
   const int per_block = (n_slots + kCluster - 1) / kCluster;
   const int threads = (per_block * kLanes + 31) / 32 * 32;
   if (threads > kMaxThreads) return cudaErrorInvalidConfiguration;
@@ -409,24 +412,25 @@ cudaError_t launch_dither(int n_blocks, int n_slots, size_t smem,
     cfg.numAttrs = 1;
   }
   return cudaLaunchKernelEx(&cfg, kernel, rgb, alpha, tiles, entries5, cand5,
-                            n_cand, h, w, c_sub, s_ent, p, i_slot, n_slots,
-                            per_block, prm, out);
+                            n_cand, shared_image, h, w, c_sub, s_ent, p,
+                            i_slot, n_slots, per_block, prm, out);
 }
 
 }  // namespace snes
 
 // rgb (N, H, W, 3), alpha (N, H, W), tiles (N, H/8, W/8), entries5
 // (N, C, S, 3) and cand5 (N, B, 3) 5-bit colours, all int32; out
-// (N, B, H, W) int32. `lanes` and `cluster` pick a built variant, the ones
+// (N, B, H, W) int32. With shared_image, rgb, alpha and tiles hold one
+// image, which all N palettes remap (a seed portfolio). `lanes` and `cluster` pick a built variant, the ones
 // ops/cuda_dither.py `variant` can choose: red-mean L = 1; perceptual L = 8
 // over a cluster of two blocks, then L = 2 and L = 1 in one block where more
 // row slots leave those no room.
 extern "C" int snes_dither_remap(const void* rgb, const void* alpha,
                                  const void* tiles, const void* entries5,
                                  const void* cand5, int n_img, int n_cand,
-                                 int h, int w, int c_sub, int s_ent, int p,
-                                 int i_slot, int perceptual, int lanes,
-                                 int cluster,
+                                 int shared_image, int h, int w, int c_sub,
+                                 int s_ent, int p, int i_slot, int perceptual,
+                                 int lanes, int cluster,
                                  const snes::DitherParams* params, void* out,
                                  void* stream) {
   if (h < 1 || w < 1 || h % 8 || w % 8) return (int)cudaErrorInvalidValue;
@@ -448,8 +452,8 @@ extern "C" int snes_dither_remap(const void* rgb, const void* alpha,
 #define SNES_DITHER(PERC, L, CL)                                            \
   if (perceptual == PERC && lanes == L && cluster == CL) {                  \
     return (int)snes::launch_dither<PERC, L, CL>(                           \
-        blocks, n_slots, smem, st, im, al, tl, e5, c5, n_cand, h, w, c_sub, \
-        s_ent, p, i_slot, prm, o);                                          \
+        blocks, n_slots, smem, st, im, al, tl, e5, c5, n_cand, shared_image, \
+        h, w, c_sub, s_ent, p, i_slot, prm, o);                             \
   }
   SNES_DITHER(0, 1, 1)
   SNES_DITHER(1, 8, 2)

@@ -48,6 +48,9 @@ struct RefPyramid {
   const float* s11[kMaxScales];
   int h[kMaxScales];
   int w[kMaxScales];
+  // Floats from one image's planes of a scale to the next image's: 3 h w
+  // for a pyramid per image, 0 for one pyramid that every image shares.
+  long long img_stride[kMaxScales];
 };
 
 __device__ __forceinline__ void positive_xyb(const MetricParams& p, float r,

@@ -1,5 +1,8 @@
 // Kernel B: raw SSIMULACRA2 feature sums of several consecutive pyramid
-// scales for a batch of linear-RGB frames, in one launch a call.
+// scales for a batch of linear-RGB frames, in one launch a call. The frames
+// may belong to N images, frames_per_image each, each scored against its
+// image's reference pyramid (refs.img_stride apart, 0 where one pyramid
+// serves all: a seed portfolio); a frame's work does not depend on N.
 //
 // Replaces snesimage_tpu/ops/pallas_metric.py _multiscale_feature_sums_n
 // (pallas_call at :275, tile _scales_feature_tile :142-191). The TPU
@@ -76,6 +79,9 @@ struct MultiscaleCall {
   float* partial;       // (M, tiles_total, 3, 6): each tile's sums
   int* tickets;         // (M, n_tiled): tile blocks done; 0 between calls
   int n_frames;
+  // Frame m scores against image m / frames_per_image of the reference
+  // pyramid (refs.img_stride: 0 where every image shares one pyramid).
+  int frames_per_image;
   int pre_ds;
   int n_scales;
   int n_tiled;           // leading scales larger than kResidentMaxPixels
@@ -211,7 +217,8 @@ static __device__ __forceinline__ void tile_pass(const MultiscaleCall& a,
   const int h = a.lv.h[depth], w = a.lv.w[depth];
   const int y0 = (t / a.tiles_x[s]) * kTile;
   const int x0 = (t % a.tiles_x[s]) * kTile;
-  const size_t ref_off = (size_t)c * h * w;
+  const size_t ref_off =
+      (m / a.frames_per_image) * refs.img_stride[s] + (size_t)c * h * w;
 
   // img1 of the region, and this block's share of the region's pixels in
   // XYB, loaded together before the cluster barrier; zero outside the
@@ -372,7 +379,8 @@ static __device__ __forceinline__ void resident_pass(const MultiscaleCall& a,
   const int hq = a.lv.h[depth], wq = a.lv.w[depth];
   const LevelFrame frame = {a.frames + (size_t)m * 3 * plane0, plane0, a.lv,
                             depth, wq};
-  cluster_pass(frame, hq, wq, refs, a.n_tiled, a.n_scales - a.n_tiled, 0, p,
+  cluster_pass(frame, hq, wq, refs, a.n_tiled, a.n_scales - a.n_tiled,
+               m / a.frames_per_image, p,
                a.out + ((size_t)m * a.n_scales + a.n_tiled) * 18);
 }
 

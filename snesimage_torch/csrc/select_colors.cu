@@ -7,17 +7,19 @@
 //                        table given: the direct counterpart of the TPU
 //                        kernel;
 //   snes_select_colors_prologue
-//                        the undithered visit's prologue: from the distance
-//                        cache d_all (S, H, W) it finds each pixel's best
+//                        the undithered visit's prologue, for each of N
+//                        images: from its distance cache d_all (S, H, W),
+//                        tile map, alpha and palette it finds each pixel's best
 //                        entry with and without slot i (first minimum), and
 //                        writes in one launch the no-candidate frame lnc
 //                        and palette map, the win-rule operands of kernels
 //                        C to F (bva, or bvalm and adj), the masked frame
 //                        ml and the mask of subpalette p;
 //   snes_select_colors_render
-//                        the dithered visit's render: the (B, H, W) palette
-//                        maps of kernel G to (B, 3, H, W) linear frames,
-//                        map b with candidate b in slot (p, i).
+//                        the dithered visit's render: the (N, B, H, W)
+//                        palette maps of kernel G to (N, B, 3, H, W) linear
+//                        frames, map (n, b) with image n's palette and its
+//                        candidate b in slot (p, i).
 //
 // The two fused entries build the (3, C*S) table themselves from the 5-bit
 // palette: the 5->8 bit expansion, then the exact 256-entry sRGB decode
@@ -112,9 +114,11 @@ struct Rule<float> {
   }
 };
 
-// d_all (S, H*W); tiles (H/8, W/8); alpha (H*W); palette5 (C*S, 3).
-// Outputs (H*W) planes best_val, best_idx, base_idx, affected (bool),
-// map_nc, thr (and adj), and (3, H*W) planes lnc and ml.
+// Per image n = blockIdx.y: d_all (S, H*W); tiles (H/8, W/8); alpha (H*W);
+// palette5 (C*S, 3). Outputs (H*W) planes best_val, best_idx, base_idx,
+// affected (bool), map_nc, thr (and adj), and (3, H*W) planes lnc and ml,
+// each image's planes after the last image's. Each image's outputs are
+// those of its own launch with N = 1: no value crosses images.
 template <typename D>
 __global__ void __launch_bounds__(kThreads) prologue_kernel(
     const D* __restrict__ d_all, const int* __restrict__ tiles,
@@ -127,9 +131,26 @@ __global__ void __launch_bounds__(kThreads) prologue_kernel(
     float* __restrict__ ml) {
   extern __shared__ float tbl[];
   const int k = c_sub * s_ent;
+  const int n_px = h * w;
+  {
+    const size_t img = blockIdx.y;
+    const size_t plane = img * n_px;
+    d_all += img * s_ent * n_px;
+    tiles += img * (h >> 3) * (w >> 3);
+    alpha += plane;
+    palette5 += img * k * 3;
+    best_val += plane;
+    best_idx += plane;
+    base_idx += plane;
+    affected_out += plane;
+    map_nc += plane;
+    thr += plane;
+    if (adj != nullptr) adj += plane;
+    lnc += 3 * plane;
+    ml += 3 * plane;
+  }
   build_table(tbl, palette5, k, -1, nullptr, lut);
   __syncthreads();
-  const int n_px = h * w;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   if (px >= n_px) return;
   const int y = px / w, x = px - y * w;
@@ -173,10 +194,11 @@ __global__ void __launch_bounds__(kThreads) prologue_kernel(
   Rule<D>::write(thr, adj, px, mask, best_v, i_slot < best_i);
 }
 
-// maps (B, H*W) entry indices; cand5 (B, 3) 5-bit candidates; out
-// (B, 3, H*W). Grid (pixel blocks of kThreads * kRenderPixels, B): block
-// (., b) builds candidate b's table, entry p * S + i replaced by the
-// candidate.
+// Per image n: maps (B, H*W) entry indices; tiles (H/8, W/8); alpha
+// (H*W); palette5 (C*S, 3); cand5 (B, 3) 5-bit candidates; out
+// (B, 3, H*W). Grid (pixel blocks of kThreads * kRenderPixels, B, N):
+// block (., b, n) builds image n's table for candidate b, entry p * S + i
+// replaced by the candidate.
 __global__ void __launch_bounds__(kThreads) render_kernel(
     const int* __restrict__ maps, const int* __restrict__ tiles,
     const int* __restrict__ alpha, const int* __restrict__ palette5,
@@ -184,11 +206,21 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
     int i_slot, const float* __restrict__ lut, float* __restrict__ out) {
   extern __shared__ float tbl[];
   const int k = c_sub * s_ent;
+  const int n_px = h * w;
+  {
+    const size_t img = blockIdx.z;
+    const size_t row = img * gridDim.y;  // the image's first candidate
+    maps += row * n_px;
+    tiles += img * (h >> 3) * (w >> 3);
+    alpha += img * n_px;
+    palette5 += img * k * 3;
+    cand5 += row * 3;
+    out += row * 3 * n_px;
+  }
   const int b = blockIdx.y;
   build_table(tbl, palette5, k, p * s_ent + i_slot, cand5 + (size_t)b * 3,
               lut);
   __syncthreads();
-  const int n_px = h * w;
 #pragma unroll
   for (int j = 0; j < kRenderPixels; ++j) {
     const int px =
@@ -207,9 +239,9 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
   }
 }
 
-dim3 pixel_grid(int n_px, int n, int per_thread = 1) {
+dim3 pixel_grid(int n_px, int n, int per_thread = 1, int n_z = 1) {
   const int per_block = kThreads * per_thread;
-  return dim3((n_px + per_block - 1) / per_block, n);
+  return dim3((n_px + per_block - 1) / per_block, n, n_z);
 }
 
 }  // namespace
@@ -224,18 +256,18 @@ extern "C" int snes_select_colors(const void* key, const void* table,
   return (int)cudaGetLastError();
 }
 
-// d_all (S, H, W) int32 (perceptual = 0) or f32 (perceptual = 1); tiles
-// (H/8, W/8), alpha (H, W), palette5 (C, S, 3) int32; lut (256) f32, the
-// decoded sRGB codes. Outputs: best_val and
-// thr of d_all's type, best_idx, base_idx, map_nc (and adj, perceptual
-// only) int32, affected bool, all (H, W); lnc and ml (3, H, W) f32.
+// d_all (N, S, H, W) int32 (perceptual = 0) or f32 (perceptual = 1); tiles
+// (N, H/8, W/8), alpha (N, H, W), palette5 (N, C, S, 3) int32; lut (256)
+// f32, the decoded sRGB codes. Outputs: best_val and thr of d_all's type,
+// best_idx, base_idx, map_nc (and adj, perceptual only) int32, affected
+// bool, all (N, H, W); lnc and ml (N, 3, H, W) f32.
 extern "C" int snes_select_colors_prologue(
     const void* d_all, const void* tiles, const void* alpha,
-    const void* palette5, int h, int w, int c_sub, int s_ent, int p,
-    int i_slot, int perceptual, const void* lut, void* best_val,
+    const void* palette5, int n_img, int h, int w, int c_sub, int s_ent,
+    int p, int i_slot, int perceptual, const void* lut, void* best_val,
     void* best_idx, void* base_idx, void* affected, void* map_nc, void* lnc,
     void* thr, void* adj, void* ml, void* stream) {
-  const dim3 grid = pixel_grid(h * w, 1);
+  const dim3 grid = pixel_grid(h * w, n_img);
   const size_t smem = sizeof(float) * 3 * c_sub * s_ent;
   if (perceptual) {
     prologue_kernel<float><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
@@ -255,14 +287,15 @@ extern "C" int snes_select_colors_prologue(
   return (int)cudaGetLastError();
 }
 
-// maps (B, H, W), tiles (H/8, W/8), alpha (H, W), palette5 (C, S, 3), cand5
-// (B, 3) int32; lut (256) f32; out (B, 3, H, W) f32.
+// maps (N, B, H, W), tiles (N, H/8, W/8), alpha (N, H, W), palette5
+// (N, C, S, 3), cand5 (N, B, 3) int32; lut (256) f32; out (N, B, 3, H, W)
+// f32.
 extern "C" int snes_select_colors_render(
     const void* maps, const void* tiles, const void* alpha,
-    const void* palette5, const void* cand5, int n_cand, int h, int w,
-    int c_sub, int s_ent, int p, int i_slot, const void* lut, void* out,
-    void* stream) {
-  render_kernel<<<pixel_grid(h * w, n_cand, kRenderPixels), kThreads,
+    const void* palette5, const void* cand5, int n_img, int n_cand, int h,
+    int w, int c_sub, int s_ent, int p, int i_slot, const void* lut,
+    void* out, void* stream) {
+  render_kernel<<<pixel_grid(h * w, n_cand, kRenderPixels, n_img), kThreads,
                   sizeof(float) * 3 * c_sub * s_ent, (cudaStream_t)stream>>>(
       (const int*)maps, (const int*)tiles, (const int*)alpha,
       (const int*)palette5, (const int*)cand5, h, w, c_sub, s_ent, p, i_slot,

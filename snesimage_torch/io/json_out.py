@@ -46,3 +46,8 @@ def state_to_json(state: QuantState, config: QuantConfig) -> str:
     return json.dumps(
         state_to_json_obj(state, config), separators=(",", ":"), ensure_ascii=False
     )
+
+
+def write_json(path: str, state: QuantState, config: QuantConfig) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(state_to_json(state, config))

@@ -72,6 +72,7 @@ class RefPyramid(ctypes.Structure):
         ("s11", _P * MAX_SCALES),
         ("h", _I * MAX_SCALES),
         ("w", _I * MAX_SCALES),
+        ("img_stride", ctypes.c_longlong * MAX_SCALES),
     ]
 
 
@@ -93,6 +94,7 @@ class MultiscaleCall(ctypes.Structure):
         ("partial", _P),
         ("tickets", _P),
         ("n_frames", _I),
+        ("frames_per_image", _I),
         ("pre_ds", _I),
         ("n_scales", _I),
         ("n_tiled", _I),
@@ -128,11 +130,11 @@ class DitherParams(ctypes.Structure):
 _SIGNATURES = {
     "snes_select_colors": (_P, _P, _P, _I, _I, _I, _P),
     "snes_select_colors_prologue": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P,
     ),
     "snes_select_colors_render": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     "snes_multiscale": (_P, _P, _P, _P),
     "snes_multiscale_active_clusters": (_P,),
@@ -152,8 +154,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
     "snes_dither_remap": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-        _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P,
     ),
 }
 
@@ -258,6 +260,21 @@ def require(t, name: str, dtype, shape: tuple, device) -> int:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return t.data_ptr()
+
+
+def require_images(t, name: str, dtype, shape: tuple, n: int,
+                   device) -> tuple[int, int]:
+    """Validates an operand that holds `shape` for each of n images: one
+    contiguous `shape` (or an (n, *shape) view of it with stride 0 on the
+    image axis), which every image shares, or a contiguous (n, *shape).
+    Returns its data pointer and the elements from one image to the next
+    (0 where shared)."""
+    if t.dim() == len(shape) + 1 and t.shape[0] == n and t.stride(0) == 0:
+        t = t[0]
+    if t.dim() == len(shape):
+        return require(t, name, dtype, shape, device), 0
+    ptr = require(t, name, dtype, (n, *shape), device)
+    return ptr, int(np.prod(shape))
 
 
 def stream(device) -> int:

@@ -20,10 +20,14 @@ measured fastest on the card (PERF.md, "Kernel G") where its blocks fit,
 and `VARIANTS` holds only what `variant` can choose. Every variant gives
 the same maps; `_dither_remap_cuda` can launch any of them for that check.
 
-The kernel's C interface takes a leading image axis N and the candidate
-axis B; this wrapper passes one image (N = 1). The seed-grouped form of the
-TPU kernel (one launch for several seeds' palettes) belongs to the
-portfolio, ROADMAP queue A item 16, and is not ported.
+The wrapper also takes a leading image axis N: N images, each with its
+own palette and candidates, in one launch (the TPU kernel's image fold).
+Where the palettes carry N and the image does not, the N rows are a seed
+portfolio's palettes over one shared image: the kernel reads that image
+with a stride of 0, and one launch walks every seed's chain at once (the
+TPU kernel's seed fold, which puts the seeds on its candidate axis with an
+entry table per seed group). Each row's maps equal its own launch's bit
+for bit: every (image, candidate) is its own block.
 """
 
 from __future__ import annotations
@@ -64,10 +68,19 @@ def variant(perceptual: bool, h: int, w: int) -> tuple[int, int]:
 
 def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
                        perceptual, lanes=None, cluster=None):
+    """Kernel G on N palettes (palette5 (N, C, S, 3), cand5 (N, B, 3)) over
+    N images (rgb (N, H, W, 3)) or one shared image (rgb (H, W, 3)); one
+    palette (C, S, 3) with cand5 (B, 3) gives (B, H, W) maps."""
+    if palette5.dim() == 3:
+        return _dither_remap_cuda(rgb[None], alpha[None], tile_palettes[None],
+                                  palette5[None], p, i, cand5[None],
+                                  perceptual, lanes, cluster)[0]
     dev = rgb.device
-    h, w, _ = rgb.shape
-    c, s, _ = palette5.shape
-    b = cand5.shape[0]
+    h, w = rgb.shape[-3:-1]
+    n, c, s, _ = palette5.shape
+    b = cand5.shape[1]
+    shared = rgb.dim() == 3
+    lead = () if shared else (n,)
     if h % 8 or w % 8:
         raise NotImplementedError(
             f"kernel G takes images of whole 8x8 tiles, not {h}x{w}")
@@ -79,15 +92,17 @@ def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
           or _threads(h, w, lanes, cluster) > MAX_THREADS):
         raise ValueError(f"kernel G has no variant of {lanes} lanes over "
                          f"{cluster} block(s) for {h}x{w}")
-    out = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    out = torch.empty((n, b, h, w), dtype=torch.int32, device=dev)
     rc = _kernels.entry("snes_dither_remap")(
-        _kernels.require(rgb, "rgb", torch.int32, (h, w, 3), dev),
-        _kernels.require(alpha, "alpha", torch.int32, (h, w), dev),
+        _kernels.require(rgb, "rgb", torch.int32, (*lead, h, w, 3), dev),
+        _kernels.require(alpha, "alpha", torch.int32, (*lead, h, w), dev),
         _kernels.require(tile_palettes, "tile_palettes", torch.int32,
-                         (h // 8, w // 8), dev),
-        _kernels.require(palette5, "palette5", torch.int32, (c, s, 3), dev),
-        _kernels.require(cand5, "cand5", torch.int32, (b, 3), dev),
-        1, b, h, w, c, s, p, i, int(bool(perceptual)), lanes, cluster,
+                         (*lead, h // 8, w // 8), dev),
+        _kernels.require(palette5, "palette5", torch.int32, (n, c, s, 3),
+                         dev),
+        _kernels.require(cand5, "cand5", torch.int32, (n, b, 3), dev),
+        n, b, int(shared), h, w, c, s, p, i, int(bool(perceptual)), lanes,
+        cluster,
         _kernels.dither_params_address(), out.data_ptr(),
         _kernels.stream(dev),
     )
@@ -113,14 +128,27 @@ def dither_remap_candidates(
     tile_palettes: (H/8, W/8) int32 subpalette of each tile; palette5:
     (C, S, 3) int32 5-bit palette; cand5: (B, 3) int32 5-bit candidates;
     perceptual: CIEDE2000 instead of the red-mean distance.
+
+    With a leading axis N on palette5 (N, C, S, 3) and cand5 (N, B, 3) the
+    maps are (N, B, H, W): row n remaps image n (rgb, alpha and
+    tile_palettes with the same leading axis) or, where they have none,
+    the one image they hold (a seed portfolio's N palettes).
     """
+    if palette5.dim() == 3:
+        return dither_remap_candidates(rgb, alpha, tile_palettes,
+                                       palette5[None], p, i, cand5[None],
+                                       perceptual)[0]
     if rgb.is_cuda:
         return _dither_remap_cuda(
             rgb.contiguous(), alpha.contiguous(), tile_palettes.contiguous(),
             palette5.to(torch.int32).contiguous(), p, i,
             cand5.to(torch.int32).contiguous(), perceptual)
-    return dither_candidates(rgb, alpha, tile_palettes, palette5, p, i,
-                             cand5, perceptual)
+    shared = rgb.dim() == 3
+    return torch.stack([
+        dither_candidates(*((rgb, alpha, tile_palettes) if shared else
+                            (rgb[n], alpha[n], tile_palettes[n])),
+                          palette5[n], p, i, cand5[n], perceptual)
+        for n in range(palette5.shape[0])])
 
 
 dither_remap_candidates.launches = 0

@@ -26,6 +26,13 @@ All return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
 the pixel count and the fourth root stay in `finalize_feature_sums`. On a
 CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor it
 runs the twin. Each wrapper counts its launches in ``.launches``.
+
+Each also takes a leading image axis N (the counterpart of the JAX
+package's `custom_vmap` image fold): N images' operands in one launch, each
+image's results bit-equal to its own launch with one image. A reference
+pyramid with no image axis is shared by every image (a seed portfolio of
+one image); the kernels then read it with an image stride of 0. The twins
+run the images one after another.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from snesimage_torch.ops import _kernels
 from snesimage_torch.ops.cuda_prescreen import (
+    _batched,
     ciede_wins,
     coarse_frames,
     pooled_sums,
@@ -72,7 +80,21 @@ def _raw_sums(img1, mu1, s11, img2) -> torch.Tensor:
     return torch.stack(ones + fours, dim=-1)
 
 
+def _refs_of(refs, n: int):
+    """Image n's reference planes, in tuples nested as `refs` are: (N, 3,
+    h, w) planes indexed, shared (3, h, w) planes as they are."""
+    if isinstance(refs, tuple):
+        return tuple(_refs_of(a, n) for a in refs)
+    return refs[n] if refs.dim() == 4 else refs
+
+
 def _multiscale_feature_sums_plain(ref_scales, frames, pre_ds=0):
+    if frames.dim() == 5:
+        return torch.stack([
+            _multiscale_feature_sums_plain(_refs_of(ref_scales, n), frames[n],
+                                           pre_ds)
+            for n in range(frames.shape[0])
+        ])
     lin = frames.movedim(1, -1)  # (B, h, w, 3)
     for _ in range(pre_ds):
         lin = downsample2(lin)
@@ -85,17 +107,24 @@ def _multiscale_feature_sums_plain(ref_scales, frames, pre_ds=0):
     return torch.stack(out, dim=1)  # (B, n, 3, 6)
 
 
-def _ref_pyramid(triples, device) -> _kernels.RefPyramid:
+def _ref_pyramid(triples, device, n_img: int = 1) -> _kernels.RefPyramid:
+    """The kernels' description of reference triples for n_img images:
+    (N, 3, h, w) planes, one pyramid an image, or (3, h, w) planes that
+    every image shares (image stride 0)."""
     refs = _kernels.RefPyramid()
     for si, triple in enumerate(triples):
-        _, hs, ws = triple[0].shape
-        ptrs = [
-            _kernels.require(a, f"ref plane {si}.{j}", torch.float32,
-                             (3, hs, ws), device)
+        hs, ws = triple[0].shape[-2:]
+        ptrs, strides = zip(*(
+            _kernels.require_images(a, f"ref plane {si}.{j}", torch.float32,
+                                    (3, hs, ws), n_img, device)
             for j, a in enumerate(triple)
-        ]
+        ))
+        if len(set(strides)) != 1:
+            raise ValueError(f"ref planes of scale {si} mix shared and "
+                             "per-image planes")
         refs.img1[si], refs.mu1[si], refs.s11[si] = ptrs
         refs.h[si], refs.w[si] = hs, ws
+        refs.img_stride[si] = strides[0]
     return refs
 
 
@@ -116,11 +145,13 @@ def _tile_scratch(dev, n_sums: int, n_tickets: int):
 
 
 def _multiscale_call(frames, sizes, pre_ds: int) -> _kernels.MultiscaleCall:
-    """Kernel B's launch description for `frames` (B, 3, H, W) and scales of
-    `sizes`, after `pre_ds` 2x2 means: the leading scales larger than
-    RESIDENT_MAX_PIXELS take tile clusters, the rest one resident cluster a
-    frame. Leaves `out`, `partial` and `tickets` to the caller."""
-    b, _, h, w = frames.shape
+    """Kernel B's launch description for `frames` (B, 3, H, W), or
+    (N, B, 3, H, W) for N images, and scales of `sizes`, after `pre_ds` 2x2
+    means: the leading scales larger than RESIDENT_MAX_PIXELS take tile
+    clusters, the rest one resident cluster a frame. Leaves `out`,
+    `partial` and `tickets` to the caller."""
+    per_image, _, h, w = frames.shape[-4:]
+    b = per_image * (frames.shape[0] if frames.dim() == 5 else 1)
     n = len(sizes)
     n_tiled = sum(hs * ws > RESIDENT_MAX_PIXELS for hs, ws in sizes)
     resident = n_tiled < n
@@ -129,6 +160,7 @@ def _multiscale_call(frames, sizes, pre_ds: int) -> _kernels.MultiscaleCall:
                          f"pyramid levels, not pre_ds={pre_ds} + {n} scales")
     call = _kernels.MultiscaleCall()
     call.n_frames, call.pre_ds, call.n_scales = b, pre_ds, n
+    call.frames_per_image = per_image
     call.n_tiled, call.n_resident_items = n_tiled, b if resident else 0
     for lv in range(pre_ds + n):
         call.lv.h[lv], call.lv.w[lv] = pyramid_size(h, w, lv)
@@ -158,14 +190,19 @@ def _launches(call) -> list:
 
 def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds):
     dev = frames.device
-    b, _, h, w = frames.shape
+    lead = frames.shape[:-3]  # (B,) or (N, B)
+    h, w = frames.shape[-2:]
     n = len(ref_scales)
     call = _multiscale_call(frames, _check_scales(ref_scales, h, w, pre_ds),
                             pre_ds)
+    b = call.n_frames
     call.frames = _kernels.require(frames, "frames", torch.float32,
-                                   (b, 3, h, w), dev)
-    refs = _ref_pyramid(ref_scales, dev)
-    out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
+                                   (*lead, 3, h, w), dev)
+    n_img = lead[0] if len(lead) == 2 else 1
+    if len(lead) == 1 and any(a.dim() != 3 for t in ref_scales for a in t):
+        raise ValueError("frames without an image axis take one pyramid")
+    refs = _ref_pyramid(ref_scales, dev, n_img)
+    out = torch.empty((*lead, n, 3, 6), dtype=torch.float32, device=dev)
     call.out = out.data_ptr()
     if call.tiles_total:
         sums, tickets = _tile_scratch(dev, b * call.tiles_total * 18,
@@ -198,7 +235,7 @@ def multiscale_launches(ref_scales, frames, pre_ds: int = 0) -> list:
     clusters of it the card holds at once: the occupancy calculator's
     answer. One launch a call, two from SPLIT_FRAMES frames on where the
     call has both tiled and resident scales."""
-    _, _, h, w = frames.shape
+    h, w = frames.shape[-2:]
     call = _multiscale_call(frames, _check_scales(ref_scales, h, w, pre_ds),
                             pre_ds)
     held = []
@@ -220,6 +257,10 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):
         is replicated first, as `downsample2` does).
     frames: (B, 3, H, W) float32 linear-RGB frames.
     Returns (B, n_scales, 3, 6) raw sums.
+
+    With frames (N, B, 3, H, W) of N images, the planes are (N, 3, h_s,
+    w_s), one pyramid an image, or (3, h_s, w_s), one pyramid for all, and
+    the sums (N, B, n_scales, 3, 6).
     """
     if frames.is_cuda:
         return _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds)
@@ -240,7 +281,20 @@ def _triples(flat_refs):
     )
 
 
+def _per_image(fn, n_img: int, *operands, flat_refs):
+    """A twin over N images, one image at a time: fn on image n's
+    operands and reference planes, the results stacked."""
+    outs = [fn(*(a[n] for a in operands), _refs_of(flat_refs, n))
+            for n in range(n_img)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def _coarse_plain(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
+    if tg.dim() == 4:
+        return _per_image(_coarse_plain, tg.shape[0], tg, cand8, cand_lin,
+                          bva, ml, ds4_l, flat_refs=flat_refs)
     frames = _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l)
     sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames)
     return sums.reshape(cand8.shape[0], -1, 6)
@@ -283,32 +337,33 @@ def active_clusters(perceptual: bool, h: int, w: int) -> int:
 
 def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     dev = tg.device
-    b = cand8.shape[0]
-    h, w = bva.shape
+    n_img, b = cand8.shape[:2]
+    h, w = bva.shape[-2:]
     triples = _coarse_geometry(
         "C", h, w, flat_refs, "pooled_wins_redmean")
     n = len(triples)
     ptrs = [
-        _kernels.require(tg, "tg", torch.int32, (3, h, w), dev),
-        _kernels.require(cand8, "cand8", torch.int32, (b, 3), dev),
-        _kernels.require(cand_lin, "cand_lin", torch.float32, (b, 3), dev),
-        _kernels.require(bva, "bva", torch.int32, (h, w), dev),
-        _kernels.require(ml, "ml", torch.float32, (3, h, w), dev),
-        _kernels.require(ds4_l, "ds4_l", torch.float32, (3, h // 4, w // 4),
+        _kernels.require(tg, "tg", torch.int32, (n_img, 3, h, w), dev),
+        _kernels.require(cand8, "cand8", torch.int32, (n_img, b, 3), dev),
+        _kernels.require(cand_lin, "cand_lin", torch.float32, (n_img, b, 3),
                          dev),
+        _kernels.require(bva, "bva", torch.int32, (n_img, h, w), dev),
+        _kernels.require(ml, "ml", torch.float32, (n_img, 3, h, w), dev),
+        _kernels.require(ds4_l, "ds4_l", torch.float32,
+                         (n_img, 3, h // 4, w // 4), dev),
     ]
     if any(p % 16 for p in (ptrs[0], ptrs[3], ptrs[4])):
         raise ValueError("kernel C reads tg, bva and ml as 16-byte vectors")
-    refs = _ref_pyramid(triples, dev)
-    out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
+    refs = _ref_pyramid(triples, dev, n_img)
+    out = torch.empty((n_img, b, n, 3, 6), dtype=torch.float32, device=dev)
     rc = _kernels.entry("snes_coarse_redmean")(
-        *ptrs, ctypes.addressof(refs), 0, n, 1, b, h, w,
+        *ptrs, ctypes.addressof(refs), 0, n, n_img, b, h, w,
         ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
         _kernels.stream(dev),
     )
     _kernels.check(rc, "coarse_redmean")
     coarse_feature_sums_redmean.launches += 1
-    return out.reshape(b, 3 * n, 6)
+    return out.reshape(n_img, b, 3 * n, 6)
 
 
 def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
@@ -322,10 +377,14 @@ def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     float32 4x4 means of the no-candidate frame; flat_refs: channel-major
     (img1, mu1, s11) of the coarse scales, from scale 2.
     Returns (B, 3 * n_scales, 6) raw sums.
+
+    With a leading image axis N on every operand but the reference planes
+    (which are (N, 3, h, w), or (3, h, w) shared by every image), the sums
+    are (N, B, 3 * n_scales, 6).
     """
-    if tg.is_cuda:
-        return _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs)
-    return _coarse_plain(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs)
+    fn = _coarse_cuda if tg.is_cuda else _coarse_plain
+    return _batched(lambda *a: fn(*a, flat_refs), tg, cand8, cand_lin, bva,
+                    ml, ds4_l)
 
 
 coarse_feature_sums_redmean.launches = 0
@@ -333,6 +392,10 @@ coarse_feature_sums_redmean.launches = 0
 
 def _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
                         flat_refs):
+    if tlab.dim() == 4:
+        return _per_image(_coarse_ciede_plain, tlab.shape[0], tlab, cand_lab,
+                          cand_lin, bvalm, adj, ml, ds4_l,
+                          flat_refs=flat_refs)
     wins, dcand = ciede_wins(tlab, cand_lab, bvalm, adj)
     frames = coarse_frames(pooled_sums(wins, ml), cand_lin, ds4_l)
     sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames)
@@ -342,35 +405,37 @@ def _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
 def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
                        flat_refs):
     dev = tlab.device
-    b = cand_lab.shape[0]
-    h, w = bvalm.shape
+    n_img, b = cand_lab.shape[:2]
+    h, w = bvalm.shape[-2:]
     triples = _coarse_geometry(
         "D", h, w, flat_refs, "pooled_wins_ciede")
     n = len(triples)
     ptrs = [
-        _kernels.require(tlab, "tlab", torch.float32, (3, h, w), dev),
-        _kernels.require(cand_lab, "cand_lab", torch.float32, (b, 3), dev),
-        _kernels.require(cand_lin, "cand_lin", torch.float32, (b, 3), dev),
-        _kernels.require(bvalm, "bvalm", torch.float32, (h, w), dev),
-        _kernels.require(adj, "adj", torch.int32, (h, w), dev),
-        _kernels.require(ml, "ml", torch.float32, (3, h, w), dev),
-        _kernels.require(ds4_l, "ds4_l", torch.float32, (3, h // 4, w // 4),
+        _kernels.require(tlab, "tlab", torch.float32, (n_img, 3, h, w), dev),
+        _kernels.require(cand_lab, "cand_lab", torch.float32, (n_img, b, 3),
                          dev),
+        _kernels.require(cand_lin, "cand_lin", torch.float32, (n_img, b, 3),
+                         dev),
+        _kernels.require(bvalm, "bvalm", torch.float32, (n_img, h, w), dev),
+        _kernels.require(adj, "adj", torch.int32, (n_img, h, w), dev),
+        _kernels.require(ml, "ml", torch.float32, (n_img, 3, h, w), dev),
+        _kernels.require(ds4_l, "ds4_l", torch.float32,
+                         (n_img, 3, h // 4, w // 4), dev),
     ]
     if any(p % 16 for p in (ptrs[0], ptrs[3], ptrs[4], ptrs[5])):
         raise ValueError(
             "kernel D reads tlab, bvalm, adj and ml as 16-byte vectors")
-    refs = _ref_pyramid(triples, dev)
-    out = torch.empty((b, n, 3, 6), dtype=torch.float32, device=dev)
-    dcand = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    refs = _ref_pyramid(triples, dev, n_img)
+    out = torch.empty((n_img, b, n, 3, 6), dtype=torch.float32, device=dev)
+    dcand = torch.empty((n_img, b, h, w), dtype=torch.float32, device=dev)
     rc = _kernels.entry("snes_coarse_ciede")(
-        *ptrs, ctypes.addressof(refs), 0, n, 1, b, h, w,
+        *ptrs, ctypes.addressof(refs), 0, n, n_img, b, h, w,
         ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
         dcand.data_ptr(), _kernels.stream(dev),
     )
     _kernels.check(rc, "coarse_ciede")
     coarse_feature_sums_ciede.launches += 1
-    return out.reshape(b, 3 * n, 6), dcand
+    return out.reshape(n_img, b, 3 * n, 6), dcand
 
 
 def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
@@ -385,13 +450,13 @@ def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     d < bvalm, or d == bvalm and adj != 0, with d = ciede2000(target Lab,
     candidate Lab). ml, ds4_l and flat_refs as for
     `coarse_feature_sums_redmean`.
-    Returns ((B, 3 * n_scales, 6) raw sums, (B, H, W) float32 distances).
+    Returns ((B, 3 * n_scales, 6) raw sums, (B, H, W) float32 distances);
+    with a leading image axis N as for `coarse_feature_sums_redmean`, both
+    gain it.
     """
-    if tlab.is_cuda:
-        return _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml,
-                                  ds4_l, flat_refs)
-    return _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml,
-                               ds4_l, flat_refs)
+    fn = _coarse_ciede_cuda if tlab.is_cuda else _coarse_ciede_plain
+    return _batched(lambda *a: fn(*a, flat_refs), tlab, cand_lab, cand_lin,
+                    bvalm, adj, ml, ds4_l)
 
 
 coarse_feature_sums_ciede.launches = 0

@@ -33,7 +33,10 @@ Counterpart of snesimage_tpu/ops/pallas_prescreen.py.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the twin. Each wrapper counts its launches in ``.launches``
-(kernel A's three in ``select_colors.launches``).
+(kernel A's three in ``select_colors.launches``). Each also takes a leading
+image axis N on its operands (the JAX package's `custom_vmap` image fold):
+N images in one launch, each image's outputs bit-equal to its own launch;
+the twins run the images one after another.
 """
 
 from __future__ import annotations
@@ -182,37 +185,56 @@ def _visit_prologue_plain(d_all, tile_palettes, alpha, palette5, p, i):
                          map_nc.to(torch.int32), lnc, rule, ml)
 
 
+def _stack_prologues(outs) -> VisitPrologue:
+    """One VisitPrologue with a leading image axis from one an image."""
+    fields = []
+    for parts in zip(*outs):
+        if isinstance(parts[0], tuple):
+            fields.append(tuple(torch.stack(r) for r in zip(*parts)))
+        else:
+            fields.append(torch.stack(parts))
+    return VisitPrologue(*fields)
+
+
 def _visit_prologue_cuda(d_all, tile_palettes, alpha, palette5, p, i):
     dev = d_all.device
-    s, h, w = d_all.shape
-    c = palette5.shape[0]
+    n, s, h, w = d_all.shape
+    c = palette5.shape[1]
     perceptual = d_all.dtype == torch.float32
     dtype = torch.float32 if perceptual else torch.int32
     ptrs = (
-        _kernels.require(d_all, "d_all", dtype, (s, h, w), dev),
+        _kernels.require(d_all, "d_all", dtype, (n, s, h, w), dev),
         _kernels.require(tile_palettes, "tile_palettes", torch.int32,
-                         (h // 8, w // 8), dev),
-        _kernels.require(alpha, "alpha", torch.int32, (h, w), dev),
-        _kernels.require(palette5, "palette5", torch.int32, (c, s, 3), dev),
+                         (n, h // 8, w // 8), dev),
+        _kernels.require(alpha, "alpha", torch.int32, (n, h, w), dev),
+        _kernels.require(palette5, "palette5", torch.int32, (n, c, s, 3),
+                         dev),
     )
-    _check_slot("visit_prologue", palette5, p, i, h, w)
-    # Three allocations, cut into planes: (best_idx, base_idx, map_nc,
-    # adj or best_val and bva), (best_val, bvalm, lnc, ml) or (lnc, ml),
-    # and the mask of subpalette p.
-    ints = torch.empty((5 - perceptual, h, w), dtype=torch.int32, device=dev)
-    floats = torch.empty((6 + 2 * perceptual, h, w), dtype=torch.float32,
-                         device=dev)
-    affected = torch.empty((h, w), dtype=torch.bool, device=dev)
+    _check_slot("visit_prologue", palette5[0], p, i, h, w)
+    if not 0 < n <= 65535:
+        raise ValueError(f"visit_prologue takes 1 to 65535 images, not {n}")
+    # Three allocations, cut into (N, H, W) or (N, 3, H, W) planes:
+    # (best_idx, base_idx, map_nc, adj or best_val and bva), (best_val,
+    # bvalm, lnc, ml) or (lnc, ml), and the mask of subpalette p.
+    ints = torch.empty((5 - perceptual, n, h, w), dtype=torch.int32,
+                       device=dev)
+    floats = torch.empty((6 + 2 * perceptual) * n * h * w,
+                         dtype=torch.float32, device=dev)
+    affected = torch.empty((n, h, w), dtype=torch.bool, device=dev)
     best_idx, base_idx, map_nc, rest = ints[0], ints[1], ints[2], ints[3:]
+    plane = n * h * w
     if perceptual:
-        best_val, thr, adj = floats[0], floats[1], rest[0]
-        planes, rule = floats[2:], (thr, adj)
+        best_val, thr = (floats[k * plane:(k + 1) * plane].view(n, h, w)
+                         for k in range(2))
+        adj, planes, rule = rest[0], floats[2 * plane:], (thr, rest[0])
     else:
         best_val, thr, adj = rest[0], rest[1], None
         planes, rule = floats, (thr,)
-    lnc, ml = planes[:3], planes[3:]
+    lnc, ml = (planes[k * 3 * plane:(k + 1) * 3 * plane].view(n, 3, h, w)
+               for k in range(2))
     rc = _kernels.entry("snes_select_colors_prologue")(
-        *ptrs, h, w, c, s, p, i, int(perceptual), _linear_lut(dev).data_ptr(),
+        *ptrs, n, h, w, c, s, p, i, int(perceptual),
+        _linear_lut(dev).data_ptr(),
         best_val.data_ptr(), best_idx.data_ptr(), base_idx.data_ptr(),
         affected.data_ptr(), map_nc.data_ptr(), lnc.data_ptr(),
         thr.data_ptr(), None if adj is None else adj.data_ptr(),
@@ -235,10 +257,20 @@ def visit_prologue(d_all: torch.Tensor, tile_palettes: torch.Tensor,
     (C, S, 3) int32 5-bit palette. The first minimum wins every tie. The
     no-candidate frame and map give affected pixels (subpalette p) their
     best entry other than i, the rest their best entry, transparent pixels
-    0.
+    0. With a leading image axis N on every operand, every output gains
+    it.
     """
-    fn = _visit_prologue_cuda if d_all.is_cuda else _visit_prologue_plain
-    return fn(d_all, tile_palettes, alpha, palette5, p, i)
+    operands = (d_all, tile_palettes, alpha, palette5)
+    if d_all.dim() == 3:
+        out = visit_prologue(*(a[None] for a in operands), p, i)
+        return VisitPrologue(*(
+            tuple(r[0] for r in f) if isinstance(f, tuple) else f[0]
+            for f in out))
+    if d_all.is_cuda:
+        return _visit_prologue_cuda(*operands, p, i)
+    return _stack_prologues([
+        _visit_prologue_plain(*(a[n] for a in operands), p, i)
+        for n in range(d_all.shape[0])])
 
 
 def render_operands(maps, tile_palettes, alpha, palette5, cand5, p: int,
@@ -263,22 +295,24 @@ def _render_plain(maps, tile_palettes, alpha, palette5, cand5, p, i):
 
 def _render_cuda(maps, tile_palettes, alpha, palette5, cand5, p, i):
     dev = maps.device
-    b, h, w = maps.shape
-    c, s = palette5.shape[:2]
+    n, b, h, w = maps.shape
+    c, s = palette5.shape[1:3]
     ptrs = (
-        _kernels.require(maps, "maps", torch.int32, (b, h, w), dev),
+        _kernels.require(maps, "maps", torch.int32, (n, b, h, w), dev),
         _kernels.require(tile_palettes, "tile_palettes", torch.int32,
-                         (h // 8, w // 8), dev),
-        _kernels.require(alpha, "alpha", torch.int32, (h, w), dev),
-        _kernels.require(palette5, "palette5", torch.int32, (c, s, 3), dev),
-        _kernels.require(cand5, "cand5", torch.int32, (b, 3), dev),
+                         (n, h // 8, w // 8), dev),
+        _kernels.require(alpha, "alpha", torch.int32, (n, h, w), dev),
+        _kernels.require(palette5, "palette5", torch.int32, (n, c, s, 3),
+                         dev),
+        _kernels.require(cand5, "cand5", torch.int32, (n, b, 3), dev),
     )
-    _check_slot("render_palette_maps", palette5, p, i, h, w)
-    if not 0 < b <= 65535:
-        raise ValueError(f"render_palette_maps takes 1 to 65535 maps, not {b}")
-    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    _check_slot("render_palette_maps", palette5[0], p, i, h, w)
+    if not (0 < b <= 65535 and 0 < n <= 65535):
+        raise ValueError("render_palette_maps takes 1 to 65535 maps of 1 to "
+                         f"65535 images, not {b} of {n}")
+    out = torch.empty((n, b, 3, h, w), dtype=torch.float32, device=dev)
     rc = _kernels.entry("snes_select_colors_render")(
-        *ptrs, b, h, w, c, s, p, i, _linear_lut(dev).data_ptr(),
+        *ptrs, n, b, h, w, c, s, p, i, _linear_lut(dev).data_ptr(),
         out.data_ptr(), _kernels.stream(dev),
     )
     _kernels.check(rc, "select_colors_render")
@@ -293,9 +327,15 @@ def render_palette_maps(maps: torch.Tensor, tile_palettes: torch.Tensor,
     `maps`, map b rendered with the 5-bit candidate `cand5[b]` in slot
     (p, i) of `palette5` (C, S, 3); transparent pixels (alpha 0) are 0.
     Kernel A's render entry; the JAX package's one-hot contraction over S
-    computes the same frames."""
-    fn = _render_cuda if maps.is_cuda else _render_plain
-    return fn(maps, tile_palettes, alpha, palette5, cand5, p, i)
+    computes the same frames. With a leading image axis N on every operand
+    (maps (N, B, H, W), cand5 (N, B, 3)), the frames are (N, B, 3, H, W)."""
+    operands = (maps, tile_palettes, alpha, palette5, cand5)
+    if maps.dim() == 3:
+        return render_palette_maps(*(a[None] for a in operands), p, i)[0]
+    if maps.is_cuda:
+        return _render_cuda(*operands, p, i)
+    return torch.stack([_render_plain(*(a[n] for a in operands), p, i)
+                        for n in range(maps.shape[0])])
 
 
 def redmean_wins(tg, cand8, bva) -> torch.Tensor:
@@ -334,10 +374,12 @@ def coarse_frames(pooled, cand_lin, ds4_l) -> torch.Tensor:
     ds4(L) + (c * pool4(m) - pool4(m * ML)) / 16 from (B, 4, H/4, W/4)
     pooled sums, the (B, 3) linear candidate colours and the (3, H/4, W/4)
     4x4 means of the no-candidate frame. A candidate that wins no pixel
-    gets ds4(L) itself, bit for bit."""
+    gets ds4(L) itself, bit for bit. With a leading image axis N on all
+    three, the frames are (N, B, 3, H/4, W/4)."""
     return (
-        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
-    ) / 16.0 + ds4_l[None]
+        cand_lin[..., None, None] * pooled[..., :1, :, :]
+        - pooled[..., 1:4, :, :]
+    ) / 16.0 + ds4_l.unsqueeze(-4)
 
 
 def tile_masks(tile_palettes, p: int):

@@ -22,8 +22,8 @@ from snesimage_torch.ops.color import (
 
 
 def tile_pixel_map(tile_palettes: torch.Tensor) -> torch.Tensor:
-    """(Ht, Wt) per-tile values -> (H, W) per-pixel values."""
-    return tile_palettes.repeat_interleave(8, 0).repeat_interleave(8, 1)
+    """(..., Ht, Wt) per-tile values -> (..., H, W) per-pixel values."""
+    return tile_palettes.repeat_interleave(8, -2).repeat_interleave(8, -1)
 
 
 def quantize_target_u8(target: torch.Tensor) -> torch.Tensor:
@@ -80,3 +80,18 @@ def render_linear(
     color_index = tile_pixel_map(tile_palettes) * s + palette_map
     lin = entries_lin.reshape(c * s, 3)[color_index.long()]
     return torch.where((alpha > 0).unsqueeze(-1), lin, 0.0)
+
+
+def render_rgb8(
+    palette_map: torch.Tensor,
+    alpha: torch.Tensor,
+    tile_palettes: torch.Tensor,
+    palette5: torch.Tensor,
+) -> torch.Tensor:
+    """(H, W, 3) int32 8-bit frame of (palette_map, tile_palettes, palette);
+    transparent pixels are (0, 0, 0) (src/lib.rs:550-577)."""
+    entries8 = expand_5bit_to_8bit(palette5)
+    c, s, _ = entries8.shape
+    color_index = tile_pixel_map(tile_palettes) * s + palette_map
+    rgb = entries8.reshape(c * s, 3)[color_index.long()]
+    return torch.where((alpha > 0).unsqueeze(-1), rgb, 0)

@@ -81,6 +81,23 @@ def channel_major_storage(a: torch.Tensor) -> torch.Tensor:
     return a.movedim(-1, -3).contiguous().movedim(-3, -1)
 
 
+def stack_pyramids(pyramids):
+    """The pyramids of N images as one: each plane (N, h, w, 3), a view of
+    channel-major (N, 3, h, w) storage as the kernels read it."""
+    return tuple(
+        tuple(torch.stack([p[s][j].movedim(-1, -3) for p in pyramids])
+              .movedim(-3, -1) for j in range(3))
+        for s in range(len(pyramids[0]))
+    )
+
+
+def shared_pyramid(refp, n: int):
+    """One image's pyramid as the pyramid of n images that share it: each
+    plane an (n, h, w, 3) view with stride 0 on the image axis, which the
+    kernels read as one pyramid (no copies)."""
+    return tuple(tuple(a.expand(n, *a.shape) for a in sc) for sc in refp)
+
+
 def blur(img: torch.Tensor) -> torch.Tensor:
     """Separable Gaussian blur over the (-3, -2) spatial axes of
     (..., H, W, C) as two banded float32 matmuls."""
@@ -230,16 +247,17 @@ def scale_features(
 def finalize_feature_sums(
     sums: torch.Tensor, sizes, start_scale: int
 ) -> torch.Tensor:
-    """Raw moment sums (B, 3*n, 6) -> (B, NUM_SCALES, 3, 6) features, zero
-    outside [start_scale, start_scale + n)."""
-    b = sums.shape[0]
+    """Raw moment sums (..., B, 3*n, 6) -> (..., B, NUM_SCALES, 3, 6)
+    features, zero outside [start_scale, start_scale + n)."""
+    lead = sums.shape[:-2]
     n = len(sizes)
-    sums = sums.reshape(b, n, 3, 6)
-    n_px = _pixel_counts(tuple(sizes), sums.device).view(1, n, 1, 1)
+    sums = sums.reshape(*lead, n, 3, 6)
+    n_px = _pixel_counts(tuple(sizes), sums.device).view(n, 1, 1)
     one = sums[..., 0:3] / n_px
     four = _fourth_root(sums[..., 3:6] / n_px)
-    full = torch.zeros((b, NUM_SCALES, 3, 6), device=sums.device)
-    full[:, start_scale : start_scale + n] = torch.cat([one, four], dim=-1)
+    full = torch.zeros((*lead, NUM_SCALES, 3, 6), device=sums.device)
+    full[..., start_scale : start_scale + n, :, :] = torch.cat([one, four],
+                                                               dim=-1)
     return full
 
 
@@ -257,10 +275,14 @@ def fused_scale_feature_block(
     num_scales). Raw sums come from `multiscale_feature_sums` (kernel B on
     CUDA tensors, its twin on CPU tensors). The pyramid's scales must have
     the sizes `reference_pyramid` gives for frames of this size (odd sides
-    round up); anything else raises ValueError."""
+    round up); anything else raises ValueError.
+
+    Frames (N, B, 3, h, w) of N images give (N, B, NUM_SCALES, 3, 6): the
+    pyramid's planes are then (N, h, w, 3), one pyramid an image, or
+    (h, w, 3), one for all."""
     from snesimage_torch.ops.cuda_metric import multiscale_feature_sums
 
-    b = frames_cmaj.shape[0]
+    lead = frames_cmaj.shape[:-3]
     h, w = frames_cmaj.shape[-2:]
     ref_scales, sizes = [], []
     for si in range(num_scales):
@@ -272,9 +294,10 @@ def fused_scale_feature_block(
                 f"the {si + pre_ds}-fold 2x2 downsample of the {h}x{w} frames"
             )
         sizes.append(hs * ws)
-        ref_scales.append(tuple(a.permute(2, 0, 1) for a in (img1, mu1, s11)))
+        ref_scales.append(tuple(a.movedim(-1, -3) for a in (img1, mu1, s11)))
     sums = multiscale_feature_sums(tuple(ref_scales), frames_cmaj, pre_ds=pre_ds)
-    return finalize_feature_sums(sums.reshape(b, -1, 6), sizes, start_scale)
+    return finalize_feature_sums(sums.reshape(*lead, -1, 6), sizes,
+                                 start_scale)
 
 
 def ssim_weighted_sum(f: torch.Tensor) -> torch.Tensor:

@@ -128,6 +128,9 @@ def test_no_jax_import_in_sources():
         p for p in pkg.rglob("*.py") if "build" not in p.relative_to(pkg).parts
     ) + [ROOT / "chip_smoke.py", ROOT / "profile_torch.py"]
     assert len(files) > 10
+    for entry in ("cli.py", "batch_cli.py", "parallel/batch.py",
+                  "io/checkpoint.py", "io/image.py", "preview.py"):
+        assert pkg / entry in files, entry
     for path in files:
         assert not pattern.search(path.read_text()), path
     # The port's scripts do not lean on the JAX package's bench harness.

@@ -157,8 +157,8 @@ COARSE_SHAPES = [(256, 256, 48), (64, 64, 5), (128, 128, 9), (256, 256, 1),
                  (32, 32, 64)]
 
 
-def _coarse_redmean_args(dev, h, w, b):
-    refp, g = _pyramid(dev, h, h + w + b, width=w)
+def _coarse_redmean_args(dev, h, w, b, seed=None):
+    refp, g = _pyramid(dev, h, h + w + b if seed is None else seed, width=w)
     tg = torch.randint(0, 256, (3, h, w), generator=g, device=dev,
                        dtype=torch.int32)
     cand8 = torch.randint(0, 256, (b, 3), generator=g, device=dev,
@@ -741,3 +741,176 @@ if __name__ == "__main__":
     if sys.argv[1:2] != ["--freeze"] or len(sys.argv) != 3:
         sys.exit("usage: python tests/test_torch_cuda.py --freeze PATH")
     freeze(sys.argv[2])
+
+
+# The image axis N (the JAX package's image fold, and the seed rows of a
+# portfolio): every kernel at N = 1 to 4 gives each image what its own
+# launch with N = 1 gives, bit for bit.
+N_IMAGES = [1, 2, 4]
+N_SHAPES = [(256, 256), (240, 256), (64, 64)]
+
+
+def _stack(per_image):
+    """The images' operands stacked on a new leading axis; tuples of
+    reference planes plane by plane."""
+    out = []
+    for parts in zip(*per_image):
+        if isinstance(parts[0], tuple):
+            out.append(tuple(torch.stack(r) for r in zip(*parts)))
+        elif isinstance(parts[0], torch.Tensor):
+            out.append(torch.stack(parts))
+        else:
+            out.append(parts[0])
+    return out
+
+
+def _assert_rows(batched, singles):
+    for n, single in enumerate(singles):
+        for a, b in zip(_all_planes(batched), _all_planes(single)):
+            assert torch.equal(a[n], b), n
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("h,w", N_SHAPES)
+@pytest.mark.parametrize("n", N_IMAGES)
+def test_visit_prologue_images(dev, n, h, w, perceptual):
+    per = [_prologue_args(dev, h, w, 8, 15, perceptual, 11 * k + h)
+           for k in range(n)]
+    before = cuda_prescreen.select_colors.launches
+    got = cuda_prescreen.visit_prologue(*_stack(per), 3, 7)
+    assert cuda_prescreen.select_colors.launches == before + 1
+    _assert_rows(got, [cuda_prescreen.visit_prologue(*a, 3, 7) for a in per])
+    want = cuda_prescreen.visit_prologue(*(a.cpu() for a in _stack(per)),
+                                         3, 7)
+    for a, b in zip(_all_planes(got), _all_planes(want)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("h,w", N_SHAPES)
+@pytest.mark.parametrize("n", N_IMAGES)
+def test_render_palette_maps_images(dev, n, h, w):
+    per = []
+    for k in range(n):
+        _, tiles, alpha, pal = _prologue_args(dev, h, w, 8, 15, False,
+                                              5 * k + w)
+        g = torch.Generator(device=dev).manual_seed(k)
+        maps = torch.randint(0, 15, (6, h, w), generator=g, device=dev,
+                             dtype=torch.int32)
+        cand5 = torch.randint(0, 32, (6, 3), generator=g, device=dev,
+                              dtype=torch.int32)
+        per.append((maps, tiles, alpha, pal, cand5))
+    got = cuda_prescreen.render_palette_maps(*_stack(per), 2, 9)
+    assert got.shape == (n, 6, 3, h, w)
+    for k, args in enumerate(per):
+        assert torch.equal(got[k],
+                           cuda_prescreen.render_palette_maps(*args, 2, 9))
+        assert torch.equal(got[k].cpu(), cuda_prescreen._render_plain(
+            *(a.cpu() for a in args), 2, 9))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("h,w", N_SHAPES)
+@pytest.mark.parametrize("n", N_IMAGES)
+@pytest.mark.parametrize("start,count,pre_ds,b", [(0, 6, 0, 2), (1, 1, 1, 8),
+                                                  (2, 4, 2, 12),
+                                                  (0, 6, 0, 9)])
+def test_multiscale_feature_sums_images(dev, n, h, w, shared, start, count,
+                                        pre_ds, b):
+    """N images' frames, each scored against its own pyramid (or all of
+    them against one, with stride 0), in one launch, or two where the
+    call splits (SPLIT_FRAMES): each image's sums are its own launch's."""
+    pyramids = [_pyramid(dev, h, 3 * k + w + b, width=w)[0]
+                for k in range(1 if shared else n)]
+    triples = [tuple(tuple(a.permute(2, 0, 1) for a in refp[sc])
+                     for sc in range(start, start + count))
+               for refp in pyramids]
+    fh, fw = pyramid_size(h, w, start - pre_ds)
+    g = torch.Generator(device=dev).manual_seed(n + b)
+    frames = torch.rand((n, b, 3, fh, fw), generator=g, device=dev)
+    refs = triples[0] if shared else tuple(
+        tuple(torch.stack(r) for r in zip(*sc)) for sc in zip(*triples))
+    got = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
+    assert got.shape == (n, b, count, 3, 6)
+    for k in range(n):
+        one = cuda_metric.multiscale_feature_sums(
+            triples[0 if shared else k], frames[k].contiguous(),
+            pre_ds=pre_ds)
+        assert torch.equal(got[k], one), k
+    assert torch.equal(got, cuda_metric.multiscale_feature_sums(
+        refs, frames, pre_ds=pre_ds))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("h,w", [(256, 256), (224, 256), (64, 64)])
+@pytest.mark.parametrize("n", N_IMAGES)
+def test_coarse_feature_sums_redmean_images(dev, n, h, w, shared):
+    per = [_coarse_redmean_args(dev, h, w, 12, seed=7 * k + h)
+           for k in range(n)]
+    if shared:
+        per = [a[:-1] + (per[0][-1],) for a in per]
+    args = _stack(per)
+    if shared:
+        args[-1] = per[0][-1]
+    before = cuda_metric.coarse_feature_sums_redmean.launches
+    got = cuda_metric.coarse_feature_sums_redmean(*args)
+    assert cuda_metric.coarse_feature_sums_redmean.launches == before + 1
+    assert got.shape[:2] == (n, 12)
+    for k, one in enumerate(per):
+        assert torch.equal(got[k],
+                           cuda_metric.coarse_feature_sums_redmean(*one))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("h,w", [(256, 256), (224, 256), (64, 64)])
+@pytest.mark.parametrize("n", N_IMAGES)
+def test_coarse_feature_sums_ciede_images(dev, n, h, w, shared):
+    per = [_coarse_ciede_args(dev, h, w, 12, 5 * k + w) for k in range(n)]
+    if shared:
+        per = [a[:-1] + [per[0][-1]] for a in per]
+    args = _stack(per)
+    if shared:
+        args[-1] = per[0][-1]
+    sums, dcand = cuda_metric.coarse_feature_sums_ciede(*args)
+    for k, one in enumerate(per):
+        want = cuda_metric.coarse_feature_sums_ciede(*one)
+        assert torch.equal(sums[k], want[0]) and torch.equal(dcand[k],
+                                                             want[1])
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("h,w", N_SHAPES)
+@pytest.mark.parametrize("n", N_IMAGES)
+def test_pooled_wins_images(dev, n, h, w, perceptual):
+    """E and F over N images, each with its own tile map of subpalette 2:
+    each image lists its own tiles of p, as its own launch does."""
+    args = _pooled_args(dev, n, h, w, 9, h + w + n, perceptual)
+    tiles = _tile_map(dev, n, h, w, "ragged", h + n)
+    wrapper = (cuda_prescreen.pooled_wins_ciede if perceptual
+               else cuda_prescreen.pooled_wins_redmean)
+    got = wrapper(*args, tiles, 2)
+    for k in range(n):
+        one = wrapper(*(a[k].contiguous() for a in args),
+                      tiles[k].contiguous(), 2)
+        for a, b in zip(got if perceptual else (got,),
+                        one if perceptual else (one,)):
+            assert torch.equal(a[k], b), k
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("h,w", N_SHAPES)
+@pytest.mark.parametrize("n", N_IMAGES)
+def test_dither_remap_images_and_seeds(dev, n, h, w, perceptual):
+    """Kernel G over N images, and over N seed rows (palettes) of one
+    shared image read with stride 0: each row's maps are its own launch's
+    with one image, bit for bit."""
+    per = [_dither_args(dev, h, w, 8, 15, 3, 13 * k + h) for k in range(n)]
+    rgb, alpha, tiles, pal, p, i, cand = _stack(per)
+    got = cuda_dither.dither_remap_candidates(rgb, alpha, tiles, pal, p, i,
+                                              cand, perceptual)
+    seeds = cuda_dither.dither_remap_candidates(
+        per[0][0], per[0][1], per[0][2], pal, p, i, cand, perceptual)
+    for k, (r, a, t, pl, _, _, c) in enumerate(per):
+        assert torch.equal(got[k], cuda_dither.dither_remap_candidates(
+            r, a, t, pl, p, i, c, perceptual)), k
+        assert torch.equal(seeds[k], cuda_dither.dither_remap_candidates(
+            per[0][0], per[0][1], per[0][2], pl, p, i, c, perceptual)), k

@@ -66,6 +66,23 @@ K = 2 portfolio (phase 30: kernel G's two seed rows over the shared image
 against two one-seed launches). Phase 31 runs every kernel at N = 4 images
 against its N = 1 launches, bit for bit, and its twin, and adds device ms
 at N = 1 and N = 4 to each record (`image_axis`).
+
+Then the host-stepped driver, resume, reassignment and the rank-1 gate.
+Phase 32 holds kernel B at the gated visit's shapes: the gate's carry
+(B = 1, scales 0-1) against its twin, and the scale-0 finalists (B = 2)
+with a closed and an open gate flag at N = 1 and N = 2 images (open: the
+unflagged call's bits; closed: zero sums), B's `gate_cases`. Each path
+after it is driven with the counts set to 0 just before it and read just
+after: `cli --opt-profile fast -c 8 -s 15` at 256x256 and the same recipe
+through `run_fused` at 256x240 (phase 33: steps, step errors, the stop,
+which a gated run takes only on an exact sweep, the share of closed gates,
+seconds beside the balanced run's); the balanced recipe through the CLI's
+host-stepped loop, 4 steps with `--dump-every 2 --checkpoint` and then
+`--resume` for 4 more, whose 8 step errors and JSON must equal phase 4's
+run to the bit (phase 34); `--reassign-tiles`, `--reassign-every 2
+--dump-every 2` and `-v` on 2 balanced steps (phase 35, one log line a
+visit); `run_fused_hybrid` (phase 36); and `--profile-dir` (phase 37: the
+trace names kernels A, B and C).
 """
 
 from __future__ import annotations
@@ -1641,6 +1658,342 @@ def phase_image_axis(records):
                   f"{c[f'device_ms_n{N_RECORD}']:.5f}", flush=True)
 
 
+# The `fast` profile at BASELINE config 2's geometry (the profile's own
+# fields; the CLI's default palette is the reference's 1 x 7).
+FAST_GEOMETRY = ("-c", "8", "-s", "15")
+# Steps of the hybrid run's phases: phase 1 (fast) and phase 2 (the
+# explore polish), capped as `--steps` caps them in the CLI.
+HYBRID_STEPS = (3, 2)
+
+
+def fast_params(**change) -> dict:
+    from snesimage_torch.cli import OPT_PROFILES
+
+    return dict(OPT_PROFILES["fast"][1], subpalette_count=8,
+                subpalette_size=15, seed=0, **change)
+
+
+def _b_flag_case(label: str, refs, frames, flags, unflagged):
+    """Kernel B with a gate flag an image against the same call without
+    one: open images bit-equal, closed ones zero sums; device ms."""
+    from snesimage_torch.ops import cuda_metric
+
+    gate = torch.tensor(flags, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        return cuda_metric.multiscale_feature_sums(refs, frames, gate=gate)
+
+    got = kernel()
+    for k, flag in enumerate(flags):
+        g_k = got[k] if len(flags) > 1 else got
+        w_k = unflagged[k] if len(flags) > 1 else unflagged
+        check(torch.equal(g_k, w_k) if flag else not bool(g_k.any()),
+              f"kernel B's gate flag {flags} ({label}): image {k} wrong")
+    check(torch.equal(cuda_metric.multiscale_feature_sums(refs, frames),
+                      unflagged), "a flagged call changed the next call")
+    # The bound: the flags read and the sums written, and for the open
+    # images their frames, the shared reference planes and the metric.
+    per_image = frames if len(flags) > 1 else frames[None]
+    n_open = sum(flags)
+    sizes = [t[0].shape[-2] * t[0].shape[-1] for t in refs]
+    n_bytes = (nbytes(gate, got) + n_open * nbytes(per_image[0])
+               + (nbytes(*(a for t in refs for a in t)) if n_open else 0))
+    return dict(shape=label, flags=list(flags), device_ms=device_ms(kernel),
+                unflagged_device_ms=device_ms(
+                    lambda: cuda_metric.multiscale_feature_sums(refs,
+                                                                frames)),
+                **bound(n_bytes, n_open * metric_ops(per_image.shape[1],
+                                                     sizes)))
+
+
+def phase_kernel_b_gate(img, b_record):
+    """Kernel B at the gated visit's shapes: the gate's carry (B = 1,
+    scales 0-1) against its twin, and the scale-0 finalists (B = 2) with a
+    closed and an open flag, at N = 1 and N = 2 images, against the
+    unflagged call."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_metric
+    from snesimage_torch.ops.remap import render_linear
+
+    state, refp, ctx, cand8, cand_lin = first_visit(img, BALANCED)
+    frame = render_linear(state.palette_map, state.alpha,
+                          state.tile_palettes, state.palette)
+    frame = frame.permute(2, 0, 1)[None].contiguous()
+    carry = _b_case("B=1, n=2 (the gate's carry)", refp, frame, 0, 2, 0)
+    b_record.update(_b_record(b_record["cases"] + [carry]))
+    finals = refine.candidate_frames(ctx, ctx.cand_dist(cand8[:2]),
+                                     cand_lin[:2]).contiguous()
+    refs = (tuple(a.permute(2, 0, 1) for a in refp[0]),)
+    one = cuda_metric.multiscale_feature_sums(refs, finals)
+    two = torch.stack([finals, finals.flip(0)])
+    both = cuda_metric.multiscale_feature_sums(refs, two)
+    cases = [_b_flag_case("B=2, n=1, closed", refs, finals, (0,), one),
+             _b_flag_case("B=2, n=1, open", refs, finals, (1,), one)]
+    cases += [_b_flag_case(f"N=2 x B=2, n=1, flags {f}", refs, two, f, both)
+              for f in ((1, 0), (0, 1), (0, 0), (1, 1))]
+    b_record["gate_cases"] = cases
+    _print_b_cases("phase 32", "at the gate's carry", [carry])
+    print("phase 32 kernel B gate flag (open bit-equal to the unflagged "
+          "call, closed zero): " + "; ".join(
+              f"{c['shape']} {c['device_ms']:.5f} ms device (unflagged "
+              f"{c['unflagged_device_ms']:.5f}), bound {c['bound_ms']:.3g} "
+              f"ms ({c['bound_by']})" for c in cases), flush=True)
+
+
+def _cli(argv, quiet: bool = False):
+    """cli.main on the card; with `quiet` its log lines are kept (and
+    returned) instead of printed. Returns (exit code, log lines, s)."""
+    import contextlib
+    import io
+
+    from snesimage_torch import cli
+
+    buf = io.StringIO()
+    ctx = contextlib.redirect_stdout(buf) if quiet else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with ctx:
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _gate_share(tally) -> float:
+    closed = 0 if tally["closed"] is None else int(tally["closed"])
+    return closed / max(tally["visits"], 1)
+
+
+def _check_fast_run(label, config, errors, err0):
+    """A `fast` run's checks: finite errors that never rise, a final below
+    the init's, and a stop before the step budget, which a gated run takes
+    only on an exact sweep (`need_exact`) whose step improved by less than
+    the tolerance. Returns whether an exact sweep ended the run."""
+    check(all(np.isfinite(errors)), f"{label}: non-finite step error")
+    check(all(b <= a for a, b in zip([err0] + errors, errors)),
+          f"{label}: step errors increase")
+    check(errors[-1] < err0, f"{label}: no improvement on {err0}")
+    exact_stop = (1 < len(errors) < config.max_steps
+                  and errors[-2] - errors[-1] < config.converge_tol)
+    check(exact_stop, f"{label}: {len(errors)} steps, not stopped by an "
+          "exact sweep")
+    return exact_stop
+
+
+def phase_fast(img, smi, balanced: dict):
+    """`cli --opt-profile fast -c 8 -s 15` at 256x256 (the gated channel
+    recipe, kernels A, B and C) and the same recipe through `run_fused` at
+    256x240 (kernels A, B and E; the CLI takes 256x256 images only): steps,
+    step errors, the stop, the share of closed gates and seconds beside
+    the balanced run's."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+    from snesimage_torch.io.checkpoint import load_checkpoint
+    from snesimage_torch.io.json_out import state_to_json
+
+    a, b, c, _, e, _, _ = WRAPPERS
+    config = QuantConfig(**fast_params())
+    init, _ = prepared_state(img, fast_params())
+    err0 = float(refine.frame_error_fused(
+        init, config, refine.make_reference_pyramid(init)))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, ck = (Path(tmp) / n for n in ("src.png", "out.json",
+                                                "ck.npz"))
+        Image.fromarray(img, "RGBA").save(src)
+        wrappers = _zero_counts()
+        with refine.gate_tally() as tally:
+            rc, _, secs = _cli([src, out, "--opt-profile", "fast",
+                                *FAST_GEOMETRY, "--checkpoint", ck])
+        launches = _read_counts(wrappers, "fast", (a, b, c))
+        check(rc == 0, f"cli --opt-profile fast exited {rc}")
+        state, _, meta = load_checkpoint(str(ck), "cuda")
+        check(out.read_text() == state_to_json(state, config),
+              "the fast CLI's JSON is not its checkpoint's state")
+    errors = meta["errors"]
+    exact = _check_fast_run("fast", config, errors, err0)
+    share = _gate_share(tally)
+
+    img240 = np.ascontiguousarray(img[:240])
+    params240 = fast_params(width=256, height=240)
+    config240 = QuantConfig(**params240)
+    init240, _ = prepared_state(img240, params240)
+    err0_240 = float(refine.frame_error_fused(
+        init240, config240, refine.make_reference_pyramid(init240)))
+    wrappers = _zero_counts()
+    with refine.gate_tally() as tally240:
+        _, errors240, info240 = pipeline.run_fused(img240, config240,
+                                                   device="cuda")
+    launches240 = _read_counts(wrappers, "fast 256x240", (a, b, e))
+    exact240 = _check_fast_run("fast 256x240", config240, errors240,
+                               err0_240)
+    print(f"phase 33 fast: cli --opt-profile fast 256x256 8x15 exit 0, "
+          f"{len(errors)} steps, ended by an exact sweep {exact}, init error "
+          f"{err0}, step errors {errors}, closed gates {share:.4f} of "
+          f"{tally['visits']} gated visits, {secs:.3f} s (the balanced run "
+          f"{balanced['seconds']:.3f} s); launches {launches}. 256x240 "
+          f"run_fused: {len(errors240)} steps, ended by an exact sweep "
+          f"{exact240}, init error {err0_240}, step errors {errors240}, "
+          f"closed gates {_gate_share(tally240):.4f} of "
+          f"{tally240['visits']}, {info240['total_seconds']:.3f} s; launches "
+          f"{launches240}; card '{smi}'", flush=True)
+    return launches, launches240
+
+
+def phase_host_stepped(img, smi, balanced: dict):
+    """The balanced recipe through the CLI's host-stepped loop: 4 steps
+    with `--dump-every 2 --checkpoint` (an `on_step` hook after every
+    sweep), then `--resume` from that checkpoint for 4 more. The 8 step
+    errors must equal phase 4's `run_fused` run to the bit (the hook
+    changes nothing, and the resumed stream draws what the uninterrupted
+    one draws at steps 4-7), and so must the final state's JSON."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.io.checkpoint import load_checkpoint
+    from snesimage_torch.io.json_out import state_to_json
+
+    a, b, c, *_ = WRAPPERS
+    config = QuantConfig(**BALANCED)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, ck = (Path(tmp) / n for n in ("src.png", "out.json",
+                                                "ck.npz"))
+        Image.fromarray(img, "RGBA").save(src)
+        wrappers = _zero_counts()
+        rc1, log1, s1 = _cli([src, out, "--opt-profile", "balanced",
+                              *FAST_GEOMETRY, "--steps", "4", "--dump-every",
+                              "2", "--checkpoint", ck], quiet=True)
+        rc2, log2, s2 = _cli([src, out, "--resume", ck, "--steps", "4",
+                              "--checkpoint", ck], quiet=True)
+        launches = _read_counts(wrappers, "host-stepped", (a, b, c))
+        check(rc1 == rc2 == 0, f"the host-stepped CLI exited {rc1}, {rc2}")
+        dumps = [ln for ln in log1 if "Mid-run output written" in ln]
+        check(len(dumps) == 2, f"{len(dumps)} mid-run dumps in 4 steps")
+        state, _, meta = load_checkpoint(str(ck), "cuda")
+        errors = meta["errors"]
+        check(meta["step"] == 8, f"the resumed checkpoint says step "
+              f"{meta['step']}")
+        check(errors == balanced["errors"],
+              f"host-stepped 4 + resumed 4 gave {errors}, run_fused "
+              f"{balanced['errors']}")
+        check(out.read_text() == state_to_json(balanced["state"], config),
+              "the resumed run ended in another state than run_fused's")
+    print(f"phase 34 host-stepped: cli balanced --steps 4 --dump-every 2 "
+          f"({s1:.3f} s, 2 mid-run dumps) then --resume --steps 4 "
+          f"({s2:.3f} s): step errors {errors} equal phase 4's run_fused to "
+          f"the bit, JSON equal; launches {launches}; card '{smi}'",
+          flush=True)
+    return launches
+
+
+def phase_interactive(img, smi):
+    """`--reassign-tiles` (two clicks at start), `--reassign-every 2
+    --dump-every 2` and `-v` (one log line a visit, through the per-visit
+    path) on 2 balanced steps."""
+    import json as _json
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    a, b, c, *_ = WRAPPERS
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, tiles = (Path(tmp) / n for n in ("src.png", "out.json",
+                                                   "tiles.txt"))
+        Image.fromarray(img, "RGBA").save(src)
+        tiles.write_text("# two clicks\n3 5\n0 0 1\n")
+        wrappers = _zero_counts()
+        rc, log, secs = _cli([src, out, "--opt-profile", "balanced",
+                              *FAST_GEOMETRY, "--steps", "2",
+                              "--reassign-tiles", tiles, "--reassign-every",
+                              "2", "--dump-every", "2", "-v"], quiet=True)
+        launches = _read_counts(wrappers, "interactive", (a, b, c))
+        check(rc == 0, f"the interactive CLI exited {rc}")
+        steps = [ln.rsplit(" ", 1)[1] for ln in log
+                 if "] step " in ln and " error: " in ln]
+        counts = {text: sum(text in ln for ln in log) for text in (
+            "] slot (", "Applied 2 tile reassignments", "tiles reassigned",
+            "Mid-run output written")}
+        check(counts == {"] slot (": 2 * 8 * 15 * 3,
+                         "Applied 2 tile reassignments": 1,
+                         "tiles reassigned": 1,
+                         "Mid-run output written": 1} and len(steps) == 2,
+              f"interactive log lines {counts}, steps {steps}")
+        out_json = _json.loads(out.read_text())
+        check(len(out_json["tiles"]) == 1024, "interactive JSON")
+    print(f"phase 35 interactive: --reassign-tiles + --reassign-every 2 "
+          f"--dump-every 2 -v on 2 balanced steps exit 0 in {secs:.3f} s, "
+          f"log lines {counts}, step errors {steps}; launches {launches}; "
+          f"card '{smi}'", flush=True)
+    return launches
+
+
+def phase_hybrid(img, smi):
+    """`run_fused_hybrid` with the CLI's two configs: phase 1 the `fast`
+    recipe, phase 2 the `hybrid` profile's explore polish from phase 1's
+    step count in the stream, capped at HYBRID_STEPS."""
+    from snesimage_torch.cli import OPT_PROFILES
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+
+    a, b, c, *_ = WRAPPERS
+    fast = QuantConfig(**fast_params(max_steps=HYBRID_STEPS[0]))
+    quality = QuantConfig(**dict(OPT_PROFILES["hybrid"][1], seed=0,
+                                 subpalette_count=8, subpalette_size=15,
+                                 max_steps=HYBRID_STEPS[1]))
+    init, _ = prepared_state(img, fast_params())
+    err0 = float(refine.frame_error_fused(
+        init, fast, refine.make_reference_pyramid(init)))
+    wrappers = _zero_counts()
+    _, errors, info = pipeline.run_fused_hybrid(img, fast, quality,
+                                                device="cuda")
+    launches = _read_counts(wrappers, "hybrid", (a, b, c))
+    k1, k2 = info["phase_steps"]
+    check(1 <= k1 <= HYBRID_STEPS[0] and k2 == HYBRID_STEPS[1]
+          and len(errors) == k1 + k2, f"hybrid phase steps {(k1, k2)}")
+    check(all(b <= a for a, b in zip([err0] + errors, errors))
+          and errors[-1] < err0, f"hybrid step errors {errors}")
+    print(f"phase 36 hybrid: phase steps {(k1, k2)}, init error {err0}, "
+          f"step errors {errors}, {info['total_seconds']:.3f} s; launches "
+          f"{launches}; card '{smi}'", flush=True)
+    return launches
+
+
+# Kernel names in a trace of the fast path: A's prologue, B, C.
+TRACE_KERNELS = ("prologue_kernel", "multiscale_kernel",
+                 "coarse_redmean_kernel")
+
+
+def phase_profile_dir(img, smi):
+    """`cli --opt-profile fast -c 2 -s 3 --steps 1 --profile-dir DIR` (a
+    small palette keeps the trace short): the trace (torch.profiler,
+    Chrome format) names kernels A, B and C."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, prof = (Path(tmp) / n for n in ("src.png", "out.json",
+                                                  "prof"))
+        Image.fromarray(img, "RGBA").save(src)
+        rc, _, secs = _cli([src, out, "--opt-profile", "fast", "-c", "2",
+                            "-s", "3", "--steps", "1", "--profile-dir",
+                            prof], quiet=True)
+        check(rc == 0, f"cli --profile-dir exited {rc}")
+        events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in e["name"] for e in kernels) for k in TRACE_KERNELS}
+    check(all(named.values()), f"the trace's kernels {named}")
+    print(f"phase 37 profile-dir: {len(kernels)} kernel events of "
+          f"{len(events)}, by kernel {named}, {secs:.3f} s; card '{smi}'",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1714,6 +2067,12 @@ def main() -> int:
     runs["robust"] = phase_robust(img, smi, balanced)
     runs["dither_portfolio"] = phase_dither_portfolio(img, smi)
     phase_image_axis(records)
+    phase_kernel_b_gate(img, by_name["multiscale_feature_sums"])
+    runs["fast"], runs["fast_240"] = phase_fast(img, smi, balanced)
+    runs["host_stepped"] = phase_host_stepped(img, smi, balanced)
+    runs["interactive"] = phase_interactive(img, smi)
+    runs["hybrid"] = phase_hybrid(img, smi)
+    phase_profile_dir(img, smi)
     path_of = {d: "perceptual", g: "dither", e: "geometry",
                f: "geometry_perceptual"}
     for r in records:

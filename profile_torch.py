@@ -7,8 +7,8 @@ balanced, perceptual, dithered and dithered perceptual profiles of
 chip_smoke.py, and on its first 240 rows (256x240, the route through
 kernels E and F) with the balanced and perceptual ones, after a warm-up
 run. With no arguments every phase runs; with arguments, only the phases
-named (kernels, multiscale, pair, seeds, parity, walk, profile, batch). The
-phases print one JSON line each, profiles last:
+named (kernels, multiscale, pair, seeds, parity, walk, profile, batch,
+gate, init). The phases print one JSON line each, profiles last:
 
   kernels  device time per call, from CUDA events around 20 launches, of
            kernel G (red-mean and perceptual, B = 48 and B = 1), of every
@@ -52,6 +52,16 @@ phases print one JSON line each, profiles last:
            16 (BASELINE config 5's first 16 images, as chip_smoke.py
            phase 28 makes them), and a balanced channel sweep of one image
            and of portfolios of K = 2 and 4 seeds over it;
+  gate     the `profile` phase's record for one sweep of the `fast` profile
+           (8x15, the rank-1 gate on) from the state after its first
+           GATE_WARM_STEPS steps, and for the same sweep with
+           gate_margin=0 (every visit scored exactly), with the share of
+           closed gates (core/refine.py `gate_tally`) and kernel B's device
+           ms in both: what a closed gate saves on the card;
+  init     `pipeline.run` with one step, twice a path (the balanced,
+           perceptual and dithered recipes at 256x256, balanced at
+           256x240, `nes-compat`): the init's seconds (new_state,
+           initialize and cluster, ending in a device sync) and the step's;
   pair     seconds of the 8-step balanced run at 256x256 and at 256x240
            taken in turns (256, 240, 240, 256), red-mean and perceptual:
            the host's clock moves between calls and within one, so two
@@ -85,6 +95,7 @@ import torch
 
 from chip_smoke import (
     BALANCED,
+    fast_params,
     DITHER,
     DITHER_PERCEPTUAL,
     ERROR_TOL,
@@ -624,6 +635,73 @@ def phase_profile(label: str, config, sweep, wall: float):
     }
 
 
+# Steps of the `fast` run before the sweep the `gate` phase profiles: late
+# sweeps are where most gates close.
+GATE_WARM_STEPS = 2
+
+
+def _gate_sweepers(img) -> dict:
+    """(config, sweep, tally) of one `fast` sweep from the state after
+    GATE_WARM_STEPS gated steps, gated and with gate_margin=0: sweep()
+    runs the same work on every call and returns its host-clock seconds;
+    tally counts its gated visits and closed gates."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+
+    gated = QuantConfig(**fast_params())
+    state, _, _ = pipeline.run_fused(img, QuantConfig(**fast_params(
+        max_steps=GATE_WARM_STEPS)), device="cuda")
+    refp = refine.make_reference_pyramid(state)
+    err = refine.frame_error_fused(state, gated, refp)
+    out = {}
+    for label, config in (("fast, gated", gated),
+                          ("fast, gate_margin=0", QuantConfig(
+                              **fast_params(gate_margin=0.0)))):
+        tally = {"visits": 0, "closed": None}
+
+        def sweep(config=config, tally=tally):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with refine.gate_tally() as t:
+                refine.sweep_channel(state, config, refp, err)
+            torch.cuda.synchronize()
+            tally.update(visits=t["visits"], closed=t["closed"])
+            return time.perf_counter() - t0
+
+        out[label] = (config, sweep, tally)
+    return out
+
+
+def phase_gate(label: str, config, sweep, tally, wall: float):
+    """The `profile` record of one `fast` sweep, with its closed gates."""
+    out = phase_profile(label, config, sweep, wall)
+    closed = 0 if tally["closed"] is None else int(tally["closed"])
+    out.update(phase="gate", gated_visits=tally["visits"],
+               closed_gates=closed,
+               closed_share=closed / max(tally["visits"], 1), card=_card())
+    return out
+
+
+def phase_init(img):
+    """`pipeline.run` with one step, twice a path: init and step seconds."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline
+    from snesimage_torch.models.presets import preset_fields
+
+    img240 = np.ascontiguousarray(img[:240])
+    nes = dict(preset_fields("nes-compat"), converge_tol=0.0, seed=0)
+    out = {"phase": "init", "card": _card()}
+    for label, image, params in (
+            ("balanced", img, BALANCED), ("perceptual", img, PERCEPTUAL),
+            ("dither", img, DITHER), ("256x240", img240, GEOMETRY),
+            ("nes-compat", img, nes)):
+        config = QuantConfig(**dict(params, max_steps=1))
+        runs = [pipeline.run(image, config, device="cuda")[2]
+                for _ in range(2)]
+        out[label] = {k: [r[k] for r in runs] for k in runs[0]}
+    return out
+
+
 def phase_pair(img):
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline
@@ -830,7 +908,8 @@ def main() -> int:
     from snesimage_torch.testing import bench_image
 
     phases = set(args) or {"kernels", "multiscale", "pair", "seeds",
-                           "parity", "walk", "profile", "batch"}
+                           "parity", "walk", "profile", "batch", "gate",
+                           "init"}
     img = bench_image(0)
     img240 = np.ascontiguousarray(img[:240])
     profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
@@ -851,6 +930,10 @@ def main() -> int:
     for _, sweep in batch.values():  # a first run at the batch's shapes
         sweep()
     walls.update((label, sweep()) for label, (_, sweep) in batch.items())
+    gate = _gate_sweepers(img) if "gate" in phases else {}
+    for _, sweep, _ in gate.values():  # a first run at the gate's shapes
+        sweep()
+    walls.update((label, sweep()) for label, (_, sweep, _) in gate.items())
     # The explore-off parity runs again on the CPU with the twins; the
     # dithered twin takes too long there for whole sweeps at full size, so
     # the dithered path is walked over its first visits only.
@@ -859,6 +942,7 @@ def main() -> int:
         ("kernels", lambda: phase_coarse(img)),
         ("multiscale", lambda: phase_multiscale(img, parent)),
         ("kernels", lambda: phase_g_variants(img)),
+        ("init", lambda: phase_init(img)),
         ("pair", lambda: phase_pair(img)),
         ("seeds", lambda: phase_seeds(img, SEEDS)),
         *(("parity", lambda label=label, p=p: phase_parity(
@@ -871,6 +955,8 @@ def main() -> int:
         ("profile", lambda: phase_dither_perceptual_8(img)),
         *(("batch", lambda label=label: phase_profile(
             label, *batch[label], walls[label])) for label in batch),
+        *(("gate", lambda label=label: phase_gate(
+            label, *gate[label], walls[label])) for label in gate),
     ]
     ok = True
     for name, run in todo:

@@ -5,13 +5,18 @@ optimizer profiles, the logger and the merging of presets, profiles and
 explicit flags are copies of the JAX package's (tests/test_torch_cli.py
 pins them), because importing any module of that package imports JAX.
 
-`main` runs the single-image paths that are ported: `run_fused` (the
-default), the seed portfolio (`--portfolio K`; `--opt-profile robust` is
-K = 2) and init alone (`--skip-optimize`), and writes the reference JSON
-and, when asked, a checkpoint and a preview. A flag whose module is not
-ported exits 1 and names its ROADMAP item (`UNPORTED`).
+`main` runs the JAX CLI's single-image paths: `run_fused` (the default,
+`fast` and `balanced` among its profiles), `run_fused_hybrid`
+(`--opt-profile hybrid`), the seed portfolio (`--portfolio K`;
+`--opt-profile robust` is K = 2), init alone (`--skip-optimize`), and the
+host-stepped loop `pipeline.optimize` for `--resume`, `-v`,
+`--dump-every`, `--reassign-every` and `--reassign-tiles`; `--profile-dir`
+captures a `torch.profiler` trace of the optimisation. It writes the
+reference JSON and, when asked, a checkpoint and a preview. The four
+options the port leaves out exit 1 and name ROADMAP queue A item 17
+(`UNPORTED`).
 
-    python -m snesimage_torch.cli SRC.png OUT.json --opt-profile robust
+    python -m snesimage_torch.cli SRC.png OUT.json --opt-profile fast
 """
 
 from __future__ import annotations
@@ -405,25 +410,9 @@ def resolve_portfolio_k(args) -> int:
     return 2 if args.opt_profile == "robust" else 1
 
 
-# Flags whose module is not ported: (flag, whether the parsed arguments use
-# it, what it needs). `main` exits 1 naming the first one used.
+# Flags whose option the port leaves out: (flag, whether the parsed
+# arguments use it, what it needs). `main` exits 1 naming the first one used.
 UNPORTED = (
-    ("--resume", lambda a: a.resume is not None,
-     "resuming (ROADMAP queue A item 15)"),
-    ("-v/--verbose", lambda a: a.verbose,
-     "per-slot logging in the host-stepped loop (ROADMAP queue A item 15)"),
-    ("--dump-every", lambda a: a.dump_every > 0,
-     "the host-stepped loop (ROADMAP queue A item 15)"),
-    ("--reassign-every", lambda a: a.reassign_every > 0,
-     "tile reassignment (ROADMAP queue A item 15)"),
-    ("--reassign-tiles", lambda a: a.reassign_tiles is not None,
-     "tile reassignment (ROADMAP queue A item 15)"),
-    ("--opt-profile fast", lambda a: a.opt_profile == "fast",
-     "the rank-1 gate (ROADMAP queue A item 11)"),
-    ("--gate-margin", lambda a: bool(a.gate_margin),
-     "the rank-1 gate (ROADMAP queue A item 11)"),
-    ("--opt-profile hybrid", lambda a: a.opt_profile == "hybrid",
-     "the hybrid recipe (ROADMAP queue A item 17)"),
     ("--prescreen-pre", lambda a: bool(a.prescreen_pre),
      "the three-level prescreen (ROADMAP queue A item 17)"),
     ("--dither-proxy", lambda a: bool(a.dither_proxy),
@@ -432,68 +421,68 @@ UNPORTED = (
      "windowed visits (ROADMAP queue A item 17)"),
     ("--gate-coarse", lambda a: bool(a.gate_coarse),
      "the coarse gate (ROADMAP queue A item 17)"),
-    ("--profile-dir", lambda a: a.profile_dir is not None,
-     "utils/profiling.py (ROADMAP queue A item 19)"),
 )
 
 
 def check_ported(args) -> None:
     """Raises NotImplementedError naming the ROADMAP item of the first flag
-    in `args` whose module is not ported."""
+    in `args` whose option the port leaves out."""
     for flag, used, what in UNPORTED:
         if used(args):
             raise NotImplementedError(
-                f"{flag} needs {what}, which is not ported yet")
+                f"{flag} needs {what}, which is not ported")
+
+
+def _discarded_on_resume(args) -> list[str]:
+    """The flags given with --resume that the checkpoint's config
+    overrides: only --steps and --tol, stopping criteria, may change it."""
+    return [
+        flag
+        for flag, v in (
+            ("--opt-profile", args.opt_profile),
+            ("--schedule", args.schedule),
+            ("--channel-explore", args.channel_explore),
+            ("--prescreen", args.prescreen),
+            ("--prescreen-full", args.prescreen_full),
+            ("--prescreen-pre", args.prescreen_pre),
+            ("--dither-proxy", args.dither_proxy),
+            ("--gate-margin", args.gate_margin),
+            ("--gate-coarse", args.gate_coarse),
+            ("--accept-margin", args.accept_margin),
+            ("-c", args.subpalette_count),
+            ("-s", args.subpalette_size),
+            ("-d", args.dither),
+            ("--perceptual-palettes", args.perceptual_palettes),
+            ("--nes", args.nes),
+            ("--preset", args.preset),
+        )
+        if v not in (None, False)
+    ]
 
 
 def main(argv: list[str] | None = None, *,
          device: str = "cuda") -> int:
     """Run the CLI on `device`: the card unless a caller (the tests) asks
-    for the CPU. Returns the exit code: 0 ok, 1 an error or an unported
-    flag (logged), 2 from argparse."""
+    for the CPU. Returns the exit code: 0 ok, 1 an error or a left-out
+    option (logged; raised with -v), 2 from argparse."""
     args = build_parser().parse_args(argv)
-    setup_logger(logging.INFO)
+    setup_logger(logging.DEBUG if args.verbose else logging.INFO)
     log = logging.getLogger("snesimage_torch")
     args.portfolio = resolve_portfolio_k(args)
 
     # Imports deferred so `--help` stays fast.
+    import dataclasses
+
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline
+    from snesimage_torch.core.refine import make_reference_pyramid
     from snesimage_torch.core.state import new_state
-    from snesimage_torch.io.checkpoint import save_checkpoint
+    from snesimage_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from snesimage_torch.io.image import check_size, load_rgba
     from snesimage_torch.io.json_out import write_json
+    from snesimage_torch.utils.profiling import trace
 
-    try:
-        check_ported(args)
-        config = QuantConfig(
-            **merge_geometry(args),
-            **merge_opt_fields(args),
-            seed=args.seed,
-            random_trials=args.trials,
-            channel_window=args.channel_window,
-        )
-        log.info("Using source image: %s", args.source_filename)
-        img = load_rgba(args.source_filename)
-        check_size(img, config.width, config.height)
-        if args.skip_optimize:
-            state = new_state(img, config, device)
-            state = pipeline.cluster(pipeline.initialize(state, config),
-                                     config)
-            errors = []
-        elif args.portfolio > 1:
-            from snesimage_torch.parallel.batch import portfolio_run
-
-            state, seed_errs, errors = portfolio_run(
-                img, config, args.portfolio, device=device)
-            log.info(
-                "portfolio: per-seed final errors %s -> kept %.4f",
-                [round(float(e), 4) for e in seed_errs],
-                float(seed_errs.min()),
-            )
-        else:
-            state, errors, _ = pipeline.run_fused(img, config, device=device)
-
+    def write_outputs(state, config, errors):
         log.info("Writing output to %s", args.target_filename)
         write_json(args.target_filename, state, config)
         if args.checkpoint:
@@ -505,9 +494,228 @@ def main(argv: list[str] | None = None, *,
 
             save_preview(args.preview, state, config)
             log.info("Preview written to %s", args.preview)
+
+    try:
+        check_ported(args)
+        optimized = False
+        config_fast = None  # phase 1's config under --opt-profile hybrid
+        if args.resume:
+            state, config, meta = load_checkpoint(args.resume, device)
+            log.info("Resumed from %s at step %d", args.resume, meta["step"])
+            errors = list(meta["errors"])
+            overrides = {}
+            if args.steps is not None:
+                overrides["max_steps"] = args.steps
+            if args.tol is not None:
+                overrides["converge_tol"] = args.tol
+            if overrides:
+                config = dataclasses.replace(config, **overrides)
+            discarded = _discarded_on_resume(args)
+            if discarded:
+                log.warning(
+                    "--resume continues the CHECKPOINTED config; "
+                    "ignoring %s (only --steps/--tol may override on "
+                    "resume — they are RNG-safe stopping criteria)",
+                    ", ".join(discarded),
+                )
+        else:
+            geometry = merge_geometry(args)
+            config = QuantConfig(
+                **geometry,
+                **merge_opt_fields(args),
+                seed=args.seed,
+                random_trials=args.trials,
+                channel_window=args.channel_window,
+            )
+            if args.opt_profile == "hybrid":
+                # Phase 1 is always the 'fast' profile (explicit flags
+                # apply to phase 2, `config`); --steps caps both phases.
+                opt1 = dict(OPT_PROFILES["fast"][1])
+                if args.steps is not None:
+                    opt1["max_steps"] = args.steps
+                config_fast = QuantConfig(
+                    **geometry,
+                    **opt1,
+                    seed=args.seed,
+                    random_trials=args.trials,
+                )
+                if args.portfolio > 1:
+                    raise ValueError(
+                        "--portfolio with --opt-profile hybrid is not "
+                        "supported (portfolio batches ONE config's RNG "
+                        "trajectories; run --opt-profile quality instead)"
+                    )
+            log.info("Using source image: %s", args.source_filename)
+            img = load_rgba(args.source_filename)
+            check_size(img, config.width, config.height)
+            if args.portfolio > 1 and not args.skip_optimize:
+                from snesimage_torch.parallel.batch import portfolio_run
+
+                ignored = [
+                    flag
+                    for flag, v in (
+                        ("--dump-every", args.dump_every),
+                        ("--reassign-every", args.reassign_every),
+                        ("--reassign-tiles", args.reassign_tiles),
+                    )
+                    if v
+                ]
+                if ignored:
+                    log.warning(
+                        "%s ignored with --portfolio K>1 (the portfolio "
+                        "runs as fused on-device dispatches with no "
+                        "per-step host hook; use a single-trajectory "
+                        "run for interactive features)",
+                        ", ".join(ignored),
+                    )
+                state, seed_errs, errors = portfolio_run(
+                    img, config, args.portfolio, device=device)
+                log.info(
+                    "portfolio: per-seed final errors %s -> kept %.4f",
+                    [round(float(e), 4) for e in seed_errs],
+                    float(seed_errs.min()),
+                )
+                write_outputs(state, config, errors)
+                return 0
+            if (
+                not args.skip_optimize
+                and not args.verbose
+                and args.reassign_every == 0
+                and args.dump_every == 0
+                and not args.reassign_tiles
+            ):
+                with trace(args.profile_dir):
+                    if config_fast is not None:
+                        state, errors, _ = pipeline.run_fused_hybrid(
+                            img, config_fast, config, device=device)
+                    else:
+                        state, errors, _ = pipeline.run_fused(
+                            img, config, device=device)
+                optimized = True
+            else:
+                state = new_state(img, config, device)
+                state = pipeline.cluster(
+                    pipeline.initialize(state, config), config)
+                errors = []
+
+        reassign_mtime = None
+        if args.reassign_tiles:
+            with open(args.reassign_tiles) as f:
+                assignments = pipeline.parse_reassignments(f.read())
+            state = pipeline.apply_tile_reassignments(
+                state, config, assignments
+            )
+            reassign_mtime = os.path.getmtime(args.reassign_tiles)
+            log.info(
+                "Applied %d tile reassignments from %s",
+                len(assignments), args.reassign_tiles,
+            )
+
+        if not args.skip_optimize and not optimized:
+            on_slot = None
+            if args.verbose:
+                def on_slot(visit, err):
+                    log.debug(
+                        "slot (%d, %d) %s error: %f",
+                        visit.palette, visit.index, visit.method, err,
+                    )
+
+            # The dump and reassignment hooks take the running phase's
+            # config (a mid-phase-1 checkpoint of a hybrid run holds the
+            # config that made its state) and count steps and errors
+            # globally: `errors` holds the history before the running
+            # optimize call (before the resume and earlier phases), so a
+            # mid-run checkpoint's step keeps a resumed stream moving on.
+            def make_on_step(cfg):
+                if args.dump_every <= 0:
+                    return None
+
+                def on_step(step, st, errs):
+                    if (step + 1) % args.dump_every:
+                        return
+                    write_json(args.target_filename, st, cfg)
+                    log.info(
+                        "Mid-run output written to %s at step %d",
+                        args.target_filename, step,
+                    )
+                    if args.checkpoint:
+                        save_checkpoint(
+                            args.checkpoint, st, cfg,
+                            errors=errors + errs,
+                            step=len(errors) + len(errs),
+                        )
+                    if args.preview:
+                        from snesimage_torch.preview import save_preview
+
+                        save_preview(args.preview, st, cfg)
+
+                return on_step
+
+            # Live reassignment (a GUI click works at any moment of the
+            # optimisation, src/lib.rs:1005-1024): every --dump-every
+            # steps the file is read again if it changed on disk. A bad
+            # edit is logged and skipped. One watcher for both hybrid
+            # phases.
+            mtime_cell = [reassign_mtime]
+
+            def make_on_step_state(cfg):
+                if not (args.reassign_tiles and args.dump_every > 0):
+                    return None
+
+                def on_step_state(step, st, errs):
+                    if (step + 1) % args.dump_every:
+                        return None
+                    try:
+                        m = os.path.getmtime(args.reassign_tiles)
+                    except OSError:
+                        return None
+                    if m == mtime_cell[0]:
+                        return None
+                    mtime_cell[0] = m
+                    try:
+                        with open(args.reassign_tiles) as f:
+                            assignments = pipeline.parse_reassignments(
+                                f.read()
+                            )
+                        st = pipeline.apply_tile_reassignments(
+                            st, cfg, assignments
+                        )
+                    except (OSError, ValueError) as err:
+                        log.error(
+                            "Ignoring mid-run reassignment file %s: %s",
+                            args.reassign_tiles, err,
+                        )
+                        return None
+                    log.info(
+                        "step %d: applied %d mid-run tile reassignments "
+                        "from %s",
+                        step, len(assignments), args.reassign_tiles,
+                    )
+                    return st
+
+                return on_step_state
+
+            refp = make_reference_pyramid(state)
+            phases = [config] if config_fast is None else [config_fast,
+                                                           config]
+            with trace(args.profile_dir):
+                for cfg in phases:
+                    state, errs = pipeline.optimize(
+                        state, cfg, refp=refp, start_step=len(errors),
+                        reassign_every=args.reassign_every, on_slot=on_slot,
+                        on_step=make_on_step(cfg),
+                        on_step_state=make_on_step_state(cfg),
+                    )
+                    errs = errs.tolist()
+                    pipeline.log_steps(errs, len(errors))
+                    errors.extend(errs)
+
+        write_outputs(state, config, errors)
         return 0
     except Exception as err:  # reference: log + exit(1) (src/main.rs:16-19)
         log.error("Error running application: %s", err)
+        if args.verbose:
+            raise
         return 1
 
 

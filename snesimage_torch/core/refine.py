@@ -57,6 +57,20 @@ palette, so no second wavefront runs.
 Everything stays on the device: accept, reject and the carried error are
 `torch.where`s, and a sweep never waits for the device.
 
+The rank-1 gate (`gate_margin`, `_gating_active`): a gated sweep carries
+the current state's weighted |feature| sums at scales 0 and 1
+(`gate_base_fused`) beside its exact error. A visit ranks its finalists at
+scale 1 by the full error they predict with the carried scale-0 term, and
+runs the scale-0 stage only where the best prediction beats the carried
+error by more than the margin, or where an explore candidate reached the
+scale-0 finalists. That decision stays on the device: it is kernel B's gate
+flag, whose closed blocks return before they load anything, and the glue
+of a closed visit runs and is masked by `torch.where` (+inf errors, so the
+visit rejects). The carry takes the accepted candidate's two sums. A sweep
+with `use_gate=False` scores every visit exactly and keeps the gated
+ranking (the stop rule's confirmation sweep, core/pipeline.py); `gate=False`
+turns the machinery off (the batched paths, as in the JAX package).
+
 Every function here also takes a batched state (core/state.py: a leading
 image axis N on every field, and a reference pyramid an image, or one
 that a seed portfolio's K seeds share): all images visit the same slots
@@ -64,12 +78,14 @@ in the same order, each with its own candidates, its own accept decision
 and its own carried error, and each kernel launch serves all N images. The
 single-image functions are the same code without the leading axis.
 
-Not ported yet, and raising NotImplementedError (`check_slice`): the dither
-proxy, the rank-1 gate, windowed visits and the three-level prescreen.
+Not ported, and raising NotImplementedError (`check_slice`): the coarse
+gate, windowed visits, the three-level prescreen and the dither proxy
+(ROADMAP queue A item 17).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import NamedTuple
@@ -114,16 +130,18 @@ from snesimage_torch.ops.ssimulacra2 import (
     fused_scale_feature_block,
     reference_pyramid,
     score_from_features,
+    score_from_ssim_sum,
+    ssim_weighted_sum,
     stack_pyramids,
 )
 
 
 def check_slice(config: QuantConfig) -> None:
     """Raises NotImplementedError, naming its ROADMAP item, for every
-    option outside the ported main path."""
+    option the port leaves out."""
     missing = [
-        (config.gate_margin > 0 or config.gate_coarse,
-         "the rank-1 gate (ROADMAP queue A item 11)"),
+        (config.gate_coarse,
+         "the coarse gate (ROADMAP queue A item 17)"),
         (config.channel_window > 0,
          "windowed visits (ROADMAP queue A item 17)"),
         (config.prescreen_pre > 0,
@@ -133,7 +151,7 @@ def check_slice(config: QuantConfig) -> None:
     ]
     for off_slice, what in missing:
         if off_slice:
-            raise NotImplementedError(f"{what} is not ported yet")
+            raise NotImplementedError(f"{what} is not ported")
 
 
 def make_reference_pyramid(state: QuantState):
@@ -195,6 +213,73 @@ def frame_error_fused(
     frames = rendered.movedim(-1, -3).unsqueeze(-4).contiguous()
     feats = fused_scale_feature_block(refp, frames, 0, NUM_SCALES)
     return (100.0 - score_from_features(feats))[..., 0]
+
+
+def _gating_active(config: QuantConfig) -> bool:
+    """Whether the rank-1 gate (`gate_margin`) applies: only undithered
+    visits with a two-level prescreen (0 < prescreen_full < prescreen: a
+    separate scale-0 stage to skip) gate, never NES sweeps, and the
+    prescreen needs sides that are multiples of 4."""
+    return (
+        config.gate_margin > 0
+        and config.prescreen > 0
+        and 0 < config.prescreen_full < config.prescreen
+        and not config.dither
+        and not config.nes
+        and config.height % 4 == 0
+        and config.width % 4 == 0
+    )
+
+
+def _scale_sums(feats: torch.Tensor) -> torch.Tensor:
+    """(..., 2) weighted |feature| sums of scale 0 and of scale 1 of
+    features (..., NUM_SCALES, 3, 6): the score's weighted sum decomposes
+    over scales, so the gate carries the current state's two terms."""
+    scale = torch.arange(NUM_SCALES, device=feats.device)[:, None, None]
+    return torch.stack([ssim_weighted_sum(feats * (scale == s))
+                        for s in (0, 1)], dim=-1)
+
+
+def gate_base_fused(state: QuantState, config: QuantConfig,
+                    refp) -> torch.Tensor:
+    """The gate's carry for the current state: (2,) weighted |feature| sums
+    [scale 0, scale 1] of its frame, from one call of kernel B at scales 0
+    and 1; (N, 2) for a batched state."""
+    rendered = _per_image(state, lambda st: render_linear(
+        st.palette_map, st.alpha, st.tile_palettes, st.palette))
+    frames = rendered.movedim(-1, -3).unsqueeze(-4).contiguous()
+    feats = fused_scale_feature_block(refp, frames, 0, 2)
+    return _scale_sums(feats)[..., 0, :]
+
+
+# The active `gate_tally`s.
+_GATE_TALLIES: list = []
+
+
+@contextlib.contextmanager
+def gate_tally():
+    """Counts gated visits and closed gates while the block runs: yields a
+    dict whose "visits" (an int, one an image and visit) and "closed" (a
+    0-dim device tensor, or None before the first gated visit; read it
+    after the block) grow with every gated visit. A visit that counts adds
+    three device operations; outside the block nothing is counted."""
+    tally = {"visits": 0, "closed": None}
+    _GATE_TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _GATE_TALLIES.remove(tally)
+
+
+def _count_gates(gate_open: torch.Tensor | None, n: int) -> None:
+    if not _GATE_TALLIES:
+        return
+    closed = None if gate_open is None else (~gate_open).sum()
+    for tally in _GATE_TALLIES:
+        tally["visits"] += n
+        if closed is not None:
+            tally["closed"] = (closed if tally["closed"] is None
+                               else tally["closed"] + closed)
 
 
 def compute_d_all(state: QuantState, config: QuantConfig) -> torch.Tensor:
@@ -366,13 +451,58 @@ def _keep(rank: torch.Tensor, k: int, base_rows: int) -> torch.Tensor:
     return torch.cat([first, _smallest(rank[..., 1:], k) + 1], dim=-1)
 
 
+def _gated_finalists(refp, feats_c: torch.Tensor, sel: torch.Tensor, build,
+                     config: QuantConfig, gate):
+    """The finalists' stage of a gated visit (the JAX package's `_stage12`
+    and `_scale0`): the k finalists `sel` ranked at scale 1 by the full
+    error they predict with the carried scale-0 term, then the top m scored
+    at scale 0 where the gate opens. Returns ((..., B) errors, +inf where
+    the gate closed, and (..., B, 2) per-scale weighted sums, zero where it
+    closed); `gate` is (carried sums, carried error, whether the gate may
+    close, the rows before the explore draws or None)."""
+    gb, base_full, enable, n_gated = gate
+    b = feats_c.shape[-4]
+    feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1)
+    s15 = ssim_weighted_sum(feats_1 + _take(feats_c, sel))
+    rank1 = 100.0 - score_from_ssim_sum(gb[..., 0:1] + s15)
+    sel2 = _smallest(rank1, config.prescreen_full)
+    sel_f = _take(sel, sel2)
+    gate_open = flag = None
+    if enable:
+        gate_open = (rank1.min(-1).values - base_full
+                     < -config.gate_margin)
+        if n_gated is not None and n_gated < b:
+            # Explore rows are exempt: their gains are often scale-0 ones
+            # the prediction cannot see.
+            gate_open = gate_open | (sel_f >= n_gated).any(-1)
+        flag = gate_open.to(torch.int32).reshape(-1)
+    _count_gates(gate_open, gb[..., 0].numel())
+    feats_0 = fused_scale_feature_block(refp, build(sel_f), 0, 1, gate=flag)
+    full = 100.0 - score_from_features(
+        feats_0 + _take(feats_1, sel2) + _take(feats_c, sel_f))
+    errs = torch.full(feats_c.shape[:-3], float("inf"), device=full.device)
+    errs = errs.scatter(-1, sel_f, full)
+    zeros = torch.zeros_like(errs)
+    sums = torch.stack([zeros.scatter(-1, sel_f, ssim_weighted_sum(feats_0)),
+                        zeros.scatter(-1, sel, ssim_weighted_sum(feats_1))],
+                       dim=-1)
+    if gate_open is None:
+        return errs, sums
+    return (torch.where(gate_open[..., None], errs, float("inf")),
+            torch.where(gate_open[..., None, None], sums, 0.0))
+
+
 def _score_finalists(refp, feats_c: torch.Tensor, build, config: QuantConfig,
-                     base_rows: int) -> torch.Tensor:
+                     base_rows: int, gate=None):
     """(..., B) exact errors of the candidates that the prescreen keeps,
     +inf for the rest, from all candidates' scale-2..5 features `feats_c`;
-    `build(ix)` gives the full-resolution frames of candidates `ix`."""
+    `build(ix)` gives the full-resolution frames of candidates `ix`. With
+    a `gate` (carried errors only), the gated stage `_gated_finalists`,
+    which also returns the per-scale sums."""
     k, m = config.prescreen, config.prescreen_full
     sel = _keep(100.0 - score_from_features(feats_c), k, base_rows)
+    if gate is not None:
+        return _gated_finalists(refp, feats_c, sel, build, config, gate)
     if 0 < m < k:
         feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1)
         rank1 = 100.0 - score_from_features(feats_1 + _take(feats_c, sel))
@@ -394,7 +524,7 @@ def _prescreens(config: QuantConfig, b: int, allow_prescreen: bool,
 
 def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
                      cand5: torch.Tensor, allow_prescreen: bool = True,
-                     carried_base: bool = True):
+                     carried_base: bool = True, gate=None):
     """(B,) float32 exact errors of the candidates `cand5` (B, 3), +inf for
     those a prescreen dropped; and `dists`, which gives the (n, H, W)
     distance planes of candidates `ix` (n,) (kernel D's or F's rows in
@@ -402,7 +532,9 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
     nothing reads them). Without `carried_base` row 0 is the current colour
     and survives every ranking. In a batched visit every tensor has the
     leading image axis N: (N, B, 3) candidates give (N, B) errors, and
-    `dists` takes (N, n) indices."""
+    `dists` takes (N, n) indices. With a `gate` (see `_gated_finalists`)
+    a third value: the (..., B, 2) weighted sums of scales 0 and 1 that
+    the gate's carry takes from the accepted candidate."""
     b = cand5.shape[-2]
     base_rows = 0 if carried_base else 1
     h, w = ctx.best_val.shape[-2:]
@@ -435,7 +567,13 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
 
     if not prescreened:
         feats = fused_scale_feature_block(refp, build(None), 0, NUM_SCALES)
-        return 100.0 - score_from_features(feats), dists
+        errs = 100.0 - score_from_features(feats)
+        if gate is None:
+            return errs, dists
+        # A batch too small to prescreen has no stage to skip; the carry
+        # takes the sums from the full features.
+        _count_gates(None, gate[0][..., 0].numel())
+        return errs, dists, _scale_sums(feats)
     if fused:
         sizes = [refp[sc][0].shape[-3] * refp[sc][0].shape[-2]
                  for sc in range(2, NUM_SCALES)]
@@ -444,7 +582,12 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
         frames_q = coarse_frames(pooled, cand_lin, ds4_no_candidate(ctx))
         feats_c = fused_scale_feature_block(refp, frames_q, 2,
                                             NUM_SCALES - 2)
-    return _score_finalists(refp, feats_c, build, config, base_rows), dists
+    if gate is None:
+        return _score_finalists(refp, feats_c, build, config,
+                                base_rows), dists
+    errs, sums = _score_finalists(refp, feats_c, build, config, base_rows,
+                                  gate)
+    return errs, dists, sums
 
 
 def _undithered_machinery(
@@ -455,9 +598,11 @@ def _undithered_machinery(
     except that the last two take the chosen colour's (H, W) distance
     plane (from `dists`) where the JAX package's take the colour:
 
-      errors(refp, cand5, allow_prescreen=True, carried_base=True) ->
+      errors(refp, cand5, allow_prescreen=True, carried_base=True,
+             gate=None) ->
         ((B,) float32 errors, +inf for candidates a prescreen dropped;
-        `dists`, as returned by `candidate_errors`);
+        `dists`, as returned by `candidate_errors`; with a gate, the
+        per-scale sums);
       final_map(dist) -> (H, W) palette_map with slot i set to the colour;
       new_d_all(dist) -> the distance cache with slot i set to the colour.
 
@@ -468,9 +613,10 @@ def _undithered_machinery(
         d_all = compute_d_all(state, config)
     ctx = slot_context(state, config, p, i, d_all, t_lab)
 
-    def errors(refp, cand5, allow_prescreen=True, carried_base=True):
+    def errors(refp, cand5, allow_prescreen=True, carried_base=True,
+               gate=None):
         return candidate_errors(ctx, config, refp, cand5, allow_prescreen,
-                                carried_base)
+                                carried_base, gate)
 
     def final_map(dist):
         return torch.where(ctx.win_mask(dist.unsqueeze(-3)).squeeze(-3), i,
@@ -554,19 +700,31 @@ def _apply(state, d_all, p, i, color, changed, dist, final_map, new_d_all):
 
 
 def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
-          base_err, p, i, accept_margin):
+          base_err, p, i, accept_margin, gate_base=None, gate_enable=True,
+          n_gated=None):
     """Accept the best candidate only if it beats the current exact error
     by more than accept_margin; returns (state, error, d_all). A rejected
     visit returns the incoming state and cache. With `base_err` the
     current error is the carried one; with None the current colour is
     scored inside the batch, as row 0, by the code that scores the
-    candidates. Each image of a batched visit decides on its own."""
+    candidates. Each image of a batched visit decides on its own.
+
+    With `gate_base` (a carried error only: the gate's carry, see
+    `gate_base_fused`) the visit is gated (`gate_enable` False scores it
+    exactly, `n_gated` rows come before the explore draws), and a fourth
+    value is returned: the carry, the accepted candidate's per-scale sums
+    where the entry changed."""
     base_rows = 1 if base_err is None else 0
     if base_rows:
         batch = torch.cat([current.unsqueeze(-2), cand5], dim=-2)
     else:
         batch = cand5
-    errs, dists = errors(refp, batch, carried_base=not base_rows)
+    if gate_base is None:
+        errs, dists = errors(refp, batch, carried_base=not base_rows)
+    else:
+        errs, dists, sums = errors(
+            refp, batch, carried_base=True,
+            gate=(gate_base, base_err, gate_enable, n_gated))
     base = errs[..., 0] if base_rows else base_err
     cand_errs = errs[..., base_rows:]
     bidx = torch.argmin(cand_errs, dim=-1, keepdim=True)  # first minimum
@@ -580,7 +738,11 @@ def _pick(errors, final_map, new_d_all, state, d_all, refp, cand5, current,
     state_out, d_out = _apply(state, d_all, p, i, color, changed,
                               dists(bidx + base_rows)[..., 0, :, :],
                               final_map, new_d_all)
-    return state_out, err_out, d_out
+    if gate_base is None:
+        return state_out, err_out, d_out
+    carry = torch.where(changed[..., None], _take(sums, bidx)[..., 0, :],
+                        gate_base)
+    return state_out, err_out, d_out, carry
 
 
 def _draws(generator, lead: tuple, n: int, device) -> torch.Tensor:
@@ -592,10 +754,12 @@ def _draws(generator, lead: tuple, n: int, device) -> torch.Tensor:
 
 
 def _slot_random(state, config, refp, p, i, d_all=None, base_err=None,
-                 generator=None, t_lab=None, cand5=None):
+                 generator=None, t_lab=None, cand5=None, gate_base=None,
+                 gate_enable=True):
     """One random visit of slot (p, i): `random_trials` uniform 5-bit
     candidates drawn from `generator` (or the given `cand5`); the best is
-    kept only if it beats the current error (src/lib.rs:191-240)."""
+    kept only if it beats the current error (src/lib.rs:191-240). With
+    `gate_base`, gated (`_pick`)."""
     current = state.palette[..., p, i, :]
     if cand5 is None:
         cand5 = _draws(generator, current.shape[:-1], config.random_trials,
@@ -604,21 +768,25 @@ def _slot_random(state, config, refp, p, i, d_all=None, base_err=None,
                                                    t_lab)
     return _pick(
         errors, final_map, new_d_all, state, d_all, refp, cand5, current,
-        base_err, p, i, config.accept_margin,
+        base_err, p, i, config.accept_margin, gate_base, gate_enable,
     )
 
 
 def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
-                  generator=None, t_lab=None):
+                  generator=None, t_lab=None, gate_base=None,
+                  gate_enable=True):
     """One visit: the 32 values of `channel` for slot (p, i), plus
     `channel_explore` uniform random full-RGB candidates drawn from
-    `generator` when one is given."""
+    `generator` when one is given. With `gate_base`, gated (`_pick`); the
+    explore draws are exempt from the gate."""
     current = state.palette[..., p, i, :]
     lead = current.shape[:-1]
     sweep5 = current.unsqueeze(-2).repeat(*(1,) * len(lead), 32, 1)
     sweep5[..., channel] = torch.arange(32, dtype=torch.int32,
                                         device=current.device)
+    n_gated = None
     if generator is not None and config.channel_explore > 0:
+        n_gated = sweep5.shape[-2]
         rand5 = _draws(generator, lead, config.channel_explore,
                        current.device)
         sweep5 = torch.cat([sweep5, rand5], dim=-2)
@@ -626,7 +794,7 @@ def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
                                                    t_lab)
     return _pick(
         errors, final_map, new_d_all, state, d_all, refp, sweep5, current,
-        base_err, p, i, config.accept_margin,
+        base_err, p, i, config.accept_margin, gate_base, gate_enable, n_gated,
     )
 
 
@@ -694,42 +862,69 @@ def _sweep_caches(state, config):
     return compute_d_all(state, config), target_lab(state, config)
 
 
+def _gate_carry(state, config, refp, gate: bool):
+    """A sweep's initial gate carry: `gate_base_fused` where the sweep
+    gates, else None."""
+    if gate and _gating_active(config):
+        return gate_base_fused(state, config, refp)
+    return None
+
+
+def _visit(slot, carry: tuple, gate_base, *args, **kwargs):
+    """Runs a slot visit (`_slot_random` or `_slot_channel`) with the
+    sweep's carry (state, error, d_all) and gate carry; returns both."""
+    out = slot(carry[0], *args, d_all=carry[2], base_err=carry[1],
+               gate_base=gate_base, **kwargs)
+    if gate_base is None:
+        return out, None
+    return out[:3], out[3]
+
+
 def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
-                 base_err=None):
+                 base_err=None, use_gate: bool = True, gate: bool = True):
     """One random step: every slot visited once (src/lib.rs:888-932, steps
     with step % 5 < 4), C * S visits with their candidates drawn from
     `generator`. Returns (state, error), the exact error carried through
-    the visits (one an image for a batched state)."""
+    the visits (one an image for a batched state). Where the config gates
+    (`_gating_active`) and `gate` holds, the visits are gated;
+    `use_gate=False` scores each exactly (the stop rule's confirmation)."""
     check_slice(config)
     s = config.subpalette_size
     err = base_err
     if err is None:
         err = frame_error_fused(state, config, refp)
     d_all, t_lab = _sweep_caches(state, config)
+    gb = _gate_carry(state, config, refp, gate)
+    carry = (state, err, d_all)
     for k in range(config.subpalette_count * s):
-        state, err, d_all = _slot_random(
-            state, config, refp, k // s, k % s, d_all, err, generator, t_lab)
-    return state, err
+        carry, gb = _visit(_slot_random, carry, gb, config, refp, k // s,
+                           k % s, generator=generator, t_lab=t_lab,
+                           gate_enable=use_gate)
+    return carry[0], carry[1]
 
 
 def sweep_channel(state: QuantState, config: QuantConfig, refp,
-                  base_err=None, generator=None):
+                  base_err=None, generator=None, use_gate: bool = True,
+                  gate: bool = True):
     """One channel step: every slot visited for channels 0, 1, 2 in turn
     (src/lib.rs:917-923), C * S * 3 visits. Returns (state, error): the
     exact error of the resulting state, carried through the visits (one an
-    image for a batched state)."""
+    image for a batched state). `use_gate` and `gate` as for
+    `sweep_random`."""
     check_slice(config)
     s = config.subpalette_size
     err = base_err
     if err is None:
         err = frame_error_fused(state, config, refp)
     d_all, t_lab = _sweep_caches(state, config)
+    gb = _gate_carry(state, config, refp, gate)
+    carry = (state, err, d_all)
     for k in range(config.subpalette_count * s * 3):
-        state, err, d_all = _slot_channel(
-            state, config, refp, k // (s * 3), (k // 3) % s, k % 3, d_all,
-            err, generator, t_lab,
-        )
-    return state, err
+        carry, gb = _visit(_slot_channel, carry, gb, config, refp,
+                           k // (s * 3), (k // 3) % s, k % 3,
+                           generator=generator, t_lab=t_lab,
+                           gate_enable=use_gate)
+    return carry[0], carry[1]
 
 
 def sweep_nes(state: QuantState, config: QuantConfig, refp, base_err=None):

@@ -30,6 +30,11 @@
 // and the fourth block of a tile cluster only helps load. From 16 frames
 // on, a call with both kinds launches them apart (ops/cuda_metric.py
 // SPLIT_FRAMES), so that its tiles run four blocks an SM.
+// A call may carry a per-image gate flag on the card (the rank-1 gate of
+// core/refine.py, which decides on the device whether a visit's scale-0
+// stage runs): the clusters of an image whose flag is 0 return after reading
+// it, before any other load, and write zero sums; an open flag gives the
+// bits of a call without one.
 // The sums have the bits of a block of 256 threads a (frame, channel,
 // tile) (thread t over pixels t, t + 256, ... of the tile, block_reduce6's
 // shuffle tree and warps in order, then the tiles in index order) and of a
@@ -78,6 +83,10 @@ struct MultiscaleCall {
   float* out;           // (M, n_scales, 3, 6)
   float* partial;       // (M, tiles_total, 3, 6): each tile's sums
   int* tickets;         // (M, n_tiled): tile blocks done; 0 between calls
+  // Optional per-image gate, (M / frames_per_image,) int32 on the card:
+  // the frames of an image whose flag is 0 get zero sums and no work.
+  // nullptr: every frame is scored.
+  const int* gate;
   int n_frames;
   // Frame m scores against image m / frames_per_image of the reference
   // pyramid (refs.img_stride: 0 where every image shares one pyramid).
@@ -384,6 +393,21 @@ static __device__ __forceinline__ void resident_pass(const MultiscaleCall& a,
                a.out + ((size_t)m * a.n_scales + a.n_tiled) * 18);
 }
 
+// Whether frame m's image has a closed gate: then its cluster returns
+// before any other load, every block of the cluster alike (they share m),
+// and the first block of the item writes zero sums for scales
+// [s0, s0 + n) (a resident item's small scales, or a tile's scale from its
+// first tile). A closed image's tickets stay 0.
+static __device__ __forceinline__ bool closed(const MultiscaleCall& a, int m,
+                                              bool first, int s0, int n) {
+  if (a.gate == nullptr || a.gate[m / a.frames_per_image] != 0) return false;
+  if (first) {
+    float* const out = a.out + ((size_t)m * a.n_scales + s0) * 18;
+    for (int i = threadIdx.x; i < n * 18; i += blockDim.x) out[i] = 0.0f;
+  }
+  return true;
+}
+
 // Grid: the resident clusters (one a frame, if the call has small scales)
 // first, then the tile clusters frame by frame, scale by scale, tile by
 // tile. kResident: the call has small scales, so its clusters have
@@ -393,8 +417,10 @@ __global__ void __launch_bounds__(kClusterThreads, kResident ? 2 : 4)
 multiscale_kernel(MultiscaleCall a, RefPyramid refs, MetricParams p) {
   constexpr int kBlocks = kResident ? kClusterBlocks : kTileChannels;
   const int q = blockIdx.x / kBlocks;
+  const bool first = blockIdx.x % kBlocks == 0;
   if constexpr (kResident) {
     if (q < a.n_resident_items) {
+      if (closed(a, q, first, a.n_tiled, a.n_scales - a.n_tiled)) return;
       resident_pass(a, refs, p, q);
       return;
     }
@@ -403,6 +429,7 @@ multiscale_kernel(MultiscaleCall a, RefPyramid refs, MetricParams p) {
   const int m = j / a.tiles_total, r = j - m * a.tiles_total;
   int s = 0;
   while (r >= a.tile_start[s + 1]) ++s;
+  if (closed(a, m, first && r == a.tile_start[s], s, 1)) return;
   tile_pass<kBlocks>(a, refs, p, m, s, r - a.tile_start[s]);
 }
 

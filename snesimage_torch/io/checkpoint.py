@@ -3,8 +3,8 @@
 Counterpart of snesimage_tpu/io/checkpoint.py, in the same format
 (version 1): the state's four fields as numpy arrays, the config as JSON,
 the per-step errors and the step count. A checkpoint written by either
-package loads in the other. The port writes them (`--checkpoint`); it does
-not resume from them yet (`--resume`, ROADMAP queue A item 15).
+package loads in the other. The CLI writes them (`--checkpoint`, and
+mid-run with `--dump-every`) and resumes from them (`--resume`).
 """
 
 from __future__ import annotations

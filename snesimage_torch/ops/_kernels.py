@@ -93,6 +93,7 @@ class MultiscaleCall(ctypes.Structure):
         ("out", _P),
         ("partial", _P),
         ("tickets", _P),
+        ("gate", _P),
         ("n_frames", _I),
         ("frames_per_image", _I),
         ("pre_ds", _I),

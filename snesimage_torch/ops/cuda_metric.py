@@ -88,7 +88,18 @@ def _refs_of(refs, n: int):
     return refs[n] if refs.dim() == 4 else refs
 
 
-def _multiscale_feature_sums_plain(ref_scales, frames, pre_ds=0):
+def _multiscale_feature_sums_plain(ref_scales, frames, pre_ds=0, gate=None):
+    if gate is not None:
+        # Zero sums for the images of a closed gate, the others scored.
+        frames5 = frames if frames.dim() == 5 else frames[None]
+        out = torch.zeros((*frames5.shape[:2], len(ref_scales), 3, 6),
+                          dtype=torch.float32, device=frames.device)
+        for n, open_ in enumerate(gate.reshape(-1).tolist()):
+            if open_:
+                out[n] = _multiscale_feature_sums_plain(
+                    _refs_of(ref_scales, n) if frames.dim() == 5
+                    else ref_scales, frames5[n], pre_ds)
+        return out if frames.dim() == 5 else out[0]
     if frames.dim() == 5:
         return torch.stack([
             _multiscale_feature_sums_plain(_refs_of(ref_scales, n), frames[n],
@@ -188,7 +199,7 @@ def _launches(call) -> list:
     return [tiles, resident]
 
 
-def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds):
+def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate=None):
     dev = frames.device
     lead = frames.shape[:-3]  # (B,) or (N, B)
     h, w = frames.shape[-2:]
@@ -202,6 +213,9 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds):
     if len(lead) == 1 and any(a.dim() != 3 for t in ref_scales for a in t):
         raise ValueError("frames without an image axis take one pyramid")
     refs = _ref_pyramid(ref_scales, dev, n_img)
+    if gate is not None:
+        call.gate = _kernels.require(gate.reshape(-1), "gate", torch.int32,
+                                     (n_img,), dev)
     out = torch.empty((*lead, n, 3, 6), dtype=torch.float32, device=dev)
     call.out = out.data_ptr()
     if call.tiles_total:
@@ -247,7 +261,8 @@ def multiscale_launches(ref_scales, frames, pre_ds: int = 0) -> list:
     return held
 
 
-def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):
+def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0,
+                            gate=None):
     """Raw feature sums of consecutive pyramid scales.
 
     ref_scales: tuple over scales of channel-major (img1, mu1, s11)
@@ -261,10 +276,16 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0):
     With frames (N, B, 3, H, W) of N images, the planes are (N, 3, h_s,
     w_s), one pyramid an image, or (3, h_s, w_s), one pyramid for all, and
     the sums (N, B, n_scales, 3, 6).
+
+    gate: None, or an int32 flag an image ((N,), or (1,) without an image
+    axis) on the frames' device: an image whose flag is 0 gets zero sums,
+    and on the card its blocks return before they load anything (the
+    rank-1 gate of core/refine.py, decided on the device, so no visit waits
+    for it); an open flag gives the sums of a call without one.
     """
     if frames.is_cuda:
-        return _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds)
-    return _multiscale_feature_sums_plain(ref_scales, frames, pre_ds)
+        return _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate)
+    return _multiscale_feature_sums_plain(ref_scales, frames, pre_ds, gate)
 
 
 multiscale_feature_sums.launches = 0

@@ -268,6 +268,7 @@ def fused_scale_feature_block(
     num_scales: int,
     *,
     pre_ds: int = 0,
+    gate=None,
 ) -> torch.Tensor:
     """Features (B, NUM_SCALES, 3, 6) of `num_scales` consecutive scales
     from channel-major linear frames (B, 3, h, w) at the resolution of
@@ -279,7 +280,8 @@ def fused_scale_feature_block(
 
     Frames (N, B, 3, h, w) of N images give (N, B, NUM_SCALES, 3, 6): the
     pyramid's planes are then (N, h, w, 3), one pyramid an image, or
-    (h, w, 3), one for all."""
+    (h, w, 3), one for all. `gate` (an int32 flag an image) zeroes the sums
+    of the images whose flag is 0 (`multiscale_feature_sums`)."""
     from snesimage_torch.ops.cuda_metric import multiscale_feature_sums
 
     lead = frames_cmaj.shape[:-3]
@@ -295,7 +297,8 @@ def fused_scale_feature_block(
             )
         sizes.append(hs * ws)
         ref_scales.append(tuple(a.movedim(-1, -3) for a in (img1, mu1, s11)))
-    sums = multiscale_feature_sums(tuple(ref_scales), frames_cmaj, pre_ds=pre_ds)
+    sums = multiscale_feature_sums(tuple(ref_scales), frames_cmaj,
+                                   pre_ds=pre_ds, gate=gate)
     return finalize_feature_sums(sums.reshape(*lead, -1, 6), sizes,
                                  start_scale)
 

@@ -19,13 +19,14 @@ over that image (`shared_states`: the image fields are stride-0 views, so
 kernel G reads the image once for all seeds and kernels B, C and D read
 one reference pyramid), and keeps the seed with the lowest final error.
 
-Batched sweeps always score exactly, as the JAX package's do: the rank-1
-gate is not ported (ROADMAP queue A item 11), and in the JAX package it is
-off in every batched and portfolio sweep.
+Batched sweeps always score exactly, as the JAX package's do (it passes
+gate=False to every batched and portfolio sweep): a gated config runs its
+batches and portfolios ungated (`gate=False` here too).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -75,8 +76,8 @@ def brefp(states: QuantState, config: QuantConfig):
 
 # The sweeps take a batched state as they are (core/refine.py); batched
 # sweeps score exactly.
-bsweep_random = refine.sweep_random
-bsweep_channel = refine.sweep_channel
+bsweep_random = functools.partial(refine.sweep_random, gate=False)
+bsweep_channel = functools.partial(refine.sweep_channel, gate=False)
 bsweep_nes = refine.sweep_nes
 
 
@@ -105,7 +106,8 @@ def batched_optimize(
     refine.check_slice(config)
     if refp is None:
         refp = brefp(states, config)
-    states, errs = pipeline._optimize(states, config, refp, max_steps)
+    states, errs = pipeline.optimize(states, config, refp=refp,
+                                     max_steps=max_steps, gate=False)
     per_image = errs.cpu().numpy()
     means = [float(e) for e in errs.mean(-1).cpu().numpy()]
     if image_errors:
@@ -175,8 +177,9 @@ def portfolio_run(
     state = new_state(image, config, device)
     state = pipeline.cluster(pipeline.initialize(state, config), config)
     refp = shared_pyramid(refine.make_reference_pyramid(state), k)
-    seeds, errs = pipeline._optimize(shared_states(state, k), config, refp,
-                                     max_steps)
+    seeds, errs = pipeline.optimize(shared_states(state, k), config,
+                                    refp=refp, max_steps=max_steps,
+                                    gate=False)
     if len(errs):
         final = errs[-1]
     else:

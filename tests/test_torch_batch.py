@@ -194,3 +194,25 @@ def test_init_pipeline_matches_cpp_oracle(perceptual, nes, torch_thread):
                                     perceptual=False)
             np.testing.assert_array_equal(
                 clustered.palette_map[n].numpy(), want_map)
+
+
+@pytest.mark.parametrize("path", ["batch", "portfolio"])
+def test_gated_config_runs_ungated(images, torch_thread, path):
+    """The twin of tests/test_parallel.py `test_batched_run_gated_config`
+    and `test_portfolio_gated_config_runs`: a gated config (the `fast`
+    recipe's gate_margin and tol) runs as a batch and as a portfolio, and
+    scores exactly there, as the JAX package's batched paths do: its steps,
+    errors and states equal those of the same config with the gate off."""
+    kw = dict(GEOMETRY, max_steps=2, schedule="channel", prescreen=8,
+              prescreen_full=2, gate_margin=0.01, converge_tol=0.5)
+    gated, ungated = TConfig(**kw), TConfig(**dict(kw, gate_margin=0.0))
+    assert tpipe.refine._gating_active(gated)
+    if path == "batch":
+        got = tbatch.batched_run(images[:2], gated, device="cpu")
+        want = tbatch.batched_run(images[:2], ungated, device="cpu")
+    else:
+        got = tbatch.portfolio_run(images[0], gated, 2, device="cpu")
+        want = tbatch.portfolio_run(images[0], ungated, 2, device="cpu")
+    assert 1 <= len(got[-1]) <= 2 and got[-1] == want[-1]
+    assert torch.equal(got[0].palette, want[0].palette)
+    assert torch.equal(got[0].palette_map, want[0].palette_map)

@@ -914,3 +914,45 @@ def test_dither_remap_images_and_seeds(dev, n, h, w, perceptual):
             r, a, t, pl, p, i, c, perceptual)), k
         assert torch.equal(seeds[k], cuda_dither.dither_remap_candidates(
             per[0][0], per[0][1], per[0][2], pl, p, i, c, perceptual)), k
+
+
+@pytest.mark.parametrize("flags", [(0,), (1,), (1, 0), (0, 1), (0, 0)])
+@pytest.mark.parametrize("h,w,start,count,b", [
+    (256, 256, 0, 1, 2), (240, 256, 0, 1, 2), (256, 256, 0, 2, 1),
+    (256, 256, 0, 6, 32), (64, 64, 0, 6, 3)])
+def test_multiscale_gate_flag(dev, flags, h, w, start, count, b):
+    """Kernel B's per-image gate flag: an open image's sums equal the call
+    without a flag bit for bit, a closed image's are zero (its blocks
+    return before they load anything), and the twin says the same; a
+    closed call leaves the tile tickets at 0, so the next call's sums are
+    unchanged. Shapes: the gated visit's scale-0 call (B = 2), the gate's
+    carry (scales 0-1, B = 1), a call that launches tiles and resident
+    clusters apart (B = 32, six scales) and one with resident scales only."""
+    n = len(flags)
+    pyramids = [_pyramid(dev, h, 5 * k + w + b, width=w)[0] for k in range(n)]
+    triples = [tuple(tuple(a.permute(2, 0, 1) for a in refp[sc])
+                     for sc in range(start, start + count))
+               for refp in pyramids]
+    g = torch.Generator(device=dev).manual_seed(n + b + h)
+    frames = torch.rand((n, b, 3, h, w), generator=g, device=dev)
+    refs = tuple(tuple(torch.stack(r) for r in zip(*sc))
+                 for sc in zip(*triples))
+    if n == 1:
+        refs, frames = triples[0], frames[0]
+    gate = torch.tensor(flags, dtype=torch.int32, device=dev)
+    want = cuda_metric.multiscale_feature_sums(refs, frames)
+    got = cuda_metric.multiscale_feature_sums(refs, frames, gate=gate)
+    plain = cuda_metric._multiscale_feature_sums_plain(
+        refs, frames, gate=gate)
+    unflagged = cuda_metric._multiscale_feature_sums_plain(refs, frames)
+    assert got.shape == want.shape == plain.shape
+    for k, flag in enumerate(flags):
+        g_k, w_k, p_k = ((got[k], want[k], plain[k]) if n > 1
+                         else (got, want, plain))
+        if flag:
+            assert torch.equal(g_k, w_k), k
+            assert torch.equal(p_k, unflagged[k] if n > 1 else unflagged)
+        else:
+            assert not g_k.any() and not p_k.any(), k
+    assert torch.equal(cuda_metric.multiscale_feature_sums(refs, frames),
+                       want)

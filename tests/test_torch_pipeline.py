@@ -121,9 +121,6 @@ def test_run_fused_dithered_matches_jax(small_image, one_torch_thread,
     "change",
     [
         dict(dither=True, dither_proxy=8),
-        dict(nes=True, gate_margin=0.01),
-        dict(gate_margin=0.01, converge_tol=0.5),
-        dict(schedule="reference", gate_margin=0.01),
         dict(channel_window=2),
         dict(prescreen_pre=12),
         dict(prescreen_full=0, gate_margin=0.01, gate_coarse=True),
@@ -131,10 +128,47 @@ def test_run_fused_dithered_matches_jax(small_image, one_torch_thread,
     ],
 )
 def test_off_slice_configs_raise(small_image, change):
-    """The gate, windows, the three-level prescreen and the dither proxy
-    are not ported, alone or with an option that is (NES, the reference
-    schedule, scoring without a prescreen: tests/test_torch_schedules.py
-    runs those)."""
+    """The coarse gate, windows, the three-level prescreen and the dither
+    proxy are not ported (ROADMAP queue A item 17), alone or with an
+    option that is (scoring without a prescreen:
+    tests/test_torch_schedules.py runs it)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 1[17]"):
         tpipe.run_fused(small_image, TConfig(**dict(SMALL, **change)),
                         device="cpu")
+
+
+@pytest.mark.parametrize("case", ["nes", "channel", "reference"])
+def test_gated_configs_run(small_image, case):
+    """A margin on a NES config does not gate (`_gating_active`), so the
+    run is the ungated one, bit for bit. On SMALL with tol 0.5 the run is
+    gated and draws nothing: the JAX package's step count, its exact
+    confirmation sweep included, errors within 1e-3. On the reference
+    schedule the random sweeps are gated and draw the port's own
+    candidates: the errors never rise and end below the init's."""
+    change = {
+        "nes": dict(nes=True, gate_margin=0.01),
+        "channel": dict(gate_margin=0.01, converge_tol=0.5, max_steps=8),
+        "reference": dict(schedule="reference", gate_margin=0.01),
+    }[case]
+    kw = dict(SMALL, **change)
+    tc = TConfig(**kw)
+    assert tpipe.refine._gating_active(tc) == (case != "nes")
+    state, errors, info = tpipe.run_fused(small_image, tc, device="cpu")
+    if case == "nes":
+        ungated = tpipe.run_fused(small_image, TConfig(**dict(
+            kw, gate_margin=0.0)), device="cpu")
+        assert errors == ungated[1]
+        assert torch.equal(state.palette, ungated[0].palette)
+    elif case == "channel":
+        jstate, jerrors, _ = jpipe.run_fused(small_image, JConfig(**kw))
+        assert 2 <= len(errors) == len(jerrors) < 8
+        np.testing.assert_allclose(errors, jerrors, rtol=0, atol=1e-3)
+        np.testing.assert_array_equal(state.palette.numpy(),
+                                      np.asarray(jstate.palette))
+    else:
+        init = tpipe.cluster(tpipe.initialize(
+            tpipe.new_state(small_image, tc, "cpu"), tc), tc)
+        err0 = float(tpipe.refine.frame_error_fused(
+            init, tc, tpipe.refine.make_reference_pyramid(init)))
+        assert all(b <= a for a, b in zip([err0] + errors, errors))
+        assert errors[-1] < err0

@@ -90,7 +90,7 @@ def test_two_seeds_draw_apart_and_the_best_is_kept(image):
     gen = torch.Generator().manual_seed(0)
     draws = tref._draws(gen, (3,), config.channel_explore, "cpu")
     assert not torch.equal(draws[0], draws[1])
-    seeds, errs = tpipe._optimize(seeds, config, refp)
+    seeds, errs = tpipe.optimize(seeds, config, refp=refp)
     assert not torch.equal(seeds.palette[0], seeds.palette[1])
     best, seed_errs, steps = tbatch.portfolio_run(image, config, 3,
                                                   device="cpu")
@@ -129,7 +129,7 @@ def test_dithered_portfolio_seed_maps_are_one_seed_twins(image):
                                            config), config)
     seeds = shared_states(state, 2)
     refp = shared_pyramid(tref.make_reference_pyramid(state), 2)
-    seeds, _ = tpipe._optimize(seeds, config, refp)
+    seeds, _ = tpipe.optimize(seeds, config, refp=refp)
     assert not torch.equal(seeds.palette[0], seeds.palette[1])
     rgb, alpha, tiles = state.rgb, state.alpha, state.tile_palettes
     cand5 = torch.randint(0, 32, (2, 5, 3), dtype=torch.int32,

@@ -83,6 +83,28 @@ run to the bit (phase 34); `--reassign-tiles`, `--reassign-every 2
 --dump-every 2` and `-v` on 2 balanced steps (phase 35, one log line a
 visit); `run_fused_hybrid` (phase 36); and `--profile-dir` (phase 37: the
 trace names kernels A, B and C).
+
+Then the four options of the optimizer the paths above leave off. Phase
+38 holds kernels C and D in their three-level mode (`pre_ds=1,
+emit_frames`) against their twins at the first balanced and perceptual
+visits (B = 48): scales 3-5 within FEATURE_TOL, the quarter frames within
+FRAME_TOL, D's distance planes bit-equal, N = 2 images bit-equal to N = 1
+launches, device ms beside the two-level mode's; and kernel B at the
+three-level visit's shapes (scale 2 of the 16 survivors' quarter frames;
+scales 3-5 of 256x240's quarter frames after one 2x2 mean). Each path after
+it is driven with the counts set to 0 just before it and read just after,
+and its step errors must never rise and end below its init's: the
+three-level prescreen (`prescreen_pre` 16) on the balanced recipe for 4
+steps, the perceptual one for 2 and the balanced one at 256x240 for 2
+(phase 39, C's, D's and E's paths, with the three-level launches counted
+apart, `.frame_launches`); `cli --opt-profile fast --gate-coarse` to its
+stop, with the shares of closed coarse and rank-1 gates (phase 40); the
+dither proxy (`dither_proxy` 8) on the dithered recipe for 2 steps and the
+dithered perceptual one for 1, with kernel G's device ms a sweep at 8 rows
+and at 48 (phase 41); and the balanced recipe with `channel_window` 4 for 8
+steps through `pipeline.optimize`, which steps were windowed and the
+seconds of each sweep (phase 42). C's and D's three-level records join the
+`kernels` line (`<name>_three_level`, their launches from phase 39).
 """
 
 from __future__ import annotations
@@ -1256,6 +1278,8 @@ def _zero_counts() -> dict:
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "frame_launches"):
+            fn.frame_launches = 0
     return wrappers
 
 
@@ -1761,19 +1785,21 @@ def _gate_share(tally) -> float:
     return closed / max(tally["visits"], 1)
 
 
-def _check_fast_run(label, config, errors, err0):
+def _check_fast_run(label, config, errors, err0, may_run_out=False):
     """A `fast` run's checks: finite errors that never rise, a final below
     the init's, and a stop before the step budget, which a gated run takes
     only on an exact sweep (`need_exact`) whose step improved by less than
-    the tolerance. Returns whether an exact sweep ended the run."""
+    the tolerance; with `may_run_out` the run may end at its budget
+    instead. Returns whether an exact sweep ended the run."""
     check(all(np.isfinite(errors)), f"{label}: non-finite step error")
     check(all(b <= a for a, b in zip([err0] + errors, errors)),
           f"{label}: step errors increase")
     check(errors[-1] < err0, f"{label}: no improvement on {err0}")
     exact_stop = (1 < len(errors) < config.max_steps
                   and errors[-2] - errors[-1] < config.converge_tol)
-    check(exact_stop, f"{label}: {len(errors)} steps, not stopped by an "
-          "exact sweep")
+    ran_out = may_run_out and len(errors) == config.max_steps
+    check(exact_stop or ran_out, f"{label}: {len(errors)} steps, not "
+          "stopped by an exact sweep")
     return exact_stop
 
 
@@ -1994,6 +2020,333 @@ def phase_profile_dir(img, smi):
           flush=True)
 
 
+# The three-level prescreen's pre-rank keeps this many candidates
+# (`prescreen_pre`; the JAX package's tests use 16 too).
+PRESCREEN_PRE = 16
+FRAME_TOL = 1e-6  # kernels C and D vs twins, the three-level quarter frames
+THREE_LEVEL = ("coarse_feature_sums_redmean", "coarse_feature_sums_ciede")
+
+
+def _three_level_bound(args, frames, out_bytes: int, px_ops: float):
+    """Bound of a coarse kernel call in the three-level mode: C's or D's
+    pooling of every pixel and quarter cell, the 2x2 means, the metric on
+    scales 3-5, the operands read once and the sums, planes and quarter
+    frames written once."""
+    *planes, flat_refs = args
+    b, (h, w) = planes[1].shape[0], planes[3].shape
+    n_q = (h // 4) * (w // 4)
+    sizes = [(h >> s) * (w >> s) for s in range(3, 6)]
+    return bound(
+        nbytes(*planes, *flat_refs, frames) + out_bytes,
+        b * h * w * px_ops + b * n_q * 9 + b * sizes[0] * 3 * 4
+        + metric_ops(b, sizes),
+    )
+
+
+def _same_launches(label: str, wrapper, args, mode: dict) -> None:
+    """`wrapper` at N = 2 images against its N = 1 launches, bit for bit."""
+    both = wrapper(*_rows(args, 2), **mode)
+    for n in range(2):
+        one = wrapper(*_rows(args, (n, n + 1)), **mode)
+        check(all(torch.equal(a[n:n + 1], b) for a, b in zip(both, one)),
+              f"{label}: image {n} of N = 2 differs from its own launch")
+
+
+def phase_three_level_kernels(img, b_record):
+    """Kernels C and D in their three-level mode (pre_ds=1, emit_frames)
+    against their twins at the first visits of the balanced and perceptual
+    paths (B = 48, 256x256): the sums of scales 3-5, the quarter frames
+    (bit-equal or within FRAME_TOL), D's distance planes (bit-equal); at
+    N = 2 images against the N = 1 launches; device ms beside the two-level
+    mode's. Then kernel B at the three-level visit's shapes: scale 2 alone
+    on the PRESCREEN_PRE survivors' quarter frames (64x64), and scales 3-5
+    with pre_ds=1 on 256x240's 60x64 quarter frames (kernel E's). Returns
+    C's and D's three-level records."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops import cuda_metric, cuda_prescreen
+    from snesimage_torch.ops.color import expand_5bit_to_8bit, srgb_u8_to_linear
+    from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
+
+    mode = dict(pre_ds=1, emit_frames=True)
+    sizes = [(256 >> s) ** 2 for s in range(3, 6)]
+    records, survivors = [], None
+    for perceptual, params, wrapper, twin, source, line in (
+            (False, BALANCED, cuda_metric.coarse_feature_sums_redmean,
+             cuda_metric._coarse_plain, "coarse_redmean.cu", 522),
+            (True, PERCEPTUAL, cuda_metric.coarse_feature_sums_ciede,
+             cuda_metric._coarse_ciede_plain, "coarse_ciede.cu", 594)):
+        _, refp, ctx, cand8, cand_lin = first_visit(img, params)
+        args = refine.coarse_inputs(ctx, cand8, cand_lin, refp, 3)
+        two_args = refine.coarse_inputs(ctx, cand8, cand_lin, refp)
+        got, want = wrapper(*args, **mode), twin(*args, **mode)
+        feat_err = max_err(finalize_feature_sums(got[0], sizes, 3),
+                           finalize_feature_sums(want[0], sizes, 3),
+                           FEATURE_TOL)
+        frame_err = max_err(got[-1], want[-1], FRAME_TOL)
+        if perceptual:
+            check(torch.equal(got[1], want[1]),
+                  "kernel D's three-level distance planes differ from the "
+                  "twin's")
+        again = wrapper(*args, **mode)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{wrapper.__name__} (three-level) gave other bits a second "
+              "time")
+        if survivors is None:
+            survivors = (refp, got[-1][:PRESCREEN_PRE].contiguous())
+        states, _, brefp, bctx, cand5 = _batch_visit(params)
+        b8 = expand_5bit_to_8bit(cand5)
+        _same_launches(f"{wrapper.__name__} (three-level)", wrapper,
+                       refine.coarse_inputs(bctx, b8, srgb_u8_to_linear(b8),
+                                            brefp, 3), mode)
+        kernel = lambda: wrapper(*args, **mode)  # noqa: E731
+        records.append(dict(
+            name=f"{wrapper.__name__}_three_level", route="cuda",
+            source=f"snesimage_torch/csrc/{source}",
+            replaces=f"snesimage_tpu/ops/pallas_metric.py:{line}",
+            mode="pre_ds=1, emit_frames=True",
+            max_abs_err=max(feat_err, frame_err), feature_max_abs_err=feat_err,
+            frame_max_abs_err=frame_err,
+            frames_bit_equal=torch.equal(got[-1], want[-1]),
+            ms=median_ms(kernel), device_ms=device_ms(kernel),
+            two_level_device_ms=device_ms(lambda: wrapper(*two_args)),
+            blocks_per_candidate=cuda_metric.CLUSTER_BLOCKS,
+            active_clusters=cuda_metric.active_clusters(perceptual, 256, 256,
+                                                        1),
+            plain_ms=median_ms(lambda: twin(*args, **mode)),
+            library_ms=None,
+            shape="B=48, 256x256 -> scales 3-5, quarter frames"
+                  + (" and distance planes" if perceptual else ""),
+            **_three_level_bound(args, got[-1], nbytes(*got[:-1]),
+                                 CIEDE_OPS_PER_PX if perceptual
+                                 else REDMEAN_OPS_PER_PX),
+        ))
+    refp, frames_q = survivors
+    img240 = np.ascontiguousarray(img[:240])
+    _, refp240, ctx240, cand8, cand_lin = first_visit(img240, GEOMETRY)
+    pooled = cuda_prescreen.pooled_wins_redmean(
+        *refine.pooled_inputs(ctx240, cand8))
+    frames240 = cuda_prescreen.coarse_frames(
+        pooled, cand_lin, refine.ds4_no_candidate(ctx240)).contiguous()
+    cases = [
+        _b_case(f"B={PRESCREEN_PRE}, 64x64 quarter frames, scale 2", refp,
+                frames_q, 2, 1, 0),
+        _b_case("B=48, 60x64 quarter frames, pre_ds=1, scales 3-5",
+                refp240, frames240, 3, 3, 1),
+    ]
+    b_record.update(_b_record(b_record["cases"] + cases))
+    _print_records("phase 38", records)
+    print("phase 38 kernels C and D three-level vs two-level device ms: "
+          + "; ".join(f"{r['name']} {r['device_ms']:.4f} ms (two-level "
+                      f"{r['two_level_device_ms']:.4f} ms), frames bit-equal "
+                      f"{r['frames_bit_equal']}, frames max_abs_err "
+                      f"{r['frame_max_abs_err']:.3g}, N=2 bit-equal to N=1, "
+                      f"active clusters {r['active_clusters']}"
+                      for r in records), flush=True)
+    _print_b_cases("phase 38", "at the three-level visit's shapes", cases)
+    return records
+
+
+def _run_checked(label: str, img, params: dict, present: tuple,
+                 frame_kernel=None):
+    """One run of a path through `run_fused` with the counts set to 0 just
+    before it and read just after: its step errors never rise and end below
+    the init's. `frame_kernel` must have launched in its three-level mode.
+    Returns (errors, seconds, launches, three-level launches, init error)."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+
+    config = QuantConfig(**params)
+    init, _ = prepared_state(img, params)
+    err0 = float(refine.frame_error_fused(
+        init, config, refine.make_reference_pyramid(init)))
+    wrappers = _zero_counts()
+    _, errors, info = pipeline.run_fused(img, config, device="cuda")
+    launches = _read_counts(wrappers, label, present)
+    frames = {name: wrappers[name].frame_launches for name in THREE_LEVEL}
+    if frame_kernel is not None:
+        check(frames[frame_kernel] > 0,
+              f"the {label} path never ran {frame_kernel}'s three-level mode")
+    check(all(np.isfinite(errors)), f"{label}: non-finite step error")
+    check(all(b <= a for a, b in zip([err0] + errors, errors)),
+          f"{label}: step errors increase")
+    check(errors[-1] < err0, f"{label}: no improvement on {err0}")
+    return errors, info["total_seconds"], launches, frames, err0
+
+
+def phase_three_level_runs(img, smi, balanced: dict):
+    """The three-level prescreen (`prescreen_pre`) on three paths: the
+    balanced recipe at 256x256 for 4 steps (kernel C's three-level mode),
+    the perceptual one for 2 steps (D's), and the balanced one at 256x240
+    for 2 steps (kernels E and B)."""
+    a, b, c, d, e, _, _ = WRAPPERS
+    img240 = np.ascontiguousarray(img[:240])
+    runs, frames = {}, {}
+    for key, label, image, params, present, kernel in (
+            ("three_level", "three-level balanced", img,
+             dict(BALANCED, prescreen_pre=PRESCREEN_PRE, max_steps=4),
+             (a, b, c), c),
+            ("three_level_perceptual", "three-level perceptual", img,
+             dict(PERCEPTUAL, prescreen_pre=PRESCREEN_PRE, max_steps=2),
+             (a, b, d), d),
+            ("three_level_240", "three-level 256x240", img240,
+             dict(GEOMETRY, prescreen_pre=PRESCREEN_PRE, max_steps=2),
+             (a, b, e), None)):
+        errors, secs, launches, frames[key], err0 = _run_checked(
+            label, image, params, present, kernel)
+        runs[key] = launches
+        print(f"phase 39 {label}: prescreen_pre {PRESCREEN_PRE}, "
+              f"{len(errors)} steps, {secs:.3f} s, init error {err0}, step "
+              f"errors {errors}, launches {launches}, three-level launches "
+              f"{frames[key]}" + (
+                  f" (the two-level balanced run: 8 steps "
+                  f"{balanced['seconds']:.3f} s, step errors "
+                  f"{balanced['errors'][:4]}...)" if key == "three_level"
+                  else "") + f"; card '{smi}'", flush=True)
+    return runs, frames
+
+
+def phase_gate_coarse(img, smi, balanced: dict):
+    """`cli --opt-profile fast --gate-coarse -c 8 -s 15` to its stop (an
+    exact sweep's sub-tolerance step, or the profile's 10 steps): the
+    coarse gate before the rank-1 gate; the share of visits each gate
+    closed."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import refine
+    from snesimage_torch.io.checkpoint import load_checkpoint
+    from snesimage_torch.io.json_out import state_to_json
+
+    a, b, c, *_ = WRAPPERS
+    params = fast_params(gate_coarse=True)
+    config = QuantConfig(**params)
+    init, _ = prepared_state(img, params)
+    err0 = float(refine.frame_error_fused(
+        init, config, refine.make_reference_pyramid(init)))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, ck = (Path(tmp) / n for n in ("src.png", "out.json",
+                                                "ck.npz"))
+        Image.fromarray(img, "RGBA").save(src)
+        wrappers = _zero_counts()
+        with refine.gate_tally() as tally:
+            rc, _, secs = _cli([src, out, "--opt-profile", "fast",
+                                "--gate-coarse", *FAST_GEOMETRY,
+                                "--checkpoint", ck])
+        launches = _read_counts(wrappers, "fast --gate-coarse", (a, b, c))
+        check(rc == 0, f"cli --opt-profile fast --gate-coarse exited {rc}")
+        state, _, meta = load_checkpoint(str(ck), "cuda")
+        check(out.read_text() == state_to_json(state, config),
+              "the --gate-coarse CLI's JSON is not its checkpoint's state")
+    errors = meta["errors"]
+    exact = _check_fast_run("fast --gate-coarse", config, errors, err0,
+                            may_run_out=True)
+    visits = max(tally["visits"], 1)
+    coarse = (0 if tally["closed_coarse"] is None
+              else int(tally["closed_coarse"]))
+    print(f"phase 40 fast --gate-coarse: cli 256x256 8x15 exit 0, "
+          f"{len(errors)} steps, ended by an exact sweep {exact}, init error "
+          f"{err0}, step errors {errors}, closed coarse gates "
+          f"{coarse / visits:.4f} and closed rank-1 gates "
+          f"{_gate_share(tally):.4f} of {tally['visits']} gated visits, "
+          f"{secs:.3f} s (the balanced run {balanced['seconds']:.3f} s); "
+          f"launches {launches}; card '{smi}'", flush=True)
+    return launches
+
+
+def _g_sweep_ms(img, params: dict, rows=(8, 48)) -> list:
+    """Kernel G's device ms per channel sweep with each of `rows`
+    candidates a visit: its device ms at the first visit's shape times the
+    sweep's visits."""
+    from snesimage_torch.ops import cuda_dither
+
+    state, config = prepared_state(img, params)
+    visits = config.subpalette_count * config.subpalette_size * 3
+    out = []
+    for n in rows:
+        cand5 = visit_candidates(state)[:n].contiguous()
+        out.append(visits * device_ms(
+            lambda: cuda_dither.dither_remap_candidates(
+                state.rgb, state.alpha, state.tile_palettes, state.palette,
+                0, 0, cand5, config.perceptual_palettes), runs=10))
+    return out
+
+
+def phase_dither_proxy(img, smi, dithered: dict):
+    """The dither proxy (`dither_proxy` 8): the dithered recipe for 2 steps
+    and the dithered perceptual one for 1 step, each visit ranking its 48
+    candidates by their undithered coarse score (kernel A's prologue and
+    kernel C or D) before kernel G remaps the top 8. Kernel G's device ms
+    per sweep at 8 rows against 48."""
+    a, b, c, d, _, _, g = WRAPPERS
+    out = {}
+    for key, label, params, present in (
+            ("proxy", "dithered, dither_proxy 8",
+             dict(DITHER, dither_proxy=8, max_steps=2), (a, b, c, g)),
+            ("proxy_perceptual", "dithered perceptual, dither_proxy 8",
+             dict(DITHER_PERCEPTUAL, dither_proxy=8, max_steps=1),
+             (a, b, d, g))):
+        errors, secs, launches, _, err0 = _run_checked(label, img, params,
+                                                       present)
+        out[key] = launches
+        g8, g48 = _g_sweep_ms(img, params)
+        print(f"phase 41 {label}: {len(errors)} steps, {secs:.3f} s ("
+              + (f"the unproxied dithered run {dithered['seconds']:.3f} s "
+                 f"for {len(dithered['errors'])} steps; "
+                 if key == "proxy" else "")
+              + f"kernel G {g8:.3f} ms device a sweep at 8 rows, {g48:.3f} "
+              f"ms at 48), init error {err0}, step errors {errors}, "
+              f"launches {launches}; card '{smi}'", flush=True)
+    return out
+
+
+WINDOW = 4  # channel_window of the windowed run
+
+
+def phase_windows(img, smi):
+    """Windowed channel descent: the balanced recipe with `channel_window`
+    4 for 8 steps through `pipeline.optimize`, whose `on_step` hook
+    (which changes no bit of the run) stamps each sweep's end on the host
+    clock; which steps were windowed, and the seconds of a windowed sweep
+    against an exhaustive one."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+
+    a, b, c, *_ = WRAPPERS
+    params = dict(BALANCED, channel_window=WINDOW)
+    config = QuantConfig(**params)
+    state, _ = prepared_state(img, params)
+    refp = refine.make_reference_pyramid(state)
+    err0 = float(refine.frame_error_fused(state, config, refp))
+    stamps = [time.perf_counter()]
+    wrappers = _zero_counts()
+    _, errs = pipeline.optimize(
+        state, config, refp=refp,
+        on_step=lambda *_: stamps.append(time.perf_counter()))
+    launches = _read_counts(wrappers, "windowed", (a, b, c))
+    errors = [float(e) for e in errs]
+    check(len(errors) == config.max_steps, f"{len(errors)} windowed steps")
+    check(all(np.isfinite(errors)), "windowed: non-finite step error")
+    check(all(y <= x for x, y in zip([err0] + errors, errors)),
+          "windowed: step errors increase")
+    check(errors[-1] < err0, f"windowed: no improvement on {err0}")
+    windowed = [pipeline._is_window_step(config, k)
+                for k in range(config.max_steps)]
+    check(any(windowed) and not all(windowed), f"windowed steps {windowed}")
+    secs = np.diff(stamps)
+    win = [float(t) for t, w in zip(secs, windowed) if w]
+    full = [float(t) for t, w in zip(secs, windowed) if not w]
+    print(f"phase 42 windows: balanced channel_window {WINDOW}, windowed "
+          f"steps {[k for k, w in enumerate(windowed) if w]}, seconds a "
+          f"sweep {[float(t) for t in secs]}: windowed mean "
+          f"{statistics.mean(win):.4f} s, exhaustive mean (after the first) "
+          f"{statistics.mean(full[1:]):.4f} s, init error {err0}, step errors "
+          f"{errors}, launches {launches}; card '{smi}'", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2005,7 +2358,7 @@ def main() -> int:
     smi, name = phase_device()
     records = phase_kernels(img)
     a, b, c, d, e, f, g = WRAPPERS
-    runs, balanced = {}, {}
+    runs, balanced, dithered = {}, {}, {}
     init_state = phase_init_hash(img, BALANCED, INIT_HASH, "phase 3")
     runs["balanced"] = phase_main_path(
         img, init_state, smi, BALANCED, "phase 4", "balanced", (a, b, c), 1,
@@ -2021,7 +2374,8 @@ def main() -> int:
                                   by_name["multiscale_feature_sums"]))
     init_state = phase_init_hash(img, DITHER, INIT_HASH_DITHER, "phase 10")
     runs["dither"] = phase_main_path(
-        img, init_state, smi, DITHER, "phase 11", "dithered", (a, b, g), 0)
+        img, init_state, smi, DITHER, "phase 11", "dithered", (a, b, g), 0,
+        record=dithered)
     init_state = phase_init_hash(img, DITHER_PERCEPTUAL,
                                  INIT_HASH_DITHER_PERCEPTUAL, "phase 12")
     runs["dither_perceptual"] = phase_main_path(
@@ -2073,12 +2427,25 @@ def main() -> int:
     runs["interactive"] = phase_interactive(img, smi)
     runs["hybrid"] = phase_hybrid(img, smi)
     phase_profile_dir(img, smi)
+    three_records = phase_three_level_kernels(img, by_name[b])
+    three_runs, frames = phase_three_level_runs(img, smi, balanced)
+    runs.update(three_runs)
+    runs["gate_coarse"] = phase_gate_coarse(img, smi, balanced)
+    runs.update(phase_dither_proxy(img, smi, dithered))
+    runs["windows"] = phase_windows(img, smi)
     path_of = {d: "perceptual", g: "dither", e: "geometry",
                f: "geometry_perceptual"}
     for r in records:
         r["launches_by_path"] = {path: n[r["name"]] for path, n in runs.items()}
         r["launches"] = runs[path_of.get(r["name"], "balanced")][r["name"]]
-    records.sort(key=lambda r: WRAPPERS.index(r["name"]))
+    for r, path in zip(three_records,
+                       ("three_level", "three_level_perceptual")):
+        wrapper = r["name"].removesuffix("_three_level")
+        r["launches_by_path"] = {k: n[wrapper] for k, n in frames.items()}
+        r["launches"] = frames[path][wrapper]
+    records += three_records
+    records.sort(key=lambda r: (WRAPPERS.index(r["name"].removesuffix(
+        "_three_level")), r["name"]))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -168,7 +168,8 @@ def main(argv: list[str] | None = None, *, device: str = "cuda") -> int:
                 "gate_margin=%g is inert in batch mode: batched sweeps "
                 "always score exactly", config.gate_margin,
             )
-            config = dataclasses.replace(config, gate_margin=0.0)
+            config = dataclasses.replace(config, gate_margin=0.0,
+                                         gate_coarse=False)
         indir = pathlib.Path(args.input_dir)
         outdir = pathlib.Path(args.output_dir)
         outdir.mkdir(parents=True, exist_ok=True)

@@ -12,9 +12,9 @@ pins them), because importing any module of that package imports JAX.
 host-stepped loop `pipeline.optimize` for `--resume`, `-v`,
 `--dump-every`, `--reassign-every` and `--reassign-tiles`; `--profile-dir`
 captures a `torch.profiler` trace of the optimisation. It writes the
-reference JSON and, when asked, a checkpoint and a preview. The four
-options the port leaves out exit 1 and name ROADMAP queue A item 17
-(`UNPORTED`).
+reference JSON and, when asked, a checkpoint and a preview. Every flag
+the JAX CLI takes runs, `--prescreen-pre`, `--dither-proxy`,
+`--channel-window` and `--gate-coarse` among them.
 
     python -m snesimage_torch.cli SRC.png OUT.json --opt-profile fast
 """
@@ -410,29 +410,6 @@ def resolve_portfolio_k(args) -> int:
     return 2 if args.opt_profile == "robust" else 1
 
 
-# Flags whose option the port leaves out: (flag, whether the parsed
-# arguments use it, what it needs). `main` exits 1 naming the first one used.
-UNPORTED = (
-    ("--prescreen-pre", lambda a: bool(a.prescreen_pre),
-     "the three-level prescreen (ROADMAP queue A item 17)"),
-    ("--dither-proxy", lambda a: bool(a.dither_proxy),
-     "the dither proxy (ROADMAP queue A item 17)"),
-    ("--channel-window", lambda a: a.channel_window > 0,
-     "windowed visits (ROADMAP queue A item 17)"),
-    ("--gate-coarse", lambda a: bool(a.gate_coarse),
-     "the coarse gate (ROADMAP queue A item 17)"),
-)
-
-
-def check_ported(args) -> None:
-    """Raises NotImplementedError naming the ROADMAP item of the first flag
-    in `args` whose option the port leaves out."""
-    for flag, used, what in UNPORTED:
-        if used(args):
-            raise NotImplementedError(
-                f"{flag} needs {what}, which is not ported")
-
-
 def _discarded_on_resume(args) -> list[str]:
     """The flags given with --resume that the checkpoint's config
     overrides: only --steps and --tol, stopping criteria, may change it."""
@@ -463,8 +440,8 @@ def _discarded_on_resume(args) -> list[str]:
 def main(argv: list[str] | None = None, *,
          device: str = "cuda") -> int:
     """Run the CLI on `device`: the card unless a caller (the tests) asks
-    for the CPU. Returns the exit code: 0 ok, 1 an error or a left-out
-    option (logged; raised with -v), 2 from argparse."""
+    for the CPU. Returns the exit code: 0 ok, 1 an error (logged; raised
+    with -v), 2 from argparse."""
     args = build_parser().parse_args(argv)
     setup_logger(logging.DEBUG if args.verbose else logging.INFO)
     log = logging.getLogger("snesimage_torch")
@@ -496,7 +473,6 @@ def main(argv: list[str] | None = None, *,
             log.info("Preview written to %s", args.preview)
 
     try:
-        check_ported(args)
         optimized = False
         config_fast = None  # phase 1's config under --opt-profile hybrid
         if args.resume:

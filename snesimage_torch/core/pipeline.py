@@ -75,8 +75,8 @@ def _step_visits(config: QuantConfig, step: int) -> Iterator[SlotVisit]:
 
 def schedule(config: QuantConfig, max_steps: int) -> Iterator[SlotVisit]:
     """Reference scheduler order (src/lib.rs:888-932) for `max_steps` full
-    steps, the NES triple-visit quirk coalesced. Windowed steps are not
-    ported (ROADMAP queue A item 17), so every channel step is exhaustive."""
+    steps, the NES triple-visit quirk coalesced. Whether a channel step is
+    windowed is `_is_window_step`'s to say."""
     for step in range(max_steps):
         yield from _step_visits(config, step)
 
@@ -183,6 +183,25 @@ def step_method(config: QuantConfig, step: int) -> str:
     return "random"
 
 
+def _windowing_active(config: QuantConfig) -> bool:
+    """Whether windowed channel descent (`channel_window`) applies at all:
+    on the channel schedule, never with NES palettes."""
+    return (config.channel_window > 0 and config.schedule == "channel"
+            and not config.nes)
+
+
+def _is_window_step(config: QuantConfig, step: int) -> bool:
+    """Whether step `step` (counted from the run's first step, so that a
+    resumed run lands on the same windows) is a windowed channel sweep:
+    the first `channel_window_warmup` sweeps and every
+    `channel_window_period`-th sweep after them are exhaustive, the rest
+    windowed. The stop rule fires only on exhaustive sweeps."""
+    if not _windowing_active(config):
+        return False
+    warm, per = config.channel_window_warmup, config.channel_window_period
+    return step >= warm and (step - warm) % per != per - 1
+
+
 def plateau_stop(history: list, cycle: int, tol: float) -> bool:
     """The stop rule of `optimize` (the JAX package's `_plateau_stop` and
     `_optimize_fused`): stop once the latest error in `history` (the mean
@@ -230,6 +249,7 @@ def _observed_step(state, config, refp, step, generator, on_slot):
     scored inside each visit's batch; never gated), `on_slot(visit,
     error)` after each. Draws what the sweep of the step draws."""
     err = None
+    window = _is_window_step(config, step)
     for visit in _step_visits(config, step):
         p, i = visit.palette, visit.index
         if visit.method == "nes":
@@ -239,7 +259,8 @@ def _observed_step(state, config, refp, step, generator, on_slot):
                                             p, i)
         else:
             res = refine.refine_slot_channel(state, config, refp, p, i,
-                                             visit.channel, generator)
+                                             visit.channel, generator,
+                                             window)
         state, err = res.state, res.error
         on_slot(visit, float(err))
     return state, err
@@ -266,6 +287,9 @@ def optimize(
     schedule compares one cycle apart, `_stop_cycle`). Where the config
     gates (`refine._gating_active`), a starved gated step forces the next
     step exact, and only an exact step's sub-tol improvement stops the run.
+    With `channel_window`, the steps `_is_window_step` names sweep windowed
+    visits; such a step never stops the run, and a pending confirmation
+    waits for the next exhaustive step.
 
     Hooks, as the JAX package's: `on_step(step, state, errors_so_far)`
     after every sweep (the CLI's `--dump-every`); `on_step_state(step,
@@ -299,7 +323,10 @@ def optimize(
     for local in range(steps):
         step = start_step + local
         method = step_method(config, step)
-        this_exact = gating and need_exact
+        window = _is_window_step(config, step)
+        # A pending confirmation lands only on an exhaustive sweep: a
+        # windowed one can never stop the run.
+        this_exact = gating and need_exact and not window
         gate_kw = dict(use_gate=not this_exact, gate=gate) if gates else {}
         if on_slot is not None:
             state, err = _observed_step(state, config, refp, step, generator,
@@ -310,8 +337,11 @@ def optimize(
             state, err = refine.sweep_random(state, config, refp, generator,
                                              err, **gate_kw)
         else:
+            # The keyword only where the step is windowed: the sweeps
+            # take the same arguments as ever on every other step.
+            win_kw = dict(window=True) if window else {}
             state, err = refine.sweep_channel(state, config, refp, err,
-                                              explore, **gate_kw)
+                                              explore, **gate_kw, **win_kw)
         errors.append(err)
         if on_step is not None or on_step_state is not None:
             host_errors.append(float(err))
@@ -330,14 +360,18 @@ def optimize(
                 need_exact = False
         if config.converge_tol > 0:
             history.append(float(err.mean()))
-            starved = plateau_stop(history, cycle, config.converge_tol)
+            # A windowed sweep's small step never stops the run: the next
+            # exhaustive sweep may still jump.
+            starved = (plateau_stop(history, cycle, config.converge_tol)
+                       and not window)
             if gating:
                 # Exact confirmation before any stop: a starved gated sweep
-                # forces the next sweep exact, and only an exact sweep's
-                # sub-tol step stops the run.
+                # forces the next exhaustive sweep exact, and only an exact
+                # sweep's sub-tol step stops the run.
                 if starved and this_exact:
                     break
-                need_exact = starved and not this_exact
+                need_exact = (need_exact and window) or (
+                    starved and not this_exact)
             elif starved:
                 break
         if reassign_every > 0 and (local + 1) % reassign_every == 0:
@@ -389,7 +423,6 @@ def run_fused(
     steps from step `start_step` of the schedule and its random stream.
     Returns (state, per-step errors, {"total_seconds", "final_error"}),
     like the JAX package's run_fused; the host waits for the device once."""
-    refine.check_slice(config)
     device = _check_device(device, "run_fused")
     state = new_state(source_rgba, config, device)
     t0 = time.perf_counter()  # after new_state, as the JAX package's clock
@@ -434,8 +467,6 @@ def run_fused_hybrid(
                 f"{getattr(config_fast, field)!r} vs "
                 f"{getattr(config_quality, field)!r}"
             )
-    refine.check_slice(config_fast)
-    refine.check_slice(config_quality)
     device = _check_device(device, "run_fused_hybrid")
     state = new_state(source_rgba, config_fast, device)
     t0 = time.perf_counter()
@@ -467,7 +498,6 @@ def run(
     Returns (state, per-step errors, {"init_seconds", "optimize_seconds",
     "final_error"}); each clock stops after the device has finished its
     stage."""
-    refine.check_slice(config)
     device = _check_device(device, "run")
     sync = torch.cuda.synchronize if device.type == "cuda" else (
         lambda: None)

@@ -25,6 +25,14 @@ With `prescreen` K > 0 a visit scores its candidates in stages:
      (0, K) they are ranked at scale 1 by kernel B (one in-kernel 2x2 mean
      first) and the top M scored at scale 0; otherwise all K are scored at
      scales 0 and 1 in one call.
+With `prescreen_pre` Q (the three-level prescreen, `_three_level`) the
+first stage splits in two where the sides are multiples of 8 and the batch
+is larger than Q: every candidate is ranked by the exact scale-3..5 score
+of its frame's 2x2 means (kernel C or D in their three-level mode, which
+also return the quarter-resolution frames; or kernel E or F and kernel B
+with one 2x2 mean in the loads), and only the top Q are scored at scale 2,
+by kernel B on their quarter frames; the scale-2..5 rank of stage 2 then
+takes those Q, the rest +inf.
 Unscored candidates report +inf. Without a prescreen (K = 0, a batch no
 larger than K, or a NES visit, where a misranked candidate would be taken
 even if worse) every candidate's frame goes through kernel B at all six
@@ -70,6 +78,23 @@ visit rejects). The carry takes the accepted candidate's two sums. A sweep
 with `use_gate=False` scores every visit exactly and keeps the gated
 ranking (the stop rule's confirmation sweep, core/pipeline.py); `gate=False`
 turns the machinery off (the batched paths, as in the JAX package).
+With `gate_coarse` a second gate comes first: the best coarse candidate's
+full error is predicted from its scale-2..5 sum and the carried terms of
+scales 0 and 1, and where that beats the carried error by no more than the
+margin (and no explore candidate is among the coarse finalists) the visit
+closes before its finalists are scored: kernel B's flag closes both the
+scale-1 and the scale-0 call. `gate_tally` counts the two closures apart.
+
+With `dither_proxy` K a dithered visit first ranks its candidates by
+their exact undithered coarse score (`candidate_errors` with
+`coarse_only`, from the slot context of the palette's own undithered
+remap, computed for the visit as the JAX package does), and only the top K
+(and the current colour, where it is scored inside the batch) go through
+kernel G, A's render and kernel B; the rest report +inf.
+
+With `window` (the pipeline's windowed channel steps, `channel_window`
+W) a channel visit scores the 2W values of the channel nearest the current
+one, clamped to [0, 31], instead of all 32.
 
 Every function here also takes a batched state (core/state.py: a leading
 image axis N on every field, and a reference pyramid an image, or one
@@ -77,10 +102,6 @@ that a seed portfolio's K seeds share): all images visit the same slots
 in the same order, each with its own candidates, its own accept decision
 and its own carried error, and each kernel launch serves all N images. The
 single-image functions are the same code without the leading axis.
-
-Not ported, and raising NotImplementedError (`check_slice`): the coarse
-gate, windowed visits, the three-level prescreen and the dither proxy
-(ROADMAP queue A item 17).
 """
 
 from __future__ import annotations
@@ -132,26 +153,9 @@ from snesimage_torch.ops.ssimulacra2 import (
     score_from_features,
     score_from_ssim_sum,
     ssim_weighted_sum,
+    ssimulacra2_from_ref_linear,
     stack_pyramids,
 )
-
-
-def check_slice(config: QuantConfig) -> None:
-    """Raises NotImplementedError, naming its ROADMAP item, for every
-    option the port leaves out."""
-    missing = [
-        (config.gate_coarse,
-         "the coarse gate (ROADMAP queue A item 17)"),
-        (config.channel_window > 0,
-         "windowed visits (ROADMAP queue A item 17)"),
-        (config.prescreen_pre > 0,
-         "the three-level prescreen (ROADMAP queue A item 17)"),
-        (config.dither_proxy > 0,
-         "the dither proxy (ROADMAP queue A item 17)"),
-    ]
-    for off_slice, what in missing:
-        if off_slice:
-            raise NotImplementedError(f"{what} is not ported")
 
 
 def make_reference_pyramid(state: QuantState):
@@ -188,7 +192,6 @@ def full_remap(state: QuantState, config: QuantConfig) -> QuantState:
     src/lib.rs:425-501). Dithered: kernel G with one candidate and no
     slot overridden (p = -1), all images of a batched state in one
     launch."""
-    check_slice(config)
     if config.dither:
         palette = state.palette
         pm = dither_remap_candidates(
@@ -213,6 +216,15 @@ def frame_error_fused(
     frames = rendered.movedim(-1, -3).unsqueeze(-4).contiguous()
     feats = fused_scale_feature_block(refp, frames, 0, NUM_SCALES)
     return (100.0 - score_from_features(feats))[..., 0]
+
+
+def error_of(state: QuantState, config: QuantConfig, refp) -> torch.Tensor:
+    """Reference `error()`, 100 - SSIMULACRA2 of the state's rendered frame
+    (src/lib.rs:503-548), through `ssimulacra2_from_ref_linear`: the value
+    of `frame_error_fused`, a 0-dim tensor, or (N,) for a batched state."""
+    rendered = _per_image(state, lambda st: render_linear(
+        st.palette_map, st.alpha, st.tile_palettes, st.palette))
+    return 100.0 - ssimulacra2_from_ref_linear(refp, rendered)
 
 
 def _gating_active(config: QuantConfig) -> bool:
@@ -259,11 +271,13 @@ _GATE_TALLIES: list = []
 @contextlib.contextmanager
 def gate_tally():
     """Counts gated visits and closed gates while the block runs: yields a
-    dict whose "visits" (an int, one an image and visit) and "closed" (a
-    0-dim device tensor, or None before the first gated visit; read it
-    after the block) grow with every gated visit. A visit that counts adds
-    three device operations; outside the block nothing is counted."""
-    tally = {"visits": 0, "closed": None}
+    dict whose "visits" (an int, one an image and visit) grows with every
+    gated visit, "closed" with every visit whose rank-1 gate closed and
+    "closed_coarse" with every visit whose coarse gate (`gate_coarse`)
+    closed first (0-dim device tensors, or None before the first such
+    gate; read them after the block). A visit that counts adds a few
+    device operations; outside the block nothing is counted."""
+    tally = {"visits": 0, "closed": None, "closed_coarse": None}
     _GATE_TALLIES.append(tally)
     try:
         yield tally
@@ -271,15 +285,14 @@ def gate_tally():
         _GATE_TALLIES.remove(tally)
 
 
-def _count_gates(gate_open: torch.Tensor | None, n: int) -> None:
-    if not _GATE_TALLIES:
-        return
-    closed = None if gate_open is None else (~gate_open).sum()
+def _count_gates(n: int, **closed) -> None:
+    """Adds n gated visits and, for each key of `closed` ("closed",
+    "closed_coarse"), the bool tensor's closed gates to every tally."""
     for tally in _GATE_TALLIES:
         tally["visits"] += n
-        if closed is not None:
-            tally["closed"] = (closed if tally["closed"] is None
-                               else tally["closed"] + closed)
+        for key, shut in closed.items():
+            add = shut.sum()
+            tally[key] = add if tally[key] is None else tally[key] + add
 
 
 def compute_d_all(state: QuantState, config: QuantConfig) -> torch.Tensor:
@@ -418,14 +431,15 @@ def ds4_no_candidate(ctx: SlotContext) -> torch.Tensor:
 
 
 def coarse_inputs(ctx: SlotContext, cand8: torch.Tensor,
-                  cand_lin: torch.Tensor, refp):
+                  cand_lin: torch.Tensor, refp, start: int = 2):
     """The arguments of kernel C (red-mean) or kernel D (perceptual) for
     candidates (cand8, cand_lin): those of kernel E or F, the candidates'
     linear colours, the 4x4 means of the no-candidate frame and the
-    reference planes of scales 2..5."""
+    reference planes of scales `start`..5 (3.. in the three-level mode)."""
     target, cand, *rule, ml, _, _ = pooled_inputs(ctx, cand8)
     flat_refs = tuple(
-        a.movedim(-1, -3) for sc in range(2, NUM_SCALES) for a in refp[sc]
+        a.movedim(-1, -3) for sc in range(start, NUM_SCALES)
+        for a in refp[sc]
     )
     return (target, cand, cand_lin, *rule, ml, ds4_no_candidate(ctx),
             flat_refs)
@@ -438,6 +452,17 @@ def candidate_frames(ctx: SlotContext, dist: torch.Tensor,
     (each with the context's leading image axis, if it has one)."""
     return torch.where(ctx.win_mask(dist).unsqueeze(-3),
                        cand_lin[..., None, None], ctx.lnc.unsqueeze(-4))
+
+
+def _put(x: torch.Tensor, ix: torch.Tensor, rows: torch.Tensor):
+    """x with its rows `ix` on the candidate axis set to `rows`, indexed
+    as `_take` indexes (a copy; x is left as it is)."""
+    out = x.clone()
+    if ix.dim() == 1:
+        out[ix] = rows
+    else:
+        out[_image_rows(ix.shape[0], ix.device), ix] = rows
+    return out
 
 
 def _keep(rank: torch.Tensor, k: int, base_rows: int) -> torch.Tensor:
@@ -459,24 +484,47 @@ def _gated_finalists(refp, feats_c: torch.Tensor, sel: torch.Tensor, build,
     at scale 0 where the gate opens. Returns ((..., B) errors, +inf where
     the gate closed, and (..., B, 2) per-scale weighted sums, zero where it
     closed); `gate` is (carried sums, carried error, whether the gate may
-    close, the rows before the explore draws or None)."""
+    close, the rows before the explore draws or None).
+
+    With `gate_coarse` the coarse gate decides first, from the best coarse
+    candidate's scale-2..5 sum and both carried terms (`sel[..., 0]`: the
+    prediction falls with the coarse sum). Where it closes, kernel B's flag
+    closes the scale-1 call too, and the visit is closed whatever the
+    rank-1 gate says."""
     gb, base_full, enable, n_gated = gate
     b = feats_c.shape[-4]
-    feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1)
+    explore = n_gated is not None and n_gated < b
+    open_c = flag_c = None
+    if enable and config.gate_coarse:
+        wsum = ssim_weighted_sum(_take(feats_c, sel[..., :1]))[..., 0]
+        pred = 100.0 - score_from_ssim_sum(gb[..., 0] + gb[..., 1] + wsum)
+        open_c = pred - base_full < -config.gate_margin
+        if explore:
+            # An explore row among the coarse finalists opens it.
+            open_c = open_c | (sel >= n_gated).any(-1)
+        flag_c = open_c.to(torch.int32).reshape(-1)
+    feats_1 = fused_scale_feature_block(refp, build(sel), 1, 1, pre_ds=1,
+                                        gate=flag_c)
     s15 = ssim_weighted_sum(feats_1 + _take(feats_c, sel))
     rank1 = 100.0 - score_from_ssim_sum(gb[..., 0:1] + s15)
     sel2 = _smallest(rank1, config.prescreen_full)
     sel_f = _take(sel, sel2)
     gate_open = flag = None
+    closed = {}
     if enable:
         gate_open = (rank1.min(-1).values - base_full
                      < -config.gate_margin)
-        if n_gated is not None and n_gated < b:
+        if explore:
             # Explore rows are exempt: their gains are often scale-0 ones
             # the prediction cannot see.
             gate_open = gate_open | (sel_f >= n_gated).any(-1)
+        closed["closed"] = ~gate_open
+        if open_c is not None:
+            closed = {"closed": open_c & ~gate_open,
+                      "closed_coarse": ~open_c}
+            gate_open = gate_open & open_c
         flag = gate_open.to(torch.int32).reshape(-1)
-    _count_gates(gate_open, gb[..., 0].numel())
+    _count_gates(gb[..., 0].numel(), **closed)
     feats_0 = fused_scale_feature_block(refp, build(sel_f), 0, 1, gate=flag)
     full = 100.0 - score_from_features(
         feats_0 + _take(feats_1, sel2) + _take(feats_c, sel_f))
@@ -492,15 +540,16 @@ def _gated_finalists(refp, feats_c: torch.Tensor, sel: torch.Tensor, build,
             torch.where(gate_open[..., None, None], sums, 0.0))
 
 
-def _score_finalists(refp, feats_c: torch.Tensor, build, config: QuantConfig,
-                     base_rows: int, gate=None):
+def _score_finalists(refp, feats_c: torch.Tensor, coarse: torch.Tensor, build,
+                     config: QuantConfig, base_rows: int, gate=None):
     """(..., B) exact errors of the candidates that the prescreen keeps,
-    +inf for the rest, from all candidates' scale-2..5 features `feats_c`;
-    `build(ix)` gives the full-resolution frames of candidates `ix`. With
-    a `gate` (carried errors only), the gated stage `_gated_finalists`,
+    +inf for the rest, from all candidates' scale-2..5 features `feats_c`
+    and their coarse rank `coarse` (+inf where an earlier stage dropped
+    them); `build(ix)` gives the full-resolution frames of candidates `ix`.
+    With a `gate` (carried errors only), the gated stage `_gated_finalists`,
     which also returns the per-scale sums."""
     k, m = config.prescreen, config.prescreen_full
-    sel = _keep(100.0 - score_from_features(feats_c), k, base_rows)
+    sel = _keep(coarse, k, base_rows)
     if gate is not None:
         return _gated_finalists(refp, feats_c, sel, build, config, gate)
     if 0 < m < k:
@@ -522,9 +571,37 @@ def _prescreens(config: QuantConfig, b: int, allow_prescreen: bool,
                 and b > config.prescreen + base_rows)
 
 
+def _three_level(config: QuantConfig, b: int, base_rows: int, h: int,
+                 w: int) -> bool:
+    """Whether a prescreened visit of b candidates splits its coarse stage
+    in three levels (`prescreen_pre` Q; the JAX package's conditions): more
+    candidates than Q, Q at least the K finalists, sides that are
+    multiples of 8."""
+    q = config.prescreen_pre
+    return bool(q and b > q + base_rows and q >= config.prescreen + base_rows
+                and h % 8 == 0 and w % 8 == 0)
+
+
+def _pre_ranked(refp, feats_pre: torch.Tensor, frames_q: torch.Tensor,
+                q: int, base_rows: int):
+    """The three-level cascade's first two levels: every candidate ranked
+    by its exact scale-3..5 score (`feats_pre`), the top q (with row 0 in
+    the legacy mode) scored at scale 2 by kernel B on their quarter frames.
+    Returns (scale-2..5 features, zero for the others; the coarse rank,
+    +inf for the others)."""
+    sel = _keep(100.0 - score_from_features(feats_pre), q, base_rows)
+    feats_sel = (fused_scale_feature_block(refp, _take(frames_q, sel), 2, 1)
+                 + _take(feats_pre, sel))
+    rank = torch.full(feats_pre.shape[:-3], float("inf"),
+                      device=feats_pre.device)
+    return (_put(torch.zeros_like(feats_pre), sel, feats_sel),
+            rank.scatter(-1, sel, 100.0 - score_from_features(feats_sel)))
+
+
 def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
                      cand5: torch.Tensor, allow_prescreen: bool = True,
-                     carried_base: bool = True, gate=None):
+                     carried_base: bool = True, gate=None,
+                     coarse_only: bool = False):
     """(B,) float32 exact errors of the candidates `cand5` (B, 3), +inf for
     those a prescreen dropped; and `dists`, which gives the (n, H, W)
     distance planes of candidates `ix` (n,) (kernel D's or F's rows in
@@ -534,21 +611,33 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
     leading image axis N: (N, B, 3) candidates give (N, B) errors, and
     `dists` takes (N, n) indices. With a `gate` (see `_gated_finalists`)
     a third value: the (..., B, 2) weighted sums of scales 0 and 1 that
-    the gate's carry takes from the accepted candidate."""
+    the gate's carry takes from the accepted candidate.
+
+    `coarse_only` (the dither proxy's rank): every candidate's exact
+    scale-2..5 score where the visit prescreens (never in three levels),
+    else its full error; all finite."""
     b = cand5.shape[-2]
     base_rows = 0 if carried_base else 1
     h, w = ctx.best_val.shape[-2:]
     prescreened = _prescreens(config, b, allow_prescreen, base_rows)
+    three = (prescreened and not coarse_only
+             and _three_level(config, b, base_rows, h, w))
+    start = 3 if three else 2  # the first scale of the coarse rank
     fused = prescreened and fused_coarse_ok(h, w)
     cand8 = expand_5bit_to_8bit(cand5)  # (B, 3)
     cand_lin = srgb_u8_to_linear(cand8)
-    sums = pooled = dcand = None
-    if fused and ctx.perceptual:
-        sums, dcand = coarse_feature_sums_ciede(
-            *coarse_inputs(ctx, cand8, cand_lin, refp))
-    elif fused:
-        sums = coarse_feature_sums_redmean(
-            *coarse_inputs(ctx, cand8, cand_lin, refp))
+    sums = pooled = dcand = frames_q = None
+    if fused:
+        args = coarse_inputs(ctx, cand8, cand_lin, refp, start)
+        mode = dict(pre_ds=1, emit_frames=True) if three else {}
+        if ctx.perceptual:
+            out = coarse_feature_sums_ciede(*args, **mode)
+            sums, dcand = out[:2]
+        else:
+            out = coarse_feature_sums_redmean(*args, **mode)
+            sums = out[0] if three else out
+        if three:
+            frames_q = out[-1]
     elif ctx.perceptual:
         # Also without a prescreen: the frames below need every
         # candidate's distance plane on the tiles of p, and kernel F
@@ -572,22 +661,30 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
             return errs, dists
         # A batch too small to prescreen has no stage to skip; the carry
         # takes the sums from the full features.
-        _count_gates(None, gate[0][..., 0].numel())
+        _count_gates(gate[0][..., 0].numel())
         return errs, dists, _scale_sums(feats)
     if fused:
         sizes = [refp[sc][0].shape[-3] * refp[sc][0].shape[-2]
-                 for sc in range(2, NUM_SCALES)]
-        feats_c = finalize_feature_sums(sums, sizes, 2)
+                 for sc in range(start, NUM_SCALES)]
+        feats_c = finalize_feature_sums(sums, sizes, start)
     else:
+        # Kernel B takes the quarter frames down once for scale 3.
         frames_q = coarse_frames(pooled, cand_lin, ds4_no_candidate(ctx))
-        feats_c = fused_scale_feature_block(refp, frames_q, 2,
-                                            NUM_SCALES - 2)
+        feats_c = fused_scale_feature_block(refp, frames_q, start,
+                                            NUM_SCALES - start,
+                                            pre_ds=start - 2)
+    if three:
+        feats_c, coarse = _pre_ranked(refp, feats_c, frames_q,
+                                      config.prescreen_pre, base_rows)
+    else:
+        coarse = 100.0 - score_from_features(feats_c)
+    if coarse_only:
+        return coarse, dists
+    out = _score_finalists(refp, feats_c, coarse, build, config, base_rows,
+                           gate)
     if gate is None:
-        return _score_finalists(refp, feats_c, build, config,
-                                base_rows), dists
-    errs, sums = _score_finalists(refp, feats_c, build, config, base_rows,
-                                  gate)
-    return errs, dists, sums
+        return out, dists
+    return out[0], dists, out[1]
 
 
 def _undithered_machinery(
@@ -599,7 +696,7 @@ def _undithered_machinery(
     plane (from `dists`) where the JAX package's take the colour:
 
       errors(refp, cand5, allow_prescreen=True, carried_base=True,
-             gate=None) ->
+             gate=None, coarse_only=False) ->
         ((B,) float32 errors, +inf for candidates a prescreen dropped;
         `dists`, as returned by `candidate_errors`; with a gate, the
         per-scale sums);
@@ -614,9 +711,9 @@ def _undithered_machinery(
     ctx = slot_context(state, config, p, i, d_all, t_lab)
 
     def errors(refp, cand5, allow_prescreen=True, carried_base=True,
-               gate=None):
+               gate=None, coarse_only=False):
         return candidate_errors(ctx, config, refp, cand5, allow_prescreen,
-                                carried_base, gate)
+                                carried_base, gate, coarse_only)
 
     def final_map(dist):
         return torch.where(ctx.win_mask(dist.unsqueeze(-3)).squeeze(-3), i,
@@ -639,8 +736,32 @@ def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
     for those a prescreen dropped, and all candidates' (B, H, W) palette
     maps. Without `carried_base` row 0 is the current colour and survives
     every ranking. A batched state gives (N, B) errors and (N, B, H, W)
-    maps, all images' candidates in one launch of kernel G."""
+    maps, all images' candidates in one launch of kernel G.
+
+    With `dither_proxy` K (and more than K candidates besides row 0) only
+    the K with the best undithered coarse score (`candidate_errors` with
+    `coarse_only`, from the slot context of the palette's undithered remap:
+    `compute_d_all` and kernel A's prologue, which read the palette and
+    never the dithered map) go through kernel G and the scoring, with row 0
+    where it is the current colour; the others get +inf and zero maps,
+    which nothing reads."""
     base_rows = 0 if carried_base else 1
+    b = cand5.shape[-2]
+    if config.dither_proxy and allow_prescreen and (
+            b - base_rows > config.dither_proxy):
+        und_errors = _undithered_machinery(state, config, p, i)[0]
+        # Every row ranked as a candidate; _keep keeps row 0 besides.
+        proxy, _ = und_errors(refp, cand5, carried_base=True,
+                              coarse_only=True)
+        sel = _keep(proxy, config.dither_proxy, base_rows)
+        # Its batch is dither_proxy + base_rows rows: no second proxy.
+        errs_k, maps_k = _candidate_errors_dithered(
+            state, config, refp, p, i, _take(cand5, sel), allow_prescreen,
+            carried_base)
+        errs = torch.full(cand5.shape[:-1], float("inf"),
+                          device=errs_k.device)
+        maps = maps_k.new_zeros((*cand5.shape[:-1], *maps_k.shape[-2:]))
+        return errs.scatter(-1, sel, errs_k), _put(maps, sel, maps_k)
     alpha, tiles = state.alpha, state.tile_palettes.contiguous()
     maps = dither_remap_candidates(
         *_image_operands(state), state.palette, p, i, cand5,
@@ -656,8 +777,8 @@ def _candidate_errors_dithered(state: QuantState, config: QuantConfig, refp,
     # The coarse rank takes the full-resolution frames down inside kernel B.
     feats_c = fused_scale_feature_block(refp, frames, 2, NUM_SCALES - 2,
                                         pre_ds=2)
-    errs = _score_finalists(refp, feats_c, lambda ix: _take(frames, ix),
-                            config, base_rows)
+    errs = _score_finalists(refp, feats_c, 100.0 - score_from_features(
+        feats_c), lambda ix: _take(frames, ix), config, base_rows)
     return errs, maps
 
 
@@ -772,18 +893,36 @@ def _slot_random(state, config, refp, p, i, d_all=None, base_err=None,
     )
 
 
+def _channel_values(current: torch.Tensor, channel: int, window: int):
+    """(..., n) values of `channel` a channel visit scores: all 32, or
+    with `window` W the 2W nearest the current one (current - W ..
+    current - 1, current + 1 .. current + W) clamped to [0, 31], which
+    may repeat an end value (the first copy wins the argmin)."""
+    dev = current.device
+    if not window:
+        return torch.arange(32, dtype=torch.int32, device=dev).expand(
+            *current.shape[:-1], 32)
+    offsets = torch.cat([torch.arange(-window, 0, device=dev),
+                         torch.arange(1, window + 1, device=dev)])
+    return (current[..., channel:channel + 1] + offsets).clamp(0, 31).to(
+        torch.int32)
+
+
 def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
                   generator=None, t_lab=None, gate_base=None,
-                  gate_enable=True):
-    """One visit: the 32 values of `channel` for slot (p, i), plus
-    `channel_explore` uniform random full-RGB candidates drawn from
-    `generator` when one is given. With `gate_base`, gated (`_pick`); the
-    explore draws are exempt from the gate."""
+                  gate_enable=True, window=False):
+    """One visit: the 32 values of `channel` for slot (p, i) (with
+    `window`, the 2 * channel_window nearest the current one,
+    `_channel_values`), plus `channel_explore` uniform random full-RGB
+    candidates drawn from `generator` when one is given. With `gate_base`,
+    gated (`_pick`); the explore draws are exempt from the gate."""
     current = state.palette[..., p, i, :]
     lead = current.shape[:-1]
-    sweep5 = current.unsqueeze(-2).repeat(*(1,) * len(lead), 32, 1)
-    sweep5[..., channel] = torch.arange(32, dtype=torch.int32,
-                                        device=current.device)
+    values = _channel_values(current, channel,
+                             config.channel_window if window else 0)
+    sweep5 = current.unsqueeze(-2).repeat(*(1,) * len(lead),
+                                          values.shape[-1], 1)
+    sweep5[..., channel] = values
     n_gated = None
     if generator is not None and config.channel_explore > 0:
         n_gated = sweep5.shape[-2]
@@ -834,22 +973,21 @@ def _slot_result(before: QuantState, visit) -> SlotResult:
 
 def refine_slot_random(state, config, refp, generator, p, i) -> SlotResult:
     """One random visit with the current colour scored inside the batch."""
-    check_slice(config)
     return _slot_result(state, _slot_random(state, config, refp, p, i,
                                             generator=generator))
 
 
 def refine_slot_channel(state, config, refp, p, i, channel,
-                        generator=None) -> SlotResult:
-    """One channel visit with the current colour scored inside the batch."""
-    check_slice(config)
+                        generator=None, window=False) -> SlotResult:
+    """One channel visit with the current colour scored inside the batch;
+    `window` as for `_slot_channel`."""
     return _slot_result(state, _slot_channel(state, config, refp, p, i,
-                                             channel, None, None, generator))
+                                             channel, None, None, generator,
+                                             window=window))
 
 
 def refine_slot_nes(state, config, refp, p, i) -> SlotResult:
     """One NES visit."""
-    check_slice(config)
     return _slot_result(state, _slot_nes(state, config, refp, p, i))
 
 
@@ -888,7 +1026,6 @@ def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
     the visits (one an image for a batched state). Where the config gates
     (`_gating_active`) and `gate` holds, the visits are gated;
     `use_gate=False` scores each exactly (the stop rule's confirmation)."""
-    check_slice(config)
     s = config.subpalette_size
     err = base_err
     if err is None:
@@ -905,13 +1042,12 @@ def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
 
 def sweep_channel(state: QuantState, config: QuantConfig, refp,
                   base_err=None, generator=None, use_gate: bool = True,
-                  gate: bool = True):
+                  gate: bool = True, window: bool = False):
     """One channel step: every slot visited for channels 0, 1, 2 in turn
     (src/lib.rs:917-923), C * S * 3 visits. Returns (state, error): the
     exact error of the resulting state, carried through the visits (one an
     image for a batched state). `use_gate` and `gate` as for
-    `sweep_random`."""
-    check_slice(config)
+    `sweep_random`; `window` makes every visit windowed (`_slot_channel`)."""
     s = config.subpalette_size
     err = base_err
     if err is None:
@@ -923,7 +1059,7 @@ def sweep_channel(state: QuantState, config: QuantConfig, refp,
         carry, gb = _visit(_slot_channel, carry, gb, config, refp,
                            k // (s * 3), (k // 3) % s, k % 3,
                            generator=generator, t_lab=t_lab,
-                           gate_enable=use_gate)
+                           gate_enable=use_gate, window=window)
     return carry[0], carry[1]
 
 
@@ -932,7 +1068,6 @@ def sweep_nes(state: QuantState, config: QuantConfig, refp, base_err=None):
     error of the last visit's colour, which is the resulting state's.
     `base_err` is taken for the schedule's sake and not used: a NES visit
     never compares with the current error."""
-    check_slice(config)
     s = config.subpalette_size
     d_all, t_lab = _sweep_caches(state, config)
     err = None

@@ -3,8 +3,10 @@
 // one frame per thread-block cluster of kClusterBlocks = 4 blocks of 256
 // threads on neighbouring SMs, so that a 48-candidate visit spreads 192
 // blocks over the card's 132 SMs. C and D give it a candidate's
-// quarter-resolution frame from its pooled win mask (PooledFrame), kernel B
-// a frame's first small scale as nested 2x2 means of the caller's frame.
+// quarter-resolution frame from its pooled win mask (PooledFrame), or, in
+// their three-level mode, that frame's 2x2 means (EighthFrame, which also
+// writes the quarter frame out); kernel B a frame's first small scale as
+// nested 2x2 means of the caller's frame.
 //
 // 1. Assemble the first scale over the whole cluster, one warp of 32
 //    consecutive cells at a time. C and D pool each cell's 4x4 pixels with
@@ -48,7 +50,9 @@
 // rank 3 the linear frame, reused for the second scale's blurred fields
 // and spare planes (48 KB), and the second scale's linear frame, XYB and
 // img1 planes (12 KB each): 99 KB, so two blocks fit on an SM and every
-// cluster of a 48-candidate visit is resident at once.
+// cluster of a 48-candidate visit is resident at once. In the three-level
+// mode the first scale is 32 x 32 (scale 3 at 256 x 256) and a block takes
+// 25 KB.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -317,6 +321,36 @@ struct PooledFrame {
   }
 };
 
+// The 1/8-resolution frame of kernels C and D's three-level mode (pre_ds
+// 1): cell `cell` of the (hq/2 x wq/2) frame is the 2x2 mean, in the order
+// of ds2_at, of four cells of the quarter-resolution frame `quarter`
+// builds. Each quarter cell is written to the candidate's quarter frame
+// `frames` (3 x hq x wq) as it is made; it belongs to one 1/8 cell, so it is
+// written once, by one thread, with no atomics. hq and wq are even.
+template <class Cell>
+struct EighthFrame {
+  PooledFrame<Cell> quarter;
+  float* frames;
+  int w8;
+
+  __device__ __forceinline__ void operator()(int cell, float f[3]) const {
+    const int y = cell / w8, x = cell - (cell / w8) * w8;
+    const int n_q = quarter.n_q;
+    float q[4][3];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int qc = (2 * y + (k >> 1)) * quarter.wq + 2 * x + (k & 1);
+      quarter(qc, q[k]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) frames[c * n_q + qc] = q[k][c];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      f[c] = (q[0][c] + q[1][c] + q[2][c] + q[3][c]) * 0.25f;
+    }
+  }
+};
+
 // The cluster pass of one frame (kernels B, C and D): `frame(cell, f)`
 // gives the linear RGB of cell `cell` of the first scale (hq x wq), which
 // the cluster assembles and hands over; then the scales. Writes
@@ -432,15 +466,30 @@ static __device__ __forceinline__ void cluster_pass(
 // The kernel body of C and D for one (image, candidate) per cluster:
 // `cell_in` holds the candidate's pooling operands, `lin_c` its linear
 // colour, `ds4i` the image's no-candidate quarter frame (3 x hq x wq).
-// Writes out[s * 18 + c * 6 + k].
-template <class Cell>
+// Writes out[s * 18 + c * 6 + k]. The first scale is the quarter frame
+// (scale 2), or with kEighth its 2x2 means (scale 3), the quarter frame
+// then written to `frames` (3 x hq x wq).
+template <bool kEighth, class Cell>
 static __device__ __forceinline__ void coarse_cluster_pass(
     const Cell& cell_in, const float lin_c[3], const float* __restrict__ ds4i,
     int hq, int wq, const RefPyramid& refs, int first_ref, int n_scales,
-    int img, const MetricParams& p, float* out) {
-  const PooledFrame<Cell> frame = {cell_in, {lin_c[0], lin_c[1], lin_c[2]},
-                                   ds4i, wq, hq * wq};
-  cluster_pass(frame, hq, wq, refs, first_ref, n_scales, img, p, out);
+    int img, const MetricParams& p, float* out, float* frames) {
+  const PooledFrame<Cell> quarter = {cell_in, {lin_c[0], lin_c[1], lin_c[2]},
+                                     ds4i, wq, hq * wq};
+  if constexpr (kEighth) {
+    const EighthFrame<Cell> eighth = {quarter, frames, wq / 2};
+    cluster_pass(eighth, hq / 2, wq / 2, refs, first_ref, n_scales, img, p,
+                 out);
+  } else {
+    cluster_pass(quarter, hq, wq, refs, first_ref, n_scales, img, p, out);
+  }
+}
+
+// Dynamic shared memory of one block of kernel C or D for h x w frames with
+// `pre_ds` 2x2 means of the quarter frame before the first scale.
+static size_t coarse_smem_bytes(int h, int w, int pre_ds) {
+  return sizeof(float) *
+         cluster_smem_floats((h / 4) >> pre_ds, (w / 4) >> pre_ds);
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory, with the SM's

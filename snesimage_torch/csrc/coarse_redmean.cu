@@ -19,13 +19,22 @@
 // microseconds at peak rates) but the latency of each block's chain of
 // blurs and barriers with 8 warps an SM, and the pooling's loads of the
 // shared planes from L2.
+//
+// Three-level mode (pre_ds 1, the frames output given): the cluster pass
+// starts at scale 3, each of its cells the 2x2 mean of four quarter cells
+// (EighthFrame), and every quarter cell is also written to the candidate's
+// quarter frame, which the visit's scale-2 stage scores for the survivors
+// of the scale-3..5 rank (snesimage_tpu/ops/pallas_metric.py
+// `emit_frames`).
 #include "coarse_cluster.cuh"
 
 namespace snes {
 
 // tg (N, 3, H, W) int32; cand8 (N, B, 3) int32; cand_lin (N, B, 3) f32;
 // bva (N, H, W) int32; ml (N, 3, H, W) f32; ds4 (N, 3, H/4, W/4) f32;
-// out (N, B, n_scales, 3, 6). Grid: N * B clusters of kClusterBlocks blocks.
+// out (N, B, n_scales, 3, 6); with kEighth frames (N, B, 3, H/4, W/4).
+// Grid: N * B clusters of kClusterBlocks blocks.
+template <bool kEighth>
 __global__ void __launch_bounds__(kClusterThreads, 2)
 coarse_redmean_kernel(const int* __restrict__ tg,
                       const int* __restrict__ cand8,
@@ -34,7 +43,8 @@ coarse_redmean_kernel(const int* __restrict__ tg,
                       const float* __restrict__ ml,
                       const float* __restrict__ ds4, RefPyramid refs,
                       int first_ref, int n_scales, int n_cand, int h, int w,
-                      MetricParams p, float* __restrict__ out) {
+                      MetricParams p, float* __restrict__ out,
+                      float* __restrict__ frames) {
   const int m = blockIdx.x / kClusterBlocks;
   const int img = m / n_cand;
   const float lin_c[3] = {cand_lin[m * 3], cand_lin[m * 3 + 1],
@@ -47,13 +57,16 @@ coarse_redmean_kernel(const int* __restrict__ tg,
       ml0, ml0 + plane, ml0 + 2 * plane, w,
       cand8[m * 3], cand8[m * 3 + 1], cand8[m * 3 + 2]};
   const int hq = h / 4, wq = w / 4;
-  coarse_cluster_pass(cell_in, lin_c, ds4 + (size_t)img * 3 * hq * wq, hq,
-                      wq, refs, first_ref, n_scales, img, p,
-                      out + (size_t)m * n_scales * 18);
+  coarse_cluster_pass<kEighth>(
+      cell_in, lin_c, ds4 + (size_t)img * 3 * hq * wq, hq, wq, refs,
+      first_ref, n_scales, img, p, out + (size_t)m * n_scales * 18,
+      kEighth ? frames + (size_t)m * 3 * hq * wq : nullptr);
 }
 
 }  // namespace snes
 
+// frames: null for scales 2.. from the quarter frame (pre_ds 0), else the
+// three-level mode's quarter frames (pre_ds 1, scales 3..).
 extern "C" int snes_coarse_redmean(const void* tg, const void* cand8,
                                    const void* cand_lin, const void* bva,
                                    const void* ml, const void* ds4,
@@ -61,20 +74,24 @@ extern "C" int snes_coarse_redmean(const void* tg, const void* cand8,
                                    int first_ref, int n_scales, int n_img,
                                    int n_cand, int h, int w,
                                    const snes::MetricParams* params,
-                                   void* out, void* stream) {
+                                   void* out, void* frames, void* stream) {
+  const int pre_ds = frames ? 1 : 0;
+  auto kernel = frames ? snes::coarse_redmean_kernel<true>
+                       : snes::coarse_redmean_kernel<false>;
   return (int)snes::launch_coarse_cluster(
-      snes::coarse_redmean_kernel, n_img * n_cand,
-      sizeof(float) * snes::cluster_smem_floats(h / 4, w / 4),
+      kernel, n_img * n_cand, snes::coarse_smem_bytes(h, w, pre_ds),
       (cudaStream_t)stream, (const int*)tg, (const int*)cand8,
       (const float*)cand_lin, (const int*)bva, (const float*)ml,
       (const float*)ds4, *refs, first_ref, n_scales, n_cand, h, w, *params,
-      (float*)out);
+      (float*)out, (float*)frames);
 }
 
-// Clusters of kernel C the card holds at once for h x w frames, or a
-// negative CUDA error.
-extern "C" int snes_coarse_redmean_active_clusters(int h, int w) {
+// Clusters of kernel C the card holds at once for h x w frames with
+// `pre_ds` 2x2 means before the first scale (0, or 1 in the three-level
+// mode), or a negative CUDA error.
+extern "C" int snes_coarse_redmean_active_clusters(int h, int w, int pre_ds) {
   return snes::coarse_active_clusters(
-      snes::coarse_redmean_kernel,
-      sizeof(float) * snes::cluster_smem_floats(h / 4, w / 4));
+      pre_ds ? snes::coarse_redmean_kernel<true>
+             : snes::coarse_redmean_kernel<false>,
+      snes::coarse_smem_bytes(h, w, pre_ds));
 }

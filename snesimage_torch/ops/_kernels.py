@@ -140,14 +140,14 @@ _SIGNATURES = {
     "snes_multiscale": (_P, _P, _P, _P),
     "snes_multiscale_active_clusters": (_P,),
     "snes_coarse_redmean": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     "snes_coarse_ciede": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-        _P,
+        _P, _P,
     ),
-    "snes_coarse_redmean_active_clusters": (_I, _I),
-    "snes_coarse_ciede_active_clusters": (_I, _I),
+    "snes_coarse_redmean_active_clusters": (_I, _I, _I),
+    "snes_coarse_ciede_active_clusters": (_I, _I, _I),
     "snes_pooled_wins_redmean": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
     ),

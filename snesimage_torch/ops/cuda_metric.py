@@ -22,6 +22,12 @@ Counterparts of snesimage_tpu/ops/pallas_metric.py:
   returned too. Twin: ops/color.py `ciede2000`, the same pooling and
   kernel B's twin.
 
+C and D also have the three-level mode of the JAX kernels (`pre_ds=1,
+emit_frames=True`): the cluster pass starts at scale 3 from the 2x2 means
+of the quarter-resolution frame, and the quarter frames are returned too,
+so that the visit scores scale 2 only for the candidates the scale-3..5
+rank keeps. A wrapper counts those launches in ``.frame_launches`` as well.
+
 All return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
 the pixel count and the fourth root stay in `finalize_feature_sums`. On a
 CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor it
@@ -312,13 +318,22 @@ def _per_image(fn, n_img: int, *operands, flat_refs):
     return torch.stack(outs)
 
 
-def _coarse_plain(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
+def _coarse_sums_plain(frames, flat_refs, pre_ds: int, emit_frames: bool):
+    """The twins' last step: kernel B's twin on the quarter frames after
+    `pre_ds` 2x2 means; the frames too with `emit_frames`."""
+    sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames, pre_ds)
+    sums = sums.reshape(frames.shape[0], -1, 6)
+    return (sums, frames) if emit_frames else sums
+
+
+def _coarse_plain(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs, pre_ds=0,
+                  emit_frames=False):
     if tg.dim() == 4:
-        return _per_image(_coarse_plain, tg.shape[0], tg, cand8, cand_lin,
-                          bva, ml, ds4_l, flat_refs=flat_refs)
+        return _per_image(
+            lambda *a: _coarse_plain(*a, pre_ds, emit_frames), tg.shape[0],
+            tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs=flat_refs)
     frames = _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l)
-    sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames)
-    return sums.reshape(cand8.shape[0], -1, 6)
+    return _coarse_sums_plain(frames, flat_refs, pre_ds, emit_frames)
 
 
 def fused_coarse_ok(h: int, w: int) -> bool:
@@ -330,9 +345,18 @@ def fused_coarse_ok(h: int, w: int) -> bool:
             and (h // 4) * (w // 4) <= RESIDENT_MAX_PIXELS)
 
 
-def _coarse_geometry(name, h, w, flat_refs, other):
+def _check_mode(pre_ds: int, emit_frames: bool) -> None:
+    """Kernels C and D have two modes: the default, and the three-level
+    one (pre_ds=1 with emit_frames)."""
+    if (pre_ds, bool(emit_frames)) not in ((0, False), (1, True)):
+        raise ValueError("kernels C and D take pre_ds=0 or pre_ds=1 with "
+                         f"emit_frames, not pre_ds={pre_ds}, emit_frames="
+                         f"{emit_frames}")
+
+
+def _coarse_geometry(name, h, w, flat_refs, other, pre_ds):
     """Checks the frame size one of the coarse kernels takes; returns the
-    reference triples of its scales."""
+    reference triples of its scales, from scale 2 + pre_ds."""
     if not fused_coarse_ok(h, w):
         raise ValueError(
             f"kernel {name} takes frames with sides that are multiples of "
@@ -340,28 +364,40 @@ def _coarse_geometry(name, h, w, flat_refs, other):
             "other geometries"
         )
     triples = _triples(flat_refs)
+    first = 2 + pre_ds
     for si, t in enumerate(triples):
-        if tuple(t[0].shape[-2:]) != pyramid_size(h, w, 2 + si):
-            raise ValueError(f"coarse scale {2 + si} has the wrong size")
+        if tuple(t[0].shape[-2:]) != pyramid_size(h, w, first + si):
+            raise ValueError(f"coarse scale {first + si} has the wrong size")
     return triples
 
 
-def active_clusters(perceptual: bool, h: int, w: int) -> int:
+def active_clusters(perceptual: bool, h: int, w: int, pre_ds: int = 0) -> int:
     """How many clusters of kernel D (perceptual) or C the card holds at
-    once for h x w frames: the occupancy calculator's answer."""
+    once for h x w frames (with pre_ds 1: in the three-level mode): the
+    occupancy calculator's answer."""
     name = ("snes_coarse_ciede_active_clusters" if perceptual
             else "snes_coarse_redmean_active_clusters")
-    n = _kernels.entry(name)(h, w)
+    n = _kernels.entry(name)(h, w, pre_ds)
     _kernels.check(max(-n, 0), name)
     return n
 
 
-def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
+def _frames_out(three: bool, n_img: int, b: int, h: int, w: int, dev):
+    """The three-level mode's quarter frames, or None."""
+    if not three:
+        return None
+    return torch.empty((n_img, b, 3, h // 4, w // 4), dtype=torch.float32,
+                       device=dev)
+
+
+def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs, pre_ds=0,
+                 emit_frames=False):
+    three = bool(pre_ds)  # the wrapper checked the mode
     dev = tg.device
     n_img, b = cand8.shape[:2]
     h, w = bva.shape[-2:]
     triples = _coarse_geometry(
-        "C", h, w, flat_refs, "pooled_wins_redmean")
+        "C", h, w, flat_refs, "pooled_wins_redmean", pre_ds)
     n = len(triples)
     ptrs = [
         _kernels.require(tg, "tg", torch.int32, (n_img, 3, h, w), dev),
@@ -377,17 +413,21 @@ def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
         raise ValueError("kernel C reads tg, bva and ml as 16-byte vectors")
     refs = _ref_pyramid(triples, dev, n_img)
     out = torch.empty((n_img, b, n, 3, 6), dtype=torch.float32, device=dev)
+    frames = _frames_out(three, n_img, b, h, w, dev)
     rc = _kernels.entry("snes_coarse_redmean")(
         *ptrs, ctypes.addressof(refs), 0, n, n_img, b, h, w,
         ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
-        _kernels.stream(dev),
+        frames.data_ptr() if three else None, _kernels.stream(dev),
     )
     _kernels.check(rc, "coarse_redmean")
     coarse_feature_sums_redmean.launches += 1
-    return out.reshape(n_img, b, 3 * n, 6)
+    coarse_feature_sums_redmean.frame_launches += three
+    sums = out.reshape(n_img, b, 3 * n, 6)
+    return (sums, frames) if three else sums
 
 
-def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
+def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs,
+                                *, pre_ds=0, emit_frames=False):
     """Fused coarse prescreen, red-mean path.
 
     tg: (3, H, W) int32 target; cand8: (B, 3) int32 8-bit candidates;
@@ -399,37 +439,46 @@ def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs):
     (img1, mu1, s11) of the coarse scales, from scale 2.
     Returns (B, 3 * n_scales, 6) raw sums.
 
+    With `pre_ds=1, emit_frames=True` (the three-level mode) flat_refs
+    start at scale 3, the sums are those of scales 3.. from the 2x2 means
+    of the quarter-resolution frames, and the (B, 3, H/4, W/4) float32
+    quarter frames are returned after them.
+
     With a leading image axis N on every operand but the reference planes
     (which are (N, 3, h, w), or (3, h, w) shared by every image), the sums
-    are (N, B, 3 * n_scales, 6).
+    are (N, B, 3 * n_scales, 6) and the frames (N, B, 3, H/4, W/4).
     """
+    _check_mode(pre_ds, emit_frames)
     fn = _coarse_cuda if tg.is_cuda else _coarse_plain
-    return _batched(lambda *a: fn(*a, flat_refs), tg, cand8, cand_lin, bva,
-                    ml, ds4_l)
+    return _batched(lambda *a: fn(*a, flat_refs, pre_ds, emit_frames), tg,
+                    cand8, cand_lin, bva, ml, ds4_l)
 
 
 coarse_feature_sums_redmean.launches = 0
+coarse_feature_sums_redmean.frame_launches = 0
 
 
 def _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
-                        flat_refs):
+                        flat_refs, pre_ds=0, emit_frames=False):
     if tlab.dim() == 4:
-        return _per_image(_coarse_ciede_plain, tlab.shape[0], tlab, cand_lab,
-                          cand_lin, bvalm, adj, ml, ds4_l,
-                          flat_refs=flat_refs)
+        return _per_image(
+            lambda *a: _coarse_ciede_plain(*a, pre_ds, emit_frames),
+            tlab.shape[0], tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
+            flat_refs=flat_refs)
     wins, dcand = ciede_wins(tlab, cand_lab, bvalm, adj)
     frames = coarse_frames(pooled_sums(wins, ml), cand_lin, ds4_l)
-    sums = _multiscale_feature_sums_plain(_triples(flat_refs), frames)
-    return sums.reshape(cand_lab.shape[0], -1, 6), dcand
+    sums = _coarse_sums_plain(frames, flat_refs, pre_ds, False)
+    return (sums, dcand, frames) if emit_frames else (sums, dcand)
 
 
 def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
-                       flat_refs):
+                       flat_refs, pre_ds=0, emit_frames=False):
+    three = bool(pre_ds)  # the wrapper checked the mode
     dev = tlab.device
     n_img, b = cand_lab.shape[:2]
     h, w = bvalm.shape[-2:]
     triples = _coarse_geometry(
-        "D", h, w, flat_refs, "pooled_wins_ciede")
+        "D", h, w, flat_refs, "pooled_wins_ciede", pre_ds)
     n = len(triples)
     ptrs = [
         _kernels.require(tlab, "tlab", torch.float32, (n_img, 3, h, w), dev),
@@ -449,18 +498,22 @@ def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     refs = _ref_pyramid(triples, dev, n_img)
     out = torch.empty((n_img, b, n, 3, 6), dtype=torch.float32, device=dev)
     dcand = torch.empty((n_img, b, h, w), dtype=torch.float32, device=dev)
+    frames = _frames_out(three, n_img, b, h, w, dev)
     rc = _kernels.entry("snes_coarse_ciede")(
         *ptrs, ctypes.addressof(refs), 0, n, n_img, b, h, w,
         ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
-        dcand.data_ptr(), _kernels.stream(dev),
+        dcand.data_ptr(), frames.data_ptr() if three else None,
+        _kernels.stream(dev),
     )
     _kernels.check(rc, "coarse_ciede")
     coarse_feature_sums_ciede.launches += 1
-    return out.reshape(n_img, b, 3 * n, 6), dcand
+    coarse_feature_sums_ciede.frame_launches += three
+    sums = out.reshape(n_img, b, 3 * n, 6)
+    return (sums, dcand, frames) if three else (sums, dcand)
 
 
 def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
-                              flat_refs):
+                              flat_refs, *, pre_ds=0, emit_frames=False):
     """Fused coarse prescreen, CIEDE2000 path.
 
     tlab: (3, H, W) float32 target CIELAB planes; cand_lab: (B, 3) float32
@@ -472,12 +525,16 @@ def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     candidate Lab). ml, ds4_l and flat_refs as for
     `coarse_feature_sums_redmean`.
     Returns ((B, 3 * n_scales, 6) raw sums, (B, H, W) float32 distances);
-    with a leading image axis N as for `coarse_feature_sums_redmean`, both
-    gain it.
+    with `pre_ds=1, emit_frames=True` the sums of scales 3.. and the
+    quarter frames after the distances, as for
+    `coarse_feature_sums_redmean`; with a leading image axis N, as for
+    `coarse_feature_sums_redmean`, all gain it.
     """
+    _check_mode(pre_ds, emit_frames)
     fn = _coarse_ciede_cuda if tlab.is_cuda else _coarse_ciede_plain
-    return _batched(lambda *a: fn(*a, flat_refs), tlab, cand_lab, cand_lin,
-                    bvalm, adj, ml, ds4_l)
+    return _batched(lambda *a: fn(*a, flat_refs, pre_ds, emit_frames), tlab,
+                    cand_lab, cand_lin, bvalm, adj, ml, ds4_l)
 
 
 coarse_feature_sums_ciede.launches = 0
+coarse_feature_sums_ciede.frame_launches = 0

@@ -326,6 +326,33 @@ def score_from_features(f: torch.Tensor) -> torch.Tensor:
     return score_from_ssim_sum(ssim_weighted_sum(f))
 
 
+def ssimulacra2_from_ref_linear(refp, lin2: torch.Tensor, *,
+                                skip_scales: int = 0,
+                                input_scale: int = 0) -> torch.Tensor:
+    """SSIMULACRA2 scores of channel-last linear frames (..., h, w, 3) at
+    the resolution of scale `input_scale` against the reference pyramid
+    `refp`, through `fused_scale_feature_block` (kernel B on the card):
+    scales below max(skip_scales, input_scale) count as zero features, as
+    in the JAX package's `scale_features`. With a batched pyramid (planes
+    (N, h, w, 3)) the frames' first axis is the image's."""
+    if input_scale > skip_scales:
+        raise ValueError("input_scale must be <= skip_scales")
+    start = skip_scales
+    frames = lin2.movedim(-1, -3)
+    lead = frames.shape[:-3]
+    images = lead[:1] if refp[0][0].dim() == 4 else ()
+    frames = frames.reshape(*images, -1, *frames.shape[-3:]).contiguous()
+    feats = fused_scale_feature_block(refp, frames, start, NUM_SCALES - start,
+                                      pre_ds=start - input_scale)
+    return score_from_features(feats).reshape(lead)
+
+
+def ssimulacra2_from_ref(refp, dis01: torch.Tensor) -> torch.Tensor:
+    """Scores of distorted frames (..., H, W, 3), sRGB in [0, 1] (float) or
+    8-bit (integer), against a precomputed reference pyramid."""
+    return ssimulacra2_from_ref_linear(refp, _decode_srgb(dis01))
+
+
 def ssimulacra2(ref01: torch.Tensor, dis01: torch.Tensor) -> torch.Tensor:
     """Full-reference SSIMULACRA2 score (100 = identical, lower = worse)
     of (..., H, W, 3) sRGB frames (float in [0, 1] or 8-bit)."""

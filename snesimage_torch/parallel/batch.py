@@ -21,7 +21,10 @@ one reference pyramid), and keeps the seed with the lowest final error.
 
 Batched sweeps always score exactly, as the JAX package's do (it passes
 gate=False to every batched and portfolio sweep): a gated config runs its
-batches and portfolios ungated (`gate=False` here too).
+batches and portfolios ungated (`gate=False` here too), the coarse gate
+with it. The three-level prescreen and the dither proxy act inside the
+batched visits, and windowed channel steps come in the schedule of
+`pipeline.optimize`, as the JAX package's batch loops take them.
 """
 
 from __future__ import annotations
@@ -103,7 +106,6 @@ def batched_optimize(
     step errors, a (steps, N) array. The run waits for the device once,
     at the end, unless `converge_tol` > 0 (the stop rule reads each step's
     mean error)."""
-    refine.check_slice(config)
     if refp is None:
         refp = brefp(states, config)
     states, errs = pipeline.optimize(states, config, refp=refp,
@@ -126,7 +128,6 @@ def batched_run(
     """init -> cluster -> optimize for a batch of images (N, H, W, 4), on
     the card unless the caller asks for the CPU. Returns what
     `batched_optimize` returns."""
-    refine.check_slice(config)
     states = make_batched_states(images, config, device)
     states = bcluster(binit(states, config), config)
     return batched_optimize(states, config, max_steps=max_steps,
@@ -168,7 +169,6 @@ def portfolio_run(
             k, config.schedule,
             ", explore off" if config.schedule == "channel" else "",
         )
-    refine.check_slice(config)
     if k < 1:
         raise ValueError(f"a portfolio needs at least one seed, not {k}")
     device = torch.device(device)

@@ -216,3 +216,23 @@ def test_gated_config_runs_ungated(images, torch_thread, path):
     assert 1 <= len(got[-1]) <= 2 and got[-1] == want[-1]
     assert torch.equal(got[0].palette, want[0].palette)
     assert torch.equal(got[0].palette_map, want[0].palette_map)
+
+
+@pytest.mark.parametrize("change", [
+    dict(prescreen_pre=12),
+    dict(dither=True, dither_proxy=4, prescreen=4, prescreen_full=2,
+         max_steps=1),
+])
+def test_batched_options_equal_single_runs(images, torch_thread, change):
+    """The three-level prescreen and the dither proxy act inside the
+    batched visits: image 0 of a batch of two (no random draws) ends where
+    its own run ends, bit for bit."""
+    config = TConfig(**dict(MODES["channel"], **change))
+    states, _, per_image = tbatch.batched_run(
+        images[:2], config, device="cpu", image_errors=True)
+    single, single_errors, _ = tpipe.run_fused(images[0], config,
+                                               device="cpu")
+    np.testing.assert_array_equal(per_image[:, 0],
+                                  np.asarray(single_errors, np.float32))
+    assert torch.equal(states.palette[0], single.palette)
+    assert torch.equal(states.palette_map[0], single.palette_map)

@@ -167,23 +167,6 @@ def test_portfolio_cli_path_equals_the_jax_clis(src_png, tmp_path, capsys):
     assert capsys.readouterr().out.count("portfolio: per-seed final errors") == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--prescreen", "8", "--prescreen-pre", "12"],
-    ["--dither-proxy", "4"],
-    ["--channel-window", "2"],
-    ["--gate-margin", "0.01", "--gate-coarse"],
-])
-def test_unported_flags_exit_1_and_name_their_item(src_png, tmp_path, capsys,
-                                                   flags):
-    """The four options the port leaves out (ROADMAP queue A item 17)."""
-    out = tmp_path / "out.json"
-    rc = tcli.main([str(src_png), str(out), *flags], device="cpu")
-    assert rc == 1
-    text = capsys.readouterr().out
-    assert "ROADMAP queue A item 17" in text and "not ported" in text
-    assert not out.exists()
-
-
 # A deterministic recipe (channel sweeps, no explore draws) at 2x3, so the
 # two CLIs' outputs can be compared byte for byte.
 CHANNEL = ["-c", "2", "-s", "3", "--schedule", "channel", "--prescreen", "8",

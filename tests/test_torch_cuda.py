@@ -7,7 +7,9 @@ skip where no card is present. On the card:
 A is exact in all three entries (key/table, the visit prologue and the
 render of palette maps); B, C and D agree within 2e-4 on finalised
 features; D's distance planes equal kernel F's and the twin's. C and D
-give the same bits in two calls.
+give the same bits in two calls. In their three-level mode (pre_ds=1,
+emit_frames) C's and D's quarter frames agree with the twins' within
+1e-6.
 E's and F's mask counts equal their twins', their m*ML sums agree within
 1e-5 (16 floats added in another order) and F's distance planes within
 1e-4; restricted to the tiles of one subpalette (none, all, or a ragged
@@ -249,6 +251,67 @@ def test_coarse_feature_sums_ciede_rejects_uneven_frames(dev):
             args[7]]
     with pytest.raises(ValueError, match="pooled_wins_ciede"):
         cuda_metric.coarse_feature_sums_ciede(*crop)
+
+
+# Kernels C and D in the three-level mode (pre_ds=1, emit_frames): the
+# visit's shape, a lone candidate, the smallest fused geometry and a
+# non-square one.
+THREE_LEVEL_SHAPES = [(256, 256, 48), (256, 256, 1), (32, 32, 9),
+                      (224, 256, 16), (128, 128, 64)]
+FRAME_TOL = 1e-6
+
+
+def _three_level(args):
+    """`args` of a two-level call with the reference planes of scales
+    3-5 in place of 2-5."""
+    return (*args[:-1], args[-1][3:])
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("h,w,b", THREE_LEVEL_SHAPES)
+def test_coarse_three_level(dev, perceptual, h, w, b):
+    """The three-level mode against the twins: scales 3-5 within 2e-4 on
+    finalised features, the quarter frames within 1e-6, D's distance
+    planes equal to the two-level call's; the same bits in two calls, and
+    at N = 2 images the bits of each image's own launch."""
+    if perceptual:
+        args = _coarse_ciede_args(dev, h, w, b, h + w + b)
+        wrapper, twin = (cuda_metric.coarse_feature_sums_ciede,
+                         cuda_metric._coarse_ciede_plain)
+    else:
+        args = _coarse_redmean_args(dev, h, w, b)
+        wrapper, twin = (cuda_metric.coarse_feature_sums_redmean,
+                         cuda_metric._coarse_plain)
+    three = _three_level(args)
+    mode = dict(pre_ds=1, emit_frames=True)
+    before = (wrapper.launches, wrapper.frame_launches)
+    got = wrapper(*three, **mode)
+    assert (wrapper.launches, wrapper.frame_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    want = twin(*three, **mode)
+    sizes = [(h >> s) * (w >> s) for s in range(3, 6)]
+    _close(finalize_feature_sums(got[0], sizes, 3),
+           finalize_feature_sums(want[0], sizes, 3))
+    assert got[-1].shape == (b, 3, h // 4, w // 4)
+    _close(got[-1], want[-1], FRAME_TOL)
+    if perceptual:
+        assert torch.equal(got[1], wrapper(*args)[1])
+    assert torch.equal(got[0][-1], got[0][0])
+    again = wrapper(*three, **mode)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    both = wrapper(*(a if isinstance(a, tuple) else torch.stack([a, a])
+                     for a in three), **mode)
+    assert all(torch.equal(x[n], y) for x, y in zip(both, got)
+               for n in range(2))
+
+
+def test_coarse_three_level_rejects_other_modes(dev):
+    args = _coarse_redmean_args(dev, 64, 64, 2)
+    with pytest.raises(ValueError, match="pre_ds"):
+        cuda_metric.coarse_feature_sums_redmean(*args, pre_ds=1)
+    with pytest.raises(ValueError, match="coarse scale 3"):
+        cuda_metric.coarse_feature_sums_redmean(*args, pre_ds=1,
+                                                emit_frames=True)
 
 
 @pytest.mark.parametrize("batched", [False, True])

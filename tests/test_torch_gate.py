@@ -62,11 +62,11 @@ def test_gating_active_truth_table(change):
 
 
 @lru_cache(maxsize=None)
-def _setup(image_bytes: bytes, margin: float):
+def _setup(image_bytes: bytes, margin: float, coarse: bool = False):
     """(JAX state, config, pyramid) after initialize + cluster, and the
-    port's copies of them."""
+    port's copies of them; `coarse` turns the coarse gate on."""
     img = np.frombuffer(image_bytes, np.uint8).reshape(64, 64, 4)
-    kw = dict(GATED, gate_margin=margin)
+    kw = dict(GATED, gate_margin=margin, gate_coarse=coarse)
     jc, tc = JConfig(**kw), TConfig(**kw)
     js = jpipe.cluster(jpipe.initialize(j_new_state(img, jc), jc), jc)
     jrefp = jref.make_reference_pyramid(js)
@@ -192,6 +192,71 @@ def test_fast_recipe_takes_the_jax_steps(small_image):
     np.testing.assert_array_equal(state.palette.numpy(),
                                   np.asarray(jstate.palette))
     assert errors[-2] - errors[-1] < kw["converge_tol"]
+
+
+# Visits of the coarse-gate tests: at margin 0.01 the coarse gate opens on
+# the first two and closes on the third, in both packages.
+COARSE_VISITS = [(0, 1, 0), (1, 2, 1), (1, 3, 2)]
+
+
+def test_coarse_gate_open_matches_jax(small_image):
+    """`gate_coarse` at margin 0.01: each visit equals the JAX package's,
+    palette, map, error (1e-3) and carry (1e-3 relative), whether its
+    coarse gate opened or closed; the tally counts the closed coarse gates
+    apart, and at least one gate opened and the visit accepted."""
+    (js, jc, jrefp), (ts, tc, trefp) = _setup(small_image.tobytes(), 0.01,
+                                              True)
+    (jerr, jgb), (err, gb) = _carried(js, jc, jrefp)
+    accepted = 0
+    for p, i, channel in COARSE_VISITS:
+        res, _, jcarry = jref._slot_channel(
+            js, jc, jrefp, p, i, channel, jref._init_cache(js, jc), jerr,
+            gate_base=jgb)
+        with tref.gate_tally() as tally:
+            state, new_err, _, carry = tref._slot_channel(
+                ts, tc, trefp, p, i, channel, tref.compute_d_all(ts, tc),
+                err, gate_base=gb)
+        np.testing.assert_array_equal(state.palette.numpy(),
+                                      np.asarray(res.state.palette))
+        np.testing.assert_array_equal(state.palette_map.numpy(),
+                                      np.asarray(res.state.palette_map))
+        assert abs(float(new_err) - float(res.error)) <= ERR_TOL
+        np.testing.assert_allclose(carry.numpy(), np.asarray(jcarry),
+                                   rtol=CARRY_RTOL, atol=0)
+        assert tally["visits"] == 1
+        closed = int(tally["closed_coarse"]) + int(tally["closed"])
+        assert closed == (0 if bool(res.changed) else 1)
+        accepted += bool(res.changed)
+    assert accepted >= 1
+
+
+def test_closed_coarse_gate_leaves_the_visit_unchanged(small_image):
+    """With a huge margin every coarse gate closes: the visit's state,
+    error and carry come back as they went in, as in the JAX package, and
+    no scale-0 or scale-1 work survives the mask (every error +inf, every
+    per-scale sum 0)."""
+    (js, jc, jrefp), (ts, tc, trefp) = _setup(small_image.tobytes(), 1e9,
+                                              True)
+    (jerr, jgb), (err, gb) = _carried(js, jc, jrefp)
+    for p, i, channel in COARSE_VISITS[:2]:
+        res, _, jcarry = jref._slot_channel(
+            js, jc, jrefp, p, i, channel, jref._init_cache(js, jc), jerr,
+            gate_base=jgb)
+        assert not bool(res.changed)
+        np.testing.assert_array_equal(np.asarray(jcarry), np.asarray(jgb))
+        with tref.gate_tally() as tally:
+            state, new_err, _, carry = tref._slot_channel(
+                ts, tc, trefp, p, i, channel, tref.compute_d_all(ts, tc),
+                err, gate_base=gb)
+        assert int(tally["closed_coarse"]) == 1 and int(tally["closed"]) == 0
+        assert torch.equal(state.palette, ts.palette)
+        assert torch.equal(state.palette_map, ts.palette_map)
+        assert torch.equal(new_err, err) and torch.equal(carry, gb)
+        sweep = ts.palette[p, i][None].repeat(32, 1)
+        sweep[:, channel] = torch.arange(32, dtype=torch.int32)
+        errs, _, sums = tref._undithered_machinery(ts, tc, p, i)[0](
+            trefp, sweep, gate=(gb, err, True, None))
+        assert torch.isinf(errs).all() and not sums.any()
 
 
 def _b_operands(n_img: int):

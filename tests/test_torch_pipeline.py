@@ -1,7 +1,9 @@
-"""The port's run_fused against the JAX package's on the CPU, and the
-options the port does not cover yet. tests/test_torch_geometry.py and
-tests/test_torch_schedules.py hold the runs at other geometries and with
-the reference and NES schedules."""
+"""The port's run_fused against the JAX package's on the CPU.
+tests/test_torch_geometry.py and tests/test_torch_schedules.py hold the
+runs at other geometries and with the reference and NES schedules;
+tests/test_torch_three_level.py, test_torch_windows.py,
+test_torch_dither_proxy.py and test_torch_gate.py the options
+`prescreen_pre`, `channel_window`, `dither_proxy` and `gate_coarse`."""
 
 import time
 
@@ -115,26 +117,6 @@ def test_run_fused_dithered_matches_jax(small_image, one_torch_thread,
     init = jpipe.cluster(jpipe.initialize(j_new_state(img, jc), jc), jc)
     assert not np.array_equal(state.palette.numpy(), np.asarray(init.palette))
     assert errors[1] <= errors[0]
-
-
-@pytest.mark.parametrize(
-    "change",
-    [
-        dict(dither=True, dither_proxy=8),
-        dict(channel_window=2),
-        dict(prescreen_pre=12),
-        dict(prescreen_full=0, gate_margin=0.01, gate_coarse=True),
-        dict(prescreen=0, prescreen_full=0, dither_proxy=4),
-    ],
-)
-def test_off_slice_configs_raise(small_image, change):
-    """The coarse gate, windows, the three-level prescreen and the dither
-    proxy are not ported (ROADMAP queue A item 17), alone or with an
-    option that is (scoring without a prescreen:
-    tests/test_torch_schedules.py runs it)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 1[17]"):
-        tpipe.run_fused(small_image, TConfig(**dict(SMALL, **change)),
-                        device="cpu")
 
 
 @pytest.mark.parametrize("case", ["nes", "channel", "reference"])

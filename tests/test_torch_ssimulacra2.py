@@ -136,3 +136,64 @@ def test_golden_score_values():
     half = img[::2, ::2].repeat(2, 0).repeat(2, 1)
     got = float(tss.ssimulacra2(torch.from_numpy(img), torch.from_numpy(half)))
     assert abs(got - (-40.0645)) < 0.05, got
+
+
+@pytest.mark.parametrize("skip,inp", [(0, 0), (2, 0), (2, 2)])
+def test_ssimulacra2_from_ref_linear(pair, skip, inp):
+    """Scores of three linear frames through `fused_scale_feature_block`
+    against the JAX package's `ssimulacra2_from_ref_linear`, vmapped over
+    the frames; skipped scales count as zero features in both (1e-3 on
+    the scores, as for `test_fused_scale_feature_block`)."""
+    import jax
+
+    _, jp, tp, lin = pair
+    for _ in range(inp):
+        lin = np.asarray(jss.downsample2(jnp.asarray(lin)))
+    want = jax.vmap(lambda f: jss.ssimulacra2_from_ref_linear(
+        jp, f, skip_scales=skip, input_scale=inp))(jnp.asarray(lin))
+    got = tss.ssimulacra2_from_ref_linear(tp, torch.from_numpy(lin),
+                                          skip_scales=skip, input_scale=inp)
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+    one = tss.ssimulacra2_from_ref_linear(tp, torch.from_numpy(lin[0]),
+                                          skip_scales=skip, input_scale=inp)
+    assert one.shape == () and float(one) == float(got[0])
+
+
+def test_ssimulacra2_from_ref_and_error_of(pair, small_image):
+    """`ssimulacra2_from_ref` on an 8-bit frame, and `refine.error_of` of a
+    clustered state (one image and a batch of two), against the JAX
+    package's (scores as in `test_fused_scale_feature_block`); `error_of`
+    equals `frame_error_fused` (both kernel B)."""
+    from snesimage_torch.config import QuantConfig as TConfig
+    from snesimage_torch.core import refine as tref
+    from snesimage_torch.core.state import state_from_numpy, stack_states
+    from snesimage_tpu.config import QuantConfig as JConfig
+    from snesimage_tpu.core import pipeline as jpipe
+    from snesimage_tpu.core import refine as jref
+    from snesimage_tpu.core.state import new_state as j_new_state
+
+    ref, jp, tp, _ = pair
+    dis = np.clip(ref + np.random.default_rng(2).integers(
+        -20, 21, ref.shape), 0, 255).astype(np.int32)
+    want = float(jss.ssimulacra2_from_ref(jp, jnp.asarray(dis)))
+    got = tss.ssimulacra2_from_ref(tp, torch.from_numpy(dis))
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), want, rtol=1e-4, atol=1e-3)
+
+    kw = dict(subpalette_count=2, subpalette_size=4, width=64, height=64)
+    jc, tc = JConfig(**kw), TConfig(**kw)
+    js = jpipe.cluster(jpipe.initialize(j_new_state(small_image, jc), jc), jc)
+    jrefp = jref.make_reference_pyramid(js)
+    ts = state_from_numpy({f: np.asarray(getattr(js, f)) for f in js._fields},
+                          "cpu")
+    trefp = pyramid_from_numpy(
+        tuple(tuple(np.asarray(a) for a in s) for s in jrefp), "cpu")
+    err = tref.error_of(ts, tc, trefp)
+    assert err.shape == ()
+    assert abs(float(err) - float(jref.error_of(js, jc, jrefp))) <= 1e-3
+    assert torch.equal(err, tref.frame_error_fused(ts, tc, trefp))
+    both = stack_states([ts, ts])
+    errs = tref.error_of(both, tc, tss.stack_pyramids([trefp, trefp]))
+    assert errs.shape == (2,) and (errs == err).all()

@@ -105,65 +105,52 @@ and at 48 (phase 41); and the balanced recipe with `channel_window` 4 for 8
 steps through `pipeline.optimize`, which steps were windowed and the
 seconds of each sweep (phase 42). C's and D's three-level records join the
 `kernels` line (`<name>_three_level`, their launches from phase 39).
+
+Last the port's own bench and BASELINE runner (phase 43,
+`snesimage_torch.bench` and `snesimage_torch.benchmarks`), each path
+driven with the counts set to 0 just before it and read just after:
+`bench.measure` of the balanced recipe (its step errors must equal phase
+4's to the bit) and of `fast` (phase 33's step count, its final within
+1e-4), the balanced init hash and the bench's JSON line; balanced at seeds
+1 and 2 and without explore beside the frozen JAX CPU runs
+(tests/data/bench_finals_jax.json; the explore-free run's first two steps
+within 1e-3 of the JAX package's); and `benchmarks.main` at one step, a
+batch of 16 for config 5 (a line of the card, then c1-c5, each with a
+finite final error).
 """
 
 from __future__ import annotations
 
-import hashlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-# sha256 of (tile_palettes, palette, palette_map) as int32 bytes after
-# initialize + cluster on bench._test_image(0) with the balanced config and
-# with the perceptual one: the JAX package's CPU values
-# (tests/test_torch_color_init.py and tests/test_torch_perceptual.py keep
-# them honest against both packages).
-INIT_HASH = "db244f60c99d56558e113293b47e919710bcbb9d3a3929b5f83b1ba82ad4c6d9"
-INIT_HASH_PERCEPTUAL = (
-    "80f887a8fcf9a066bc4a0917f65e84c987d136dcaf1d19466cb8d5413e73a7f9"
+# The balanced recipe (bench.py's headline config) and the init hashes
+# every phase below pins, with the function that computes them.
+from snesimage_torch.bench import BALANCED
+from snesimage_torch.testing import (
+    INIT_HASH,
+    INIT_HASH_240,
+    INIT_HASH_240_DITHER,
+    INIT_HASH_240_PERCEPTUAL,
+    INIT_HASH_DITHER,
+    INIT_HASH_DITHER_PERCEPTUAL,
+    INIT_HASH_NES,
+    INIT_HASH_PERCEPTUAL,
+    card_line,
+    init_hash,
 )
-# The same after initialize + cluster with dithering, red-mean and
-# perceptual (tests/test_torch_dither.py pins them against both packages).
-INIT_HASH_DITHER = (
-    "7982a1753127d7659979b0cdd0dd7a4b66999a6b1f4dad01a62815cddd6da854"
-)
-INIT_HASH_DITHER_PERCEPTUAL = (
-    "2f36a75bc43c5ab1daf98713d4461cf8b2cc31066d817954a1e87a16b655628c"
-)
-# The same on the first 240 rows of the image (256x240, the geometry that
-# is not 32-aligned), red-mean, perceptual and dithered, and on the whole
-# image with the `nes-compat` preset (4x3 palettes snapped to the NES
-# colours): the JAX package's CPU values; tests/test_torch_geometry.py and
-# tests/test_torch_schedules.py pin them against both packages.
-INIT_HASH_240 = (
-    "c83af996f347226769eb65dfb60cd1407d53880d0e82171903f2bfe5c77b6bd1"
-)
-INIT_HASH_240_PERCEPTUAL = (
-    "796bb8d0f0361be819058726d76f9e338d2a85da236355a5046db83a7da025e3"
-)
-INIT_HASH_240_DITHER = (
-    "7038cc450f0c80249eb8482a1279ad4820ef65d30e2ca0ca86883024825e91a4"
-)
-INIT_HASH_NES = (
-    "b1ab121f52022f89aaa651d3c616df41deedad6cb6836c35de521fcbe691a6d6"
-)
+
 FEATURE_TOL = 2e-4  # kernel vs twin, finalised features (rtol and atol)
 # Kernel D's distance planes vs its twin (atol and rtol). The kernel takes
 # the twin's steps, but its fmaf rounds once where the twin's float64
 # product-and-sum may round twice, and its libm is CUDA's.
 DISTANCE_TOL = 1e-4
 ERROR_TOL = 1e-3  # kernel vs twin, full-frame error
-BALANCED = dict(
-    subpalette_count=8, subpalette_size=15, max_steps=8, converge_tol=0.0,
-    seed=0, schedule="channel", prescreen=8, prescreen_full=2,
-    channel_explore=16, accept_margin=0.005,
-)
 # The balanced recipe with CIEDE2000 palettes; QuantConfig raises
 # prescreen_full to 4 for perceptual runs, so it is given here.
 PERCEPTUAL = dict(BALANCED, prescreen_full=4, perceptual_palettes=True)
@@ -231,13 +218,6 @@ DITHER_LAB_OPS_PER_LIVE_PX = 35
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def init_hash(state) -> str:
-    h = hashlib.sha256()
-    for t in (state.tile_palettes, state.palette, state.palette_map):
-        h.update(t.to(torch.int32).cpu().numpy().tobytes())
-    return h.hexdigest()
 
 
 def median_ms(fn, runs: int = 20) -> float:
@@ -313,11 +293,7 @@ def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
 
 
 def phase_device():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 matmuls are enabled")
     check(torch.get_float32_matmul_precision() == "highest",
@@ -1803,12 +1779,13 @@ def _check_fast_run(label, config, errors, err0, may_run_out=False):
     return exact_stop
 
 
-def phase_fast(img, smi, balanced: dict):
+def phase_fast(img, smi, balanced: dict, record: dict):
     """`cli --opt-profile fast -c 8 -s 15` at 256x256 (the gated channel
     recipe, kernels A, B and C) and the same recipe through `run_fused` at
     256x240 (kernels A, B and E; the CLI takes 256x256 images only): steps,
     step errors, the stop, the share of closed gates and seconds beside
-    the balanced run's."""
+    the balanced run's. `record` receives the 256x256 run's step
+    errors."""
     import tempfile
     from pathlib import Path
 
@@ -1864,6 +1841,7 @@ def phase_fast(img, smi, balanced: dict):
           f"closed gates {_gate_share(tally240):.4f} of "
           f"{tally240['visits']}, {info240['total_seconds']:.3f} s; launches "
           f"{launches240}; card '{smi}'", flush=True)
+    record.update(errors=errors)
     return launches, launches240
 
 
@@ -2347,6 +2325,120 @@ def phase_windows(img, smi):
     return launches
 
 
+# The JAX package's XLA-path runs on the CPU and the port's CPU runs of the
+# bench's configs (tests/test_torch_bench.py writes them).
+BENCH_FINALS = "tests/data/bench_finals_jax.json"
+EXPLORE_FREE_TOL = 1e-3  # the card's explore-free steps 1-2 vs the JAX CPU's
+FAST_FINAL_TOL = 1e-4  # the C-9 tie threshold
+
+
+def phase_bench(img, smi, balanced: dict, fast: dict) -> dict:
+    """The port's bench and BASELINE runner (`snesimage_torch.bench`,
+    `snesimage_torch.benchmarks`), each path driven with the counts set to
+    0 just before it and read just after. `bench.measure` once of the
+    balanced recipe, whose step errors must equal phase 4's run to the
+    bit, and once of `fast`, which must stop after phase 33's steps within
+    FAST_FINAL_TOL of its final; the balanced init hash; the bench's JSON
+    line from these runs. Then balanced at seeds 1 and 2 beside the frozen
+    JAX CPU and port CPU finals (a report: the port draws its own explore
+    candidates), and balanced without explore, which draws nothing: its
+    first two steps within EXPLORE_FREE_TOL of the JAX CPU's. Last
+    `benchmarks.main` at one step and a batch of 16: a line of the card,
+    then one for each of c1-c5 with a finite final error."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from snesimage_torch import bench, benchmarks
+    from snesimage_torch.config import QuantConfig
+
+    a, b, c, _, _, f, g = WRAPPERS
+    frozen = json.loads((Path(__file__).parent / BENCH_FINALS).read_text())
+    jax, port_cpu = frozen["jax_cpu"], frozen["port_cpu"]
+    runs = {}
+
+    def measured(label, params):
+        wrappers = _zero_counts()
+        out = bench.measure(img, QuantConfig(**params), repeats=1)
+        runs[label] = _read_counts(wrappers, label, (a, b, c))
+        check(all(np.isfinite(out["step_errors"])),
+              f"{label}: non-finite step error")
+        return out
+
+    run = measured("bench_balanced", bench.BALANCED)
+    check(run["step_errors"] == balanced["errors"],
+          f"bench balanced {run['step_errors']} != phase 4's "
+          f"{balanced['errors']}")
+    fast_run = measured("bench_fast", bench.FAST)
+    check(len(fast_run["step_errors"]) == len(fast["errors"])
+          and abs(fast_run["final_error"] - fast["errors"][-1])
+          <= FAST_FINAL_TOL,
+          f"bench fast {fast_run['step_errors']} against phase 33's "
+          f"{fast['errors']}")
+    hash_ok = (bench.init_hash_of(img, QuantConfig(**bench.BALANCED))
+               == INIT_HASH)
+    check(hash_ok, "the bench's balanced init hash")
+    line = bench.result_line(run, fast_run, smi, hash_ok)
+
+    seeds = {0: run["final_error"]}
+    for s in (1, 2):
+        seeds[s] = measured(f"bench_seed{s}",
+                            dict(bench.BALANCED, seed=s))["final_error"]
+    free = measured("bench_explore0",
+                    dict(bench.BALANCED, channel_explore=0))["step_errors"]
+    want = jax["balanced_explore0"]["step_errors"]
+    gaps = [abs(x - y) for x, y in zip(free, want)]
+    check(len(free) == len(want) == bench.BALANCED["max_steps"],
+          f"{len(free)} explore-free steps")
+    check(max(gaps[:2]) <= EXPLORE_FREE_TOL,
+          f"explore-free steps {free[:2]} vs the JAX CPU's {want[:2]}")
+    # The first step at which the card parts from the JAX CPU run.
+    parts = next((k for k, gap in enumerate(gaps)
+                  if gap > EXPLORE_FREE_TOL), None)
+    cpu_gaps = [abs(x - y) for x, y in
+                zip(free, port_cpu["balanced_explore0"]["step_errors"])]
+
+    wrappers = _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = benchmarks.main(["--steps", "1", "--batch", "16", "--chunk",
+                              "16"])
+    secs = time.perf_counter() - t0
+    runs["benchmarks"] = _read_counts(wrappers, "benchmarks", (a, b, f, g))
+    check(rc == 0, f"benchmarks.main exited {rc}: {buf.getvalue()}")
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    check(len(lines) == 6 and lines[0] == {"device": smi},
+          f"benchmarks printed {lines}")
+    for out in lines[1:5]:
+        check(np.isfinite(out["final_error"]), f"benchmarks: {out}")
+    check(np.isfinite(lines[5]["mean_final_error"])
+          and lines[5]["images_per_sec"] > 0, f"benchmarks: {lines[5]}")
+
+    jax_finals = [jax[f"balanced_seed{s}"]["final_error"] for s in range(3)]
+    cpu_finals = [port_cpu[f"balanced_seed{s}"]["final_error"]
+                  for s in range(3)]
+    print(f"phase 43 bench: balanced {run['seconds']:.3f} s, step errors "
+          f"equal phase 4's; fast {fast_run['seconds']:.3f} s, "
+          f"{len(fast_run['step_errors'])} steps, final "
+          f"{fast_run['final_error']} (phase 33: {fast['errors'][-1]}); init "
+          f"hash ok; balanced finals at seeds 0-2: card "
+          f"{[seeds[s] for s in range(3)]} mean "
+          f"{statistics.mean(seeds.values())}, JAX CPU {jax_finals} mean "
+          f"{statistics.mean(jax_finals)} spread "
+          f"{max(jax_finals) - min(jax_finals)}, port CPU {cpu_finals} mean "
+          f"{statistics.mean(cpu_finals)}; without explore: card {free}, JAX "
+          f"CPU {want}, largest gap {max(gaps)}, first step above "
+          f"{EXPLORE_FREE_TOL}: {parts}; port CPU largest gap "
+          f"{max(cpu_gaps)}; launches {runs}; card '{smi}'", flush=True)
+    print(f"phase 43 benchmarks ({secs:.3f} s, launches "
+          f"{runs['benchmarks']}): " + " | ".join(json.dumps(x)
+                                                  for x in lines),
+          flush=True)
+    print(f"phase 43 bench line: {json.dumps(line)}", flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2422,7 +2514,8 @@ def main() -> int:
     runs["dither_portfolio"] = phase_dither_portfolio(img, smi)
     phase_image_axis(records)
     phase_kernel_b_gate(img, by_name["multiscale_feature_sums"])
-    runs["fast"], runs["fast_240"] = phase_fast(img, smi, balanced)
+    fast = {}
+    runs["fast"], runs["fast_240"] = phase_fast(img, smi, balanced, fast)
     runs["host_stepped"] = phase_host_stepped(img, smi, balanced)
     runs["interactive"] = phase_interactive(img, smi)
     runs["hybrid"] = phase_hybrid(img, smi)
@@ -2433,6 +2526,7 @@ def main() -> int:
     runs["gate_coarse"] = phase_gate_coarse(img, smi, balanced)
     runs.update(phase_dither_proxy(img, smi, dithered))
     runs["windows"] = phase_windows(img, smi)
+    runs.update(phase_bench(img, smi, balanced, fast))
     path_of = {d: "perceptual", g: "dither", e: "geometry",
                f: "geometry_perceptual"}
     for r in records:

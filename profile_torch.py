@@ -7,8 +7,8 @@ balanced, perceptual, dithered and dithered perceptual profiles of
 chip_smoke.py, and on its first 240 rows (256x240, the route through
 kernels E and F) with the balanced and perceptual ones, after a warm-up
 run. With no arguments every phase runs; with arguments, only the phases
-named (kernels, multiscale, pair, seeds, parity, walk, profile, batch,
-gate, init). The phases print one JSON line each, profiles last:
+named (kernels, multiscale, pair, seeds, parity, walk, walk_run,
+profile, batch, gate, init). The phases print one JSON line each, profiles last:
 
   kernels  device time per call, from CUDA events around 20 launches, of
            kernel G (red-mean and perceptual, B = 48 and B = 1), of every
@@ -79,7 +79,12 @@ gate, init). The phases print one JSON line each, profiles last:
            run on the card and, from a CPU copy of the card's state, with
            the twins, listing the visits whose distance planes, finalists,
            pick or cache differ; and the first 45 visits of the dithered
-           sweep the same way (palette maps, finalists, pick).
+           sweep the same way (palette maps, finalists, pick);
+  walk_run the balanced run without explore the same way, sweep after
+           sweep, up to the end of the first sweep in which the card and
+           the twins pick differently (at most 8; about a minute and a
+           half a sweep on the card's host): where a whole explore-free
+           run on the card parts from the CPU's.
 """
 
 from __future__ import annotations
@@ -129,6 +134,7 @@ KERNEL_OF = {
 SEEDS = (0, 1, 2)
 PARITY_STEPS = 2
 WALK_DITHER_VISITS = 45  # the first subpalette; a CPU twin visit takes seconds
+WALK_RUN_STEPS = 8  # the balanced run's budget
 
 
 def _prepared(img, config, device="cuda"):
@@ -772,6 +778,11 @@ def _visit(state, config, refp, err, d_all, t_lab, p, i, channel):
         cand5, current, err, p, i, config.accept_margin)
 
 
+def _finalist_errors(errs) -> dict:
+    return {j: float(errs[j])
+            for j in torch.nonzero(torch.isfinite(errs)).flatten().tolist()}
+
+
 def phase_walk(img, params: dict):
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import refine
@@ -822,14 +833,70 @@ def phase_walk(img, params: dict):
         if not all(rec[key] for key in ("same_finalists", "same_palette",
                                         "same_cache")) or rec[
                 "dist_pixels_differing"]:
-            rec["finalist_errors"] = {
-                name: {j: float(e[j]) for j in
-                       torch.nonzero(torch.isfinite(e)).flatten().tolist()}
-                for name, e in (("card", errs.cpu()), ("cpu", errs_c))}
+            rec["finalist_errors"] = {"card": _finalist_errors(errs.cpu()),
+                                      "cpu": _finalist_errors(errs_c)}
             parted.append(rec)
         card, err, d_all = nxt, nerr, nd
     out.update(visits=config.subpalette_count * s * 3, parted=parted)
     return out
+
+
+def phase_walk_run(img, params: dict, steps: int):
+    """The explore-off run of `params` visit by visit, sweep after sweep:
+    each visit on the card and, from a CPU copy of the card's state, with
+    the twins, up to the end of the first sweep in which a pick differs (at
+    most `steps` sweeps). Lists the visits whose finalists, pick or cache
+    differ, with the finalists' errors on both sides, and the card's error
+    after each sweep, which must be the run's step errors ("ok")."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import pipeline, refine
+
+    config = QuantConfig(**dict(params, channel_explore=0))
+    _, run_errors, _ = pipeline.run_fused(
+        img, QuantConfig(**dict(params, channel_explore=0,
+                                max_steps=steps)), device="cuda")
+    card, refp, err = _prepared(img, config)
+    cpu, refp_cpu, _ = _prepared(img, config, "cpu")
+    d_all = refine.compute_d_all(card, config)
+    t_lab = refine.target_lab(card, config)
+    t_lab_cpu = refine.target_lab(cpu, config)
+    s = config.subpalette_size
+    per_sweep = config.subpalette_count * s * 3
+    parted, sweep_errors = [], []
+    for step in range(steps):
+        for k in range(per_sweep):
+            where = (k // (s * 3), (k // 3) % s, k % 3)
+            (errs, _), (nxt, nerr, nd) = _visit(
+                card, config, refp, err, d_all, t_lab, *where)
+            (errs_c, _), (nxt_c, _, nd_c) = _visit(
+                cpu.replace(tile_palettes=card.tile_palettes.cpu(),
+                            palette=card.palette.cpu(),
+                            palette_map=card.palette_map.cpu()),
+                config, refp_cpu, err.cpu(), d_all.cpu(), t_lab_cpu, *where)
+            rec = {
+                "step": step, "visit": k, "slot": where,
+                "same_finalists": torch.equal(torch.isfinite(errs).cpu(),
+                                              torch.isfinite(errs_c)),
+                "same_palette": torch.equal(nxt.palette.cpu(), nxt_c.palette),
+                "same_cache": torch.equal(nd.cpu(), nd_c),
+            }
+            if not all(rec[key] for key in ("same_finalists", "same_palette",
+                                            "same_cache")):
+                rec.update(card_kept=nxt.palette[where[:2]].tolist(),
+                           cpu_kept=nxt_c.palette[where[:2]].tolist(),
+                           carried_error=float(err),
+                           finalist_errors={
+                               "card": _finalist_errors(errs.cpu()),
+                               "cpu": _finalist_errors(errs_c)})
+                parted.append(rec)
+            card, err, d_all = nxt, nerr, nd
+        sweep_errors.append(float(err))
+        if any(not r["same_palette"] for r in parted):
+            break
+    run_errors = run_errors[:len(sweep_errors)]
+    return {"phase": "walk_run", "explore": 0, "sweeps": len(sweep_errors),
+            "ok": sweep_errors == run_errors, "sweep_errors": sweep_errors,
+            "run_step_errors": run_errors, "parted": parted}
 
 
 def phase_walk_dither(img, params: dict, visits: int):
@@ -878,10 +945,8 @@ def phase_walk_dither(img, params: dict, visits: int):
         if rec["map_pixels_differing"] or not all(
                 rec[key] for key in ("same_finalists", "same_palette",
                                      "same_map")):
-            rec["finalist_errors"] = {
-                name: {j: float(e[j]) for j in
-                       torch.nonzero(torch.isfinite(e)).flatten().tolist()}
-                for name, e in (("card", errs), ("cpu", errs_c))}
+            rec["finalist_errors"] = {"card": _finalist_errors(errs),
+                                      "cpu": _finalist_errors(errs_c)}
             parted.append(rec)
         card, err = nxt, nerr
     out.update(accepted=accepted, parted=parted)
@@ -908,8 +973,8 @@ def main() -> int:
     from snesimage_torch.testing import bench_image
 
     phases = set(args) or {"kernels", "multiscale", "pair", "seeds",
-                           "parity", "walk", "profile", "batch", "gate",
-                           "init"}
+                           "parity", "walk", "walk_run", "profile", "batch",
+                           "gate", "init"}
     img = bench_image(0)
     img240 = np.ascontiguousarray(img[:240])
     profiles = {"balanced": BALANCED, "perceptual": PERCEPTUAL,
@@ -950,6 +1015,7 @@ def main() -> int:
           for label, p in profiles.items() if "dither" not in label),
         ("walk", lambda: phase_walk(img, PERCEPTUAL)),
         ("walk", lambda: phase_walk_dither(img, DITHER, WALK_DITHER_VISITS)),
+        ("walk_run", lambda: phase_walk_run(img, BALANCED, WALK_RUN_STEPS)),
         *(("profile", lambda label=label: phase_profile(
             label, *sweeps[label], walls[label])) for label in sweeps),
         ("profile", lambda: phase_dither_perceptual_8(img)),

@@ -130,7 +130,8 @@ def test_no_jax_import_in_sources():
     assert len(files) > 10
     for entry in ("cli.py", "batch_cli.py", "parallel/batch.py",
                   "io/checkpoint.py", "io/image.py", "preview.py",
-                  "core/reassign.py", "utils/profiling.py"):
+                  "core/reassign.py", "utils/profiling.py", "bench.py",
+                  "benchmarks.py"):
         assert pkg / entry in files, entry
     for path in files:
         assert not pattern.search(path.read_text()), path

@@ -117,6 +117,31 @@ driven with the counts set to 0 just before it and read just after:
 within 1e-3 of the JAX package's); and `benchmarks.main` at one step, a
 batch of 16 for config 5 (a line of the card, then c1-c5, each with a
 finite final error).
+
+Every run above goes through `pipeline.optimize`, which on the card
+replays a CUDA graph of each sweep where a run captured one
+(snesimage_torch/core/graphs.py: not at a key's first sweep, and only with
+`CAPTURE_LEFT` steps of the run left or after `CAPTURE_RUNS` earlier runs
+of the key), so the launch counts it checks are
+partly replayed ones: a replay adds its graph's kernel nodes, counted by
+kernel name through libcuda when the graph was captured, and the
+capture raises unless they equal the launches its wrappers made. Phase 44
+then drives every path both ways through `pipeline.optimize`: eagerly
+(`eager=True`) and graphed, twice, with the graphs dropped before each
+path and captured at a key's second sweep (`CAPTURE_LEFT` 1 for the
+phase; the rule itself is held in tests/test_torch_graphs.py), so that
+the first graphed run captures and in the second every sweep must replay,
+at least three sweeps each: the balanced, perceptual,
+dithered and dithered perceptual recipes, the three 256x240 paths, the
+reference cycle, `nes-compat`, a config 5 batch of 16, `robust` (K = 2),
+`fast` inside `gate_tally`, host-stepped + resume with an `on_step` hook,
+a replacement state and `reassign_every`, a windowed and a three-level
+run. Every graphed run's step errors, final state, launches and readings
+must equal the eager run's bit for bit; between two replays of the
+balanced graph kernel B's tile scratch grows by a larger call, and the
+replay must still equal eager (ROADMAP C-12). It prints each path's
+seconds a sweep eager and graphed and each graph's capture, node count and
+instantiation seconds, nodes and kernel nodes.
 """
 
 from __future__ import annotations
@@ -2439,6 +2464,285 @@ def phase_bench(img, smi, balanced: dict, fast: dict) -> dict:
     return runs
 
 
+# Sweeps a path runs in each mode of phase 44: at least three, so that two
+# replays of one graph chain.
+GRAPH_STEPS = 3
+# The balanced run's first and last step errors (phase 4), unchanged since
+# the balanced path first ran on the card.
+BALANCED_ENDS = (131.4586, 118.0944)
+
+
+def _digest(state) -> str:
+    import hashlib
+
+    return hashlib.sha1(state.palette.cpu().numpy().tobytes()
+                        + state.palette_map.cpu().numpy().tobytes()
+                        + state.tile_palettes.cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _graph_case(label: str, run, present: tuple, regrow=None) -> dict:
+    """One path driven three times through `pipeline.optimize`: eagerly
+    (`run(True)`), graphed (which captures where its keys have no graph
+    yet), and graphed again, where every sweep must replay; with `regrow`
+    a fourth graphed run after `regrow()` has grown kernel B's tile
+    scratch. Each run with the counts set to 0 just before it and read just
+    after. Every graphed run's step errors, final state, launches, three-
+    level launches and `run`'s extra readings (gate tallies, hook dumps)
+    must equal the eager run's. Returns the seconds a sweep of each run."""
+    from snesimage_torch.core import graphs
+
+    modes = ("eager", "graphed", "replayed") + (("regrown",) if regrow
+                                                else ())
+    out, secs = {}, {}
+    for mode in modes:
+        if mode == "regrown":
+            regrow()
+        replays = sum(g["replays"] for g in graphs.stats())
+        wrappers = _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, errs, extra = run(mode == "eager")
+        errs = errs.cpu()  # waits for the card
+        secs[mode] = time.perf_counter() - t0
+        launches = _read_counts(wrappers, f"{label} {mode}", present)
+        frames = {n: wrappers[n].frame_launches for n in THREE_LEVEL}
+        replayed = sum(g["replays"] for g in graphs.stats()) - replays
+        out[mode] = (errs, _digest(state), launches, frames, extra, replayed)
+    errs0, digest0, launches0, frames0, extra0, replayed0 = out["eager"]
+    sweeps = len(errs0)
+    check(sweeps >= GRAPH_STEPS, f"{label}: {sweeps} sweeps")
+    check(bool(torch.isfinite(errs0).all()), f"{label}: non-finite error")
+    check(replayed0 == 0, f"{label}: the eager run replayed {replayed0}")
+    for mode in modes[1:]:
+        errs, digest, launches, frames, extra, replayed = out[mode]
+        check(torch.equal(errs, errs0),
+              f"{label} {mode} step errors {errs.tolist()} != eager "
+              f"{errs0.tolist()}")
+        check(digest == digest0, f"{label} {mode}: another final state")
+        check(launches == launches0 and frames == frames0,
+              f"{label} {mode} launches {launches} {frames} != eager "
+              f"{launches0} {frames0}")
+        check(extra == extra0, f"{label} {mode}: {extra} != eager {extra0}")
+    check(out["replayed"][5] == sweeps,
+          f"{label}: {out['replayed'][5]} of {sweeps} sweeps replayed")
+    return {"sweeps": sweeps, "errors": errs0[:, 0].tolist()
+            if errs0.dim() == 2 else errs0.tolist(), "launches": launches0,
+            "seconds_a_sweep": {m: secs[m] / sweeps for m in modes}}
+
+
+def _profiled_replay(run) -> tuple:
+    """`run()` (one replayed sweep) under torch.profiler: (its kernel events
+    by wrapper, from the wrappers' kernel names in core/graphs.py
+    `_KERNEL_NAMES`, less kernel B's second launches; what the run added
+    to the wrappers' counters). A reading beside the counts, not a check:
+    in a fresh process the two agreed on three paths, in this script's
+    process the profiler has seen one of kernel B's 721 launches fewer
+    (PERF.md §7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from snesimage_torch.core import graphs
+
+    b = graphs._wrappers()[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        before = graphs._counts()
+        run()
+        torch.cuda.synchronize()
+    after = graphs._counts()
+    added = {fn.__name__: n - before[fn, name]
+             for (fn, name), n in after.items() if name == "launches"}
+    events = dict.fromkeys(added, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for fn, names in zip(graphs._wrappers(), graphs._KERNEL_NAMES):
+            if any(n in e.name for n in names):
+                events[fn.__name__] += 1
+    events[b.__name__] -= (after[b, "split_launches"]
+                           - before[b, "split_launches"])
+    return events, added
+
+
+def phase_graphs(img, smi, balanced: dict) -> None:
+    """The compiled sweep (core/graphs.py): every path driven eagerly and
+    graphed through `pipeline.optimize` (`_graph_case`), bit for bit: the
+    balanced, perceptual, dithered and dithered perceptual recipes, the
+    three 256x240 paths, the reference cycle, `nes-compat`, a config 5
+    batch of 16, `robust` (K = 2), `fast` (inside `gate_tally`, whose counts
+    must agree), host-stepped + resume (an `on_step` hook that digests each
+    step's state, then a resumed run), tile reassignment (a replacement
+    state from `on_step_state` and `reassign_every` 2), a windowed and a
+    three-level run. Between two replays of the balanced graph kernel B's
+    tile scratch grows by a larger call (ROADMAP C-12). The graphs are
+    dropped before each path and captured at a key's second sweep
+    (`graphs.CAPTURE_LEFT` 1 for the phase). Prints each path's seconds a
+    sweep eager and graphed, and each graph's capture, node count and
+    instantiation seconds, nodes and kernel nodes."""
+    from snesimage_torch.cli import OPT_PROFILES
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import graphs, pipeline, refine
+    from snesimage_torch.core.state import shared_states
+    from snesimage_torch.models.presets import preset_fields
+    from snesimage_torch.ops import cuda_metric
+    from snesimage_torch.ops.ssimulacra2 import (
+        NUM_SCALES,
+        fused_scale_feature_block,
+        shared_pyramid,
+    )
+    from snesimage_torch.parallel import batch as pb
+    from snesimage_torch.testing import bench_image
+
+    a, b, c, d, e, f, g = WRAPPERS
+    img240 = np.ascontiguousarray(img[:240])
+    check([round(balanced["errors"][k], 4) for k in (0, -1)]
+          == list(BALANCED_ENDS),
+          f"phase 4's step errors {balanced['errors']}")
+
+    def optimize_run(state, config, refp, steps=GRAPH_STEPS, **kw):
+        def run(eager):
+            st, errs = pipeline.optimize(state, config, refp=refp,
+                                         max_steps=steps, eager=eager, **kw)
+            return st, errs, None
+        return run
+
+    def single(image, params, steps=GRAPH_STEPS, **kw):
+        state, config = prepared_state(image, params)
+        return optimize_run(state, config,
+                            refine.make_reference_pyramid(state), steps, **kw)
+
+    def tallied(run):
+        def go(eager):
+            with refine.gate_tally() as tally:
+                st, errs, _ = run(eager)
+            return st, errs, (tally["visits"], _gate_share(tally))
+        return go
+
+    def host_stepped(eager):
+        state, config = prepared_state(img, BALANCED)
+        refp = refine.make_reference_pyramid(state)
+        dumps = []
+        st, errs1 = pipeline.optimize(
+            state, config, refp=refp, max_steps=GRAPH_STEPS, eager=eager,
+            on_step=lambda step, s, _: dumps.append((step, _digest(s))))
+        st, errs2 = pipeline.optimize(st, config, refp=refp,
+                                      start_step=GRAPH_STEPS,
+                                      max_steps=GRAPH_STEPS, eager=eager)
+        return st, torch.cat([errs1, errs2]), dumps
+
+    def reassigned(eager):
+        state, config = prepared_state(img, BALANCED)
+
+        def click(step, st, _):
+            if step == 0:
+                return pipeline.apply_tile_reassignments(
+                    st, config, [(0, 0), (5, 5, 1), (31, 31)])
+            return None
+
+        return optimize_run(state, config,
+                            refine.make_reference_pyramid(state), 4,
+                            reassign_every=2, on_step_state=click)(eager)
+
+    def regrow():
+        """Kernel B on more frames than its tile scratch holds: the
+        scratch grows, and the buffer the balanced graph captured must
+        stay alive."""
+        dev = torch.device("cuda", torch.cuda.current_device())
+        old = cuda_metric._TILE_SCRATCH[dev]
+        frames = old[0].numel() // (80 * 18) + 8  # 80 tiles a 256x256 frame
+        state, _ = prepared_state(img, BALANCED)
+        fused_scale_feature_block(
+            refine.make_reference_pyramid(state),
+            torch.rand((frames, 3, 256, 256), device=dev), 0, NUM_SCALES)
+        new = cuda_metric._TILE_SCRATCH[dev]
+        check(new[0].numel() > old[0].numel()
+              and any(kept[0] is old[0] for kept in cuda_metric._OUTGROWN),
+              "kernel B's tile scratch did not grow, or dropped its buffer")
+
+    nes = dict(preset_fields("nes-compat"), converge_tol=0.0, seed=0)
+    nes_config = QuantConfig(**nes)
+    images = np.stack([bench_image(int(s)) for s in _batch_seeds()[:16]])
+    states = pb.bcluster(pb.binit(pb.make_batched_states(
+        images, nes_config, "cuda"), nes_config), nes_config)
+    robust = dict(OPT_PROFILES["robust"][1], subpalette_count=8,
+                  subpalette_size=15, seed=0)
+    seed_state, robust_config = prepared_state(img, robust)
+    cases = (
+        ("balanced", single(img, BALANCED), (a, b, c), regrow),
+        ("perceptual", single(img, PERCEPTUAL), (a, b, d), None),
+        ("dithered", single(img, DITHER), (a, b, g), None),
+        ("dithered perceptual", single(img, DITHER_PERCEPTUAL), (a, b, g),
+         None),
+        ("256x240", single(img240, GEOMETRY), (a, b, e), None),
+        ("256x240 perceptual", single(img240, GEOMETRY_PERCEPTUAL),
+         (a, b, f), None),
+        ("256x240 dithered", single(img240, GEOMETRY_DITHER), (a, b, g),
+         None),
+        ("reference cycle", single(img, REFERENCE, 5), (a, b), None),
+        ("nes-compat", single(img, nes), (a, b), None),
+        ("config 5 batch of 16", optimize_run(
+            states, nes_config, pb.brefp(states, nes_config), gate=False),
+         (a, b), None),
+        ("robust K=2", optimize_run(
+            shared_states(seed_state, 2), robust_config,
+            shared_pyramid(refine.make_reference_pyramid(seed_state), 2),
+            gate=False), (a, b, c), None),
+        ("fast", tallied(single(img, fast_params(), 5)), (a, b, c), None),
+        ("host-stepped + resume", host_stepped, (a, b, c), None),
+        ("reassigned tiles", reassigned, (a, b, c), None),
+        ("windowed", single(img, dict(BALANCED, channel_window=WINDOW), 4),
+         (a, b, c), None),
+        ("three-level", single(img, dict(BALANCED,
+                                         prescreen_pre=PRESCREEN_PRE)),
+         (a, b, c), None),
+    )
+    results = {}
+    capture_left = graphs.CAPTURE_LEFT
+    graphs.CAPTURE_LEFT = 1
+    try:
+        for label, run, present, regrow_fn in cases:
+            graphs.clear()
+            results[label] = _graph_case(label, run, present, regrow_fn)
+            per = results[label]["seconds_a_sweep"]
+            print(f"phase 44 graphs: {label}, {results[label]['sweeps']} "
+                  f"sweeps each way, bits equal eager; seconds a sweep "
+                  + ", ".join(f"{m} {t:.4f}" for m, t in per.items())
+                  + f", step errors {results[label]['errors']}, launches "
+                  f"{results[label]['launches']}; graphs: " + "; ".join(
+                      f"{gr['label']} capture {gr['capture_s']:.3f} s "
+                      f"count {gr['count_s']:.3f} s instantiate "
+                      f"{gr['instantiate_s']:.3f} s, {gr['nodes']} nodes, "
+                      f"{gr['kernel_nodes']} kernels, replays "
+                      f"{gr['replays']}" for gr in graphs.stats())
+                  + f"; card '{smi}'", flush=True)
+        # One replayed balanced sweep under the profiler, beside the
+        # launches it counted (`_profiled_replay`).
+        state, config = prepared_state(img, BALANCED)
+        refp = refine.make_reference_pyramid(state)
+        pipeline.optimize(state, config, refp=refp, max_steps=2)
+        events, added = _profiled_replay(lambda: pipeline.optimize(
+            state, config, refp=refp, max_steps=1))
+        print(f"phase 44 profiled replay: one balanced sweep (its initial "
+              f"error eagerly), kernel events {events}, launches counted "
+              f"{added}; card '{smi}'", flush=True)
+    finally:
+        graphs.CAPTURE_LEFT = capture_left
+    # Whether the graphs kept alive slow the eager sweeps: the balanced
+    # run eagerly with them, then with none.
+    eager = single(img, BALANCED)
+    kept = len(graphs.stats())
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager(True)[1].cpu()
+        seconds.append((time.perf_counter() - t0) / GRAPH_STEPS)
+        graphs.clear()
+    print(f"phase 44 eager balanced sweep with {kept} graphs kept "
+          f"{seconds[0]:.4f} s, with none {seconds[1]:.4f} s; card '{smi}'",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2527,6 +2831,7 @@ def main() -> int:
     runs.update(phase_dither_proxy(img, smi, dithered))
     runs["windows"] = phase_windows(img, smi)
     runs.update(phase_bench(img, smi, balanced, fast))
+    phase_graphs(img, smi, balanced)
     path_of = {d: "perceptual", g: "dither", e: "geometry",
                f: "geometry_perceptual"}
     for r in records:

@@ -38,21 +38,26 @@ profile, batch, gate, init). The phases print one JSON line each, profiles last:
            tree's (parent, this tree, this tree, parent), and whether their
            sums are bit-equal;
   profile  one channel sweep (360 visits) under torch.profiler, once per
-           profile: the device's busy time (the union of its kernel and
-           copy intervals), its idle share of the sweep's host-clock time
+           profile, run eagerly and replayed as a CUDA graph
+           (core/graphs.py; its record says "graphed", and its device
+           operations are the graph's nodes a sweep): the device's busy
+           time (the union of its kernel and copy intervals), its idle
+           share of the sweep's host-clock time
            (the same sweep unprofiled, timed before any profiler ran),
            device operations per visit, device time by kernel, and device
            time per wrapper call of kernels A, B and C (balanced), A, B
            and D (perceptual), A, B and G (dithered) or A, B and E or F
            (256x240); then the 8-step dithered perceptual run once
            (seconds, step errors, launches);
-  batch    the `profile` phase's record for one sweep of the image batch
+  batch    the `profile` phase's records (eager and graphed) for one
+           sweep of the image batch
            and the seed portfolio (core/refine.py with a leading image
            axis): a NES sweep of one `nes-compat` image and of a batch of
            16 (BASELINE config 5's first 16 images, as chip_smoke.py
            phase 28 makes them), and a balanced channel sweep of one image
            and of portfolios of K = 2 and 4 seeds over it;
-  gate     the `profile` phase's record for one sweep of the `fast` profile
+  gate     the `profile` phase's records (eager and graphed) for one
+           sweep of the `fast` profile
            (8x15, the rank-1 gate on) from the state after its first
            GATE_WARM_STEPS steps, and for the same sweep with
            gate_margin=0 (every visit scored exactly), with the share of
@@ -522,9 +527,42 @@ def _union_ms(intervals) -> float:
     return busy / 1e3
 
 
+def _timed(fn):
+    """sweep(): runs fn, waits for the card, returns the host-clock
+    seconds."""
+    def sweep():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    return sweep
+
+
+def _graphed(method: str, state, config, refp, err, **sweep_kw):
+    """A function that replays a CUDA graph of one sweep of `method` from
+    (state, err) with the run's first draws (core/graphs.py `SweepRunner`),
+    the same work on every call. Its first two calls run here: the key's
+    first sweep eagerly, the second captures."""
+    from snesimage_torch.core import graphs, pipeline
+
+    def once():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(config.seed)
+        graphs.SweepRunner(state.device).sweep(
+            method, state, config, refp, err, gen,
+            pipeline._draw_sizes(config, 0), left=graphs.CAPTURE_LEFT,
+            **sweep_kw)
+
+    once()
+    once()
+    return once
+
+
 def _sweeper(img, params: dict):
-    """(config, sweep): sweep() runs the first sweep of the run, the same
-    work on every call, and returns its host-clock seconds."""
+    """(config, sweep, graphed sweep): sweep() runs the first sweep of the
+    run, the same work on every call, and returns its host-clock seconds;
+    the graphed sweep replays a graph of it."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import refine
 
@@ -534,19 +572,17 @@ def _sweeper(img, params: dict):
     def sweep():
         gen = torch.Generator(device="cuda")
         gen.manual_seed(config.seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         refine.sweep_channel(state, config, refp, err, gen)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
 
-    return config, sweep
+    return config, _timed(sweep), _timed(_graphed("channel", state, config,
+                                                   refp, err))
 
 
 def _batch_sweepers(img) -> dict:
-    """(config, sweep) of the `batch` phase's five sweeps, by label: sweep()
-    runs the first sweep of a batched run (or a single one), the same work
-    on every call, and returns its host-clock seconds."""
+    """(config, sweep, graphed sweep) of the `batch` phase's five sweeps,
+    by label: sweep() runs the first sweep of a batched run (or a single
+    one), the same work on every call, and returns its host-clock seconds;
+    the graphed sweep replays a graph of it."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import refine
     from snesimage_torch.core.state import shared_states
@@ -554,15 +590,6 @@ def _batch_sweepers(img) -> dict:
     from snesimage_torch.ops.ssimulacra2 import shared_pyramid
     from snesimage_torch.parallel import batch as pb
     from snesimage_torch.testing import bench_image
-
-    def timed(fn):
-        def sweep():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
-        return sweep
 
     nes = QuantConfig(**dict(preset_fields("nes-compat"), max_steps=2,
                              converge_tol=0.0, seed=0))
@@ -574,10 +601,12 @@ def _batch_sweepers(img) -> dict:
     err = refine.frame_error_fused(states, nes, refp)
     one, one_refp, one_err = _prepared(images[0], nes)
     out = {
-        "nes-compat, one image": (nes, timed(lambda: refine.sweep_nes(
-            one, nes, one_refp, one_err))),
-        "nes-compat, batch of 16": (nes, timed(lambda: refine.sweep_nes(
-            states, nes, refp, err))),
+        "nes-compat, one image": (nes, _timed(lambda: refine.sweep_nes(
+            one, nes, one_refp, one_err)), _timed(_graphed(
+                "nes", one, nes, one_refp, one_err))),
+        "nes-compat, batch of 16": (nes, _timed(lambda: refine.sweep_nes(
+            states, nes, refp, err)), _timed(_graphed(
+                "nes", states, nes, refp, err, gate=False))),
     }
     config = QuantConfig(**BALANCED)
     state, refp1, err1 = _prepared(img, config)
@@ -592,12 +621,16 @@ def _batch_sweepers(img) -> dict:
             refine.sweep_channel(s, config, r, e, gen)
 
         out["balanced" if k == 1 else f"balanced, K = {k} seeds"] = (
-            config, timed(sweep))
+            config, _timed(sweep), _timed(_graphed(
+                "channel", seeds_k, config, refp_k, err_k, gate=False)))
     return out
 
 
-def phase_profile(label: str, config, sweep, wall: float):
-    """One profiled sweep; `wall` is the same sweep's unprofiled time."""
+def phase_profile(label: str, config, sweep, wall: float,
+                  graphed: bool = False):
+    """One profiled sweep; `wall` is the same sweep's unprofiled time.
+    `graphed`: the sweep replays a CUDA graph, whose nodes are the device
+    operations counted."""
     from torch.profiler import ProfilerActivity, profile
 
     visits = (config.subpalette_count * config.subpalette_size
@@ -624,6 +657,7 @@ def phase_profile(label: str, config, sweep, wall: float):
     return {
         "phase": "profile",
         "profile": label,
+        "graphed": graphed,
         "sweep_wall_s": wall,
         "profiled_sweep_wall_s": profiled_wall,
         "device_ops": len(device),
@@ -648,9 +682,10 @@ GATE_WARM_STEPS = 2
 
 def _gate_sweepers(img) -> dict:
     """(config, sweep, tally) of one `fast` sweep from the state after
-    GATE_WARM_STEPS gated steps, gated and with gate_margin=0: sweep()
-    runs the same work on every call and returns its host-clock seconds;
-    tally counts its gated visits and closed gates."""
+    GATE_WARM_STEPS gated steps, gated and with gate_margin=0, each eagerly
+    and replayed as a CUDA graph (labels with ", graphed"): sweep() runs
+    the same work on every call and returns its host-clock seconds; tally
+    counts its gated visits and closed gates."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
 
@@ -663,24 +698,32 @@ def _gate_sweepers(img) -> dict:
     for label, config in (("fast, gated", gated),
                           ("fast, gate_margin=0", QuantConfig(
                               **fast_params(gate_margin=0.0)))):
-        tally = {"visits": 0, "closed": None}
+        gate_kw = (dict(use_gate=True, gate=True)
+                   if refine._gating_active(config) else {})
+        with refine.gate_tally():  # the graph of a sweep inside a tally
+            graphed = _graphed("channel", state, config, refp, err,
+                               **gate_kw)
+        for suffix, fn in (("", lambda config=config: refine.sweep_channel(
+                state, config, refp, err)), (", graphed", graphed)):
+            tally = {"visits": 0, "closed": None}
 
-        def sweep(config=config, tally=tally):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with refine.gate_tally() as t:
-                refine.sweep_channel(state, config, refp, err)
-            torch.cuda.synchronize()
-            tally.update(visits=t["visits"], closed=t["closed"])
-            return time.perf_counter() - t0
+            def sweep(fn=fn, tally=tally):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with refine.gate_tally() as t:
+                    fn()
+                torch.cuda.synchronize()
+                tally.update(visits=t["visits"], closed=t["closed"])
+                return time.perf_counter() - t0
 
-        out[label] = (config, sweep, tally)
+            out[label + suffix] = (config, sweep, tally)
     return out
 
 
 def phase_gate(label: str, config, sweep, tally, wall: float):
     """The `profile` record of one `fast` sweep, with its closed gates."""
-    out = phase_profile(label, config, sweep, wall)
+    out = phase_profile(label, config, sweep, wall,
+                        graphed=label.endswith(", graphed"))
     closed = 0 if tally["closed"] is None else int(tally["closed"])
     out.update(phase="gate", gated_visits=tally["visits"],
                closed_gates=closed,
@@ -989,12 +1032,17 @@ def main() -> int:
         sweeps = {label: _sweeper(img, p) for label, p in profiles.items()}
         sweeps.update((label, _sweeper(img240, p))
                       for label, p in geometry.items())
-        # Every unprofiled time is taken before any profiler has run.
-        walls = {label: sweep() for label, (_, sweep) in sweeps.items()}
     batch = _batch_sweepers(img) if "batch" in phases else {}
+    for group in (sweeps, batch):  # each sweep also replayed from a graph
+        for label in list(group):
+            config, eager, graphed = group[label]
+            group[label] = (config, eager)
+            group[label + ", graphed"] = (config, graphed)
     for _, sweep in batch.values():  # a first run at the batch's shapes
         sweep()
-    walls.update((label, sweep()) for label, (_, sweep) in batch.items())
+    # Every unprofiled time is taken before any profiler has run.
+    walls = {label: sweep() for group in (sweeps, batch)
+             for label, (_, sweep) in group.items()}
     gate = _gate_sweepers(img) if "gate" in phases else {}
     for _, sweep, _ in gate.values():  # a first run at the gate's shapes
         sweep()
@@ -1017,10 +1065,12 @@ def main() -> int:
         ("walk", lambda: phase_walk_dither(img, DITHER, WALK_DITHER_VISITS)),
         ("walk_run", lambda: phase_walk_run(img, BALANCED, WALK_RUN_STEPS)),
         *(("profile", lambda label=label: phase_profile(
-            label, *sweeps[label], walls[label])) for label in sweeps),
+            label, *sweeps[label], walls[label],
+            graphed=label.endswith(", graphed"))) for label in sweeps),
         ("profile", lambda: phase_dither_perceptual_8(img)),
         *(("batch", lambda label=label: phase_profile(
-            label, *batch[label], walls[label])) for label in batch),
+            label, *batch[label], walls[label],
+            graphed=label.endswith(", graphed"))) for label in batch),
         *(("gate", lambda label=label: phase_gate(
             label, *gate[label], walls[label])) for label in gate),
     ]

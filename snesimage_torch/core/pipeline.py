@@ -15,9 +15,12 @@ Counterpart of snesimage_tpu/core/pipeline.py:
 `run_fused`, `run`, `run_fused_hybrid` and the host-stepped loop (hooks
 after each sweep or slot visit, periodic tile reassignment) are one code
 path, `optimize`: a hook reads the state and errors but changes no bit of
-the run. The steps run eagerly on the state's device. The run waits for the
-device once, at the end, unless `converge_tol > 0` or a hook reads each
-step's error on the host.
+the run. On the card the sweeps replay CUDA graphs of them, each captured
+once a key (core/graphs.py, the counterpart of the JAX package's jitted
+fori_loop sweeps and `_optimize_fused`); on the CPU, with `eager=True` or
+with `on_slot`, the sweeps run eagerly. The run waits for the device once,
+at the end, unless `converge_tol > 0` or a hook reads each step's error on
+the host.
 
 The GUI's manual tile reassignment (clicking a tile cycles its subpalette,
 src/lib.rs:1005-1024) is `reassign_tile` and `apply_tile_reassignments`.
@@ -42,7 +45,7 @@ import torch
 
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.constants import RANDOM_STEPS_PER_CYCLE, SCHEDULE_CYCLE
-from snesimage_torch.core import refine
+from snesimage_torch.core import graphs, refine
 from snesimage_torch.core.init import assign_tiles, recalculate_palettes
 from snesimage_torch.core.reassign import auto_reassign_tiles
 from snesimage_torch.core.state import QuantState, new_state
@@ -280,6 +283,7 @@ def optimize(
         [int, QuantState, list[float]], QuantState | None
     ] | None = None,
     gate: bool = True,
+    eager: bool = False,
 ) -> tuple[QuantState, torch.Tensor]:
     """Stage 3: up to `max_steps` (default `config.max_steps`) sweeps from
     step `start_step` of the schedule, with the stop rule `plateau_stop`
@@ -307,13 +311,24 @@ def optimize(
     `gate=False` scores every visit exactly where the config would gate
     (the batched paths, as in the JAX package).
 
+    On the card a step replays a CUDA graph of its sweep where
+    core/graphs.py `SweepRunner` keeps one, or captures one with
+    `graphs.CAPTURE_LEFT` steps of the run left or after
+    `graphs.CAPTURE_RUNS` earlier runs of the key (never at a sweep key's
+    first sweep in the process), bit for bit what the eager sweep gives;
+    `eager=True` runs every sweep eagerly instead (the graph's plain twin,
+    for comparisons). `on_slot` runs visit by visit and waits for each
+    visit's error, as the JAX package's per-slot loop, so it stays eager
+    by design. On the CPU every sweep runs eagerly.
+
     Returns (state, per-step errors as a (steps,) tensor on the device, or
     (steps, N) for a batched state)."""
     if refp is None:
         refp = refine.make_reference_pyramid(state)
     steps = config.max_steps if max_steps is None else max_steps
     generator = step_stream(config, state, start_step)
-    explore = generator if config.channel_explore > 0 else None
+    runner = graphs.SweepRunner(state.device,
+                                eager=eager or on_slot is not None)
     err = refine.frame_error_fused(state, config, refp)
     gates = refine._gating_active(config)  # the sweeps take gate keywords
     gating = gate and on_slot is None and gates
@@ -327,28 +342,26 @@ def optimize(
         # A pending confirmation lands only on an exhaustive sweep: a
         # windowed one can never stop the run.
         this_exact = gating and need_exact and not window
-        gate_kw = dict(use_gate=not this_exact, gate=gate) if gates else {}
+        sweep_kw = dict(use_gate=not this_exact, gate=gate) if gates else {}
+        if window:
+            # The keyword only where the step is windowed: the sweeps
+            # take the same arguments as ever on every other step.
+            sweep_kw["window"] = True
         if on_slot is not None:
             state, err = _observed_step(state, config, refp, step, generator,
                                         on_slot)
-        elif method == "nes":
-            state, err = refine.sweep_nes(state, config, refp, err)
-        elif method == "random":
-            state, err = refine.sweep_random(state, config, refp, generator,
-                                             err, **gate_kw)
         else:
-            # The keyword only where the step is windowed: the sweeps
-            # take the same arguments as ever on every other step.
-            win_kw = dict(window=True) if window else {}
-            state, err = refine.sweep_channel(state, config, refp, err,
-                                              explore, **gate_kw, **win_kw)
+            state, err = runner.sweep(method, state, config, refp, err,
+                                      generator, _draw_sizes(config, step),
+                                      left=steps - local, **sweep_kw)
         errors.append(err)
         if on_step is not None or on_step_state is not None:
             host_errors.append(float(err))
         if on_step is not None:
-            on_step(step, state, host_errors)
+            on_step(step, runner.release(state), host_errors)
         if on_step_state is not None:
-            replacement = on_step_state(step, state, host_errors)
+            replacement = on_step_state(step, runner.release(state),
+                                        host_errors)
             if replacement is not None:
                 # The state changed outside the descent (a mid-run tile
                 # reassignment usually worsens the error before it pays
@@ -383,6 +396,7 @@ def optimize(
             log.info("step %d: tiles reassigned", step)
             history.clear()
             need_exact = False
+    state = runner.release(state)
     if not errors:
         return state, err.new_empty((0, *err.shape))
     return state, torch.stack(errors)

@@ -910,12 +910,13 @@ def _channel_values(current: torch.Tensor, channel: int, window: int):
 
 def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
                   generator=None, t_lab=None, gate_base=None,
-                  gate_enable=True, window=False):
+                  gate_enable=True, window=False, rand5=None):
     """One visit: the 32 values of `channel` for slot (p, i) (with
     `window`, the 2 * channel_window nearest the current one,
     `_channel_values`), plus `channel_explore` uniform random full-RGB
-    candidates drawn from `generator` when one is given. With `gate_base`,
-    gated (`_pick`); the explore draws are exempt from the gate."""
+    candidates drawn from `generator` when one is given (or the given
+    `rand5`). With `gate_base`, gated (`_pick`); the explore draws are
+    exempt from the gate."""
     current = state.palette[..., p, i, :]
     lead = current.shape[:-1]
     values = _channel_values(current, channel,
@@ -924,10 +925,11 @@ def _slot_channel(state, config, refp, p, i, channel, d_all, base_err,
                                           values.shape[-1], 1)
     sweep5[..., channel] = values
     n_gated = None
-    if generator is not None and config.channel_explore > 0:
-        n_gated = sweep5.shape[-2]
+    if rand5 is None and generator is not None and config.channel_explore > 0:
         rand5 = _draws(generator, lead, config.channel_explore,
                        current.device)
+    if rand5 is not None:
+        n_gated = sweep5.shape[-2]
         sweep5 = torch.cat([sweep5, rand5], dim=-2)
     errors, final_map, new_d_all = _slot_machinery(state, config, p, i, d_all,
                                                    t_lab)
@@ -1019,13 +1021,17 @@ def _visit(slot, carry: tuple, gate_base, *args, **kwargs):
 
 
 def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
-                 base_err=None, use_gate: bool = True, gate: bool = True):
+                 base_err=None, use_gate: bool = True, gate: bool = True,
+                 *, draws=None):
     """One random step: every slot visited once (src/lib.rs:888-932, steps
     with step % 5 < 4), C * S visits with their candidates drawn from
     `generator`. Returns (state, error), the exact error carried through
     the visits (one an image for a batched state). Where the config gates
     (`_gating_active`) and `gate` holds, the visits are gated;
-    `use_gate=False` scores each exactly (the stop rule's confirmation)."""
+    `use_gate=False` scores each exactly (the stop rule's confirmation).
+    `draws`, a (visits, *lead, n, 3) int32 tensor, gives visit k its
+    candidates `draws[k]` in place of drawing them (a captured sweep reads
+    its graph's static draws, core/graphs.py)."""
     s = config.subpalette_size
     err = base_err
     if err is None:
@@ -1036,18 +1042,20 @@ def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
     for k in range(config.subpalette_count * s):
         carry, gb = _visit(_slot_random, carry, gb, config, refp, k // s,
                            k % s, generator=generator, t_lab=t_lab,
-                           gate_enable=use_gate)
+                           gate_enable=use_gate,
+                           cand5=None if draws is None else draws[k])
     return carry[0], carry[1]
 
 
 def sweep_channel(state: QuantState, config: QuantConfig, refp,
                   base_err=None, generator=None, use_gate: bool = True,
-                  gate: bool = True, window: bool = False):
+                  gate: bool = True, window: bool = False, *, draws=None):
     """One channel step: every slot visited for channels 0, 1, 2 in turn
     (src/lib.rs:917-923), C * S * 3 visits. Returns (state, error): the
     exact error of the resulting state, carried through the visits (one an
-    image for a batched state). `use_gate` and `gate` as for
-    `sweep_random`; `window` makes every visit windowed (`_slot_channel`)."""
+    image for a batched state). `use_gate`, `gate` and `draws` (the explore
+    candidates) as for `sweep_random`; `window` makes every visit windowed
+    (`_slot_channel`)."""
     s = config.subpalette_size
     err = base_err
     if err is None:
@@ -1059,7 +1067,8 @@ def sweep_channel(state: QuantState, config: QuantConfig, refp,
         carry, gb = _visit(_slot_channel, carry, gb, config, refp,
                            k // (s * 3), (k // 3) % s, k % 3,
                            generator=generator, t_lab=t_lab,
-                           gate_enable=use_gate, window=window)
+                           gate_enable=use_gate, window=window,
+                           rand5=None if draws is None else draws[k])
     return carry[0], carry[1]
 
 

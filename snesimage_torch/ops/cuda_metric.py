@@ -146,15 +146,24 @@ def _ref_pyramid(triples, device, n_img: int = 1) -> _kernels.RefPyramid:
 
 
 # Tile sums and tickets of kernel B's tiled scales, per device: grown when
-# a call needs more, never shrunk. The kernel leaves every ticket at 0.
+# a call needs more, never shrunk. The kernel leaves every ticket at 0. A
+# CUDA graph (core/graphs.py) replays the addresses it captured, so every
+# buffer outgrown stays alive (`_OUTGROWN`), and none grows in a capture,
+# where it would be taken from the graph's own memory (ROADMAP C-12).
 _TILE_SCRATCH: dict = {}
+_OUTGROWN: list = []
 
 
 def _tile_scratch(dev, n_sums: int, n_tickets: int):
     have = _TILE_SCRATCH.get(dev)
     if have is None or have[0].numel() < n_sums or have[1].numel() < n_tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("kernel B's tile scratch would grow inside a "
+                               "CUDA graph capture")
         n_sums = max(n_sums, have[0].numel() if have else 0)
         n_tickets = max(n_tickets, have[1].numel() if have else 0)
+        if have is not None:
+            _OUTGROWN.append(have)
         have = (torch.empty(n_sums, dtype=torch.float32, device=dev),
                 torch.zeros(n_tickets, dtype=torch.int32, device=dev))
         _TILE_SCRATCH[dev] = have
@@ -228,12 +237,14 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate=None):
         sums, tickets = _tile_scratch(dev, b * call.tiles_total * 18,
                                       b * call.n_tiled)
         call.partial, call.tickets = sums.data_ptr(), tickets.data_ptr()
-    for c in _launches(call):
+    launches = _launches(call)
+    for c in launches:
         rc = _kernels.entry("snes_multiscale")(
             ctypes.addressof(c), ctypes.addressof(refs),
             ctypes.addressof(_kernels.metric_params()), _kernels.stream(dev))
         _kernels.check(rc, "multiscale")
     multiscale_feature_sums.launches += 1
+    multiscale_feature_sums.split_launches += len(launches) - 1
     return out
 
 
@@ -295,6 +306,9 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0,
 
 
 multiscale_feature_sums.launches = 0
+# The second launches of the calls that split (`_launches`): a call counts
+# one in `.launches` however many times it launches.
+multiscale_feature_sums.split_launches = 0
 
 
 def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):

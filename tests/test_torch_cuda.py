@@ -1019,3 +1019,97 @@ def test_multiscale_gate_flag(dev, flags, h, w, start, count, b):
             assert not g_k.any() and not p_k.any(), k
     assert torch.equal(cuda_metric.multiscale_feature_sums(refs, frames),
                        want)
+
+
+# Sweep paths at 64x64 (2x3 palettes) for the compiled sweep: the channel
+# schedule with explore draws, the reference cycle, NES, the rank-1 gate
+# (with a stop rule that forces exact confirmations), windowed descent,
+# perceptual palettes and dithering.
+_GRAPH_BASE = dict(subpalette_count=2, subpalette_size=3, width=64,
+                   height=64, max_steps=6, converge_tol=0.0, seed=0)
+_GRAPH_CHANNEL = dict(_GRAPH_BASE, schedule="channel", prescreen=8,
+                      prescreen_full=2, channel_explore=4,
+                      accept_margin=0.005)
+GRAPH_PATHS = {
+    "channel": _GRAPH_CHANNEL,
+    "reference": dict(_GRAPH_BASE, random_trials=16),
+    "nes": dict(_GRAPH_BASE, nes=True),
+    "gated": dict(_GRAPH_CHANNEL, channel_explore=0, gate_margin=0.01,
+                  converge_tol=2.0),
+    "windowed": dict(_GRAPH_CHANNEL, channel_window=2),
+    "perceptual": dict(_GRAPH_CHANNEL, perceptual_palettes=True,
+                       prescreen_full=4),
+    "dithered": dict(_GRAPH_CHANNEL, dither=True),
+}
+
+
+def _graph_runs(params: dict, size: int, runs: int, between=None):
+    """The eager run of `params` on a size x size crop of the bench image,
+    then `runs` graphed runs (`between()` before the last): each run's
+    step errors, palette, map, kernel launches and graph replays."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import graphs, pipeline
+    from snesimage_torch.core.state import new_state
+    from snesimage_torch.testing import bench_image
+
+    lo = 128 - size // 2
+    img = np.ascontiguousarray(bench_image(0)[lo:lo + size, lo:lo + size])
+    config = QuantConfig(**params)
+    state = pipeline.cluster(pipeline.initialize(
+        new_state(img, config, "cuda"), config), config)
+    wrappers = graphs._wrappers()
+    out = []
+    for k in range(runs + 1):
+        if between is not None and k == runs:
+            between()
+        for fn in wrappers:
+            fn.launches = 0
+        replays = sum(g["replays"] for g in graphs.stats())
+        got, errs = pipeline.optimize(state, config, eager=k == 0)
+        out.append((errs.cpu(), got.palette.cpu(), got.palette_map.cpu(),
+                    [fn.launches for fn in wrappers],
+                    sum(g["replays"] for g in graphs.stats()) - replays))
+    return out
+
+
+def _assert_runs_equal(out):
+    """Every graphed run equals the eager run, which replayed nothing,
+    and the last one replayed."""
+    errs, palette, palette_map, launches, replays = out[0]
+    assert replays == 0 and out[-1][4] > 0
+    for k, (e, p, m, n, _) in enumerate(out[1:], 1):
+        assert torch.equal(e, errs), (k, e.tolist(), errs.tolist())
+        assert torch.equal(p, palette) and torch.equal(m, palette_map), k
+        assert n == launches, (k, n, launches)
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graphed_sweeps_equal_eager(dev, path):
+    """Sweeps replayed from CUDA graphs (core/graphs.py) equal the eager
+    sweeps bit for bit over 6 steps, twice (the first graphed run captures
+    where a key has CAPTURE_LEFT steps left, later sweeps replay), with the
+    same kernel launches, a replay's counted from its graph's kernel
+    nodes."""
+    _assert_runs_equal(_graph_runs(GRAPH_PATHS[path], 64, 2))
+
+
+def test_graph_survives_scratch_regrowth(dev):
+    """Kernel B's tile scratch grows, by a call of more frames than it
+    holds, between two replays of a graph that captured it: the buffer
+    the graph captured stays alive and the replay still equals the eager
+    sweep (ROADMAP C-12). At 128x128 scale 0 takes kernel B's tiles."""
+    from snesimage_torch.core import graphs
+
+    def grow():
+        old = cuda_metric._TILE_SCRATCH[torch.device(
+            "cuda", torch.cuda.current_device())]
+        refp = reference_pyramid(torch.rand((128, 128, 3), device=dev))
+        refs = tuple(tuple(a.permute(2, 0, 1) for a in sc) for sc in refp)
+        frames = old[0].numel() // (16 * 18) + 4  # 16 tiles a frame
+        cuda_metric.multiscale_feature_sums(
+            refs, torch.rand((frames, 3, 128, 128), device=dev))
+        assert any(kept[0] is old[0] for kept in cuda_metric._OUTGROWN)
+
+    graphs.clear()
+    _assert_runs_equal(_graph_runs(dict(_GRAPH_CHANNEL, width=128,
+                                        height=128), 128, 2, between=grow))

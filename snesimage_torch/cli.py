@@ -11,7 +11,8 @@ pins them), because importing any module of that package imports JAX.
 `--opt-profile robust` is K = 2), init alone (`--skip-optimize`), and the
 host-stepped loop `pipeline.optimize` for `--resume`, `-v`,
 `--dump-every`, `--reassign-every` and `--reassign-tiles`; `--profile-dir`
-captures a `torch.profiler` trace of the optimisation. It writes the
+captures a `torch.profiler` trace of the optimisation and logs the totals
+of the program's spans and counters. It writes the
 reference JSON and, when asked, a checkpoint and a preview. Every flag
 the JAX CLI takes runs, `--prescreen-pre`, `--dither-proxy`,
 `--channel-window` and `--gate-coarse` among them.
@@ -560,7 +561,7 @@ def main(argv: list[str] | None = None, *,
                 and args.dump_every == 0
                 and not args.reassign_tiles
             ):
-                with trace(args.profile_dir):
+                with trace(args.profile_dir, device):
                     if config_fast is not None:
                         state, errors, _ = pipeline.run_fused_hybrid(
                             img, config_fast, config, device=device)
@@ -674,7 +675,7 @@ def main(argv: list[str] | None = None, *,
             refp = make_reference_pyramid(state)
             phases = [config] if config_fast is None else [config_fast,
                                                            config]
-            with trace(args.profile_dir):
+            with trace(args.profile_dir, device):
                 for cfg in phases:
                     state, errs = pipeline.optimize(
                         state, cfg, refp=refp, start_step=len(errors),

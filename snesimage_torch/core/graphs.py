@@ -18,8 +18,9 @@ the sweep method, `use_gate`, `gate`, `window`, every field of the
 `QuantConfig` but the three that only `optimize` reads (`seed`,
 `max_steps`, `converge_tol`: a run's generator, length and stop), the
 shape, strides and dtype of every input tensor (the image shape, the image
-count N, a seed portfolio's stride-0 image and pyramid), whether a
-`refine.gate_tally` is open, and the device. The process keeps the
+count N, a seed portfolio's stride-0 image and pyramid), and the device.
+Counting the gates changes no graph: a gated sweep, eager or captured,
+counts them on the device (`refine.GateCount`). The process keeps the
 `MAX_GRAPHS` graphs used last, each with its buffers and memory pool, and
 drops the one used least recently for a new one (`clear` drops them all),
 so the bench's timed runs and a batch's later chunks replay what an
@@ -65,7 +66,9 @@ graph (ROADMAP C-12), each handled here or where it lives:
   The captured graph's kernel nodes are counted by kernel name
   (`kernel_nodes`, through libcuda); they must equal what the
   wrappers counted, and every replay adds the nodes' counts
-  (`_measured`). `refine.gate_tally`'s counts are added likewise;
+  (`_measured`). The captured sweep's `refine.GateCount` is published
+  after every replay, to an open `refine.gate_tally` and the profiling
+  counters, with no host read;
 - every kernel launches on the current stream (`ops/_kernels.py`
   `stream`), the capture's side stream while capturing.
 """
@@ -84,6 +87,7 @@ import torch
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.core import refine
 from snesimage_torch.core.state import QuantState
+from snesimage_torch.utils.profiling import span
 
 _FIELDS = ("original", "tile_palettes", "palette", "palette_map")
 _COUNTERS = ("launches", "frame_launches", "split_launches")
@@ -101,15 +105,18 @@ _RUN_FIELDS = ("seed", "max_steps", "converge_tol")
 
 
 def run_sweep(method: str, state: QuantState, config: QuantConfig, refp,
-              err, generator, draws=None, **sweep_kw):
+              err, generator, draws=None, gates=None, **sweep_kw):
     """One eager sweep of `method` ("nes", "random" or "channel") from
     `state` and its carried error `err`; a channel sweep draws explore
     candidates from `generator` only where the config has them, and
     `draws` (a tensor of every visit's draws) stands in for the generator
-    where given. `sweep_kw` are the sweep's keywords (`use_gate`, `gate`,
-    `window`)."""
+    where given. A gated sweep appends its `refine.GateCount` to `gates`
+    where given, else publishes it. `sweep_kw` are the sweep's keywords
+    (`use_gate`, `gate`, `window`)."""
     if draws is not None:
         sweep_kw = dict(sweep_kw, draws=draws)
+    if gates is not None:
+        sweep_kw = dict(sweep_kw, gates=gates)
     if method == "nes":
         return refine.sweep_nes(state, config, refp, err)
     if method == "random":
@@ -137,7 +144,7 @@ def sweep_key(method: str, state: QuantState, config: QuantConfig, refp,
                    if f.name not in _RUN_FIELDS)
     return (method, tuple(sorted(sweep_kw.items())), fields,
             tuple(_layout(t) for t in _inputs(state, err, refp)),
-            bool(refine._GATE_TALLIES), state.device)
+            state.device)
 
 
 def _buffer(t: torch.Tensor) -> torch.Tensor:
@@ -382,7 +389,7 @@ def backend(device: torch.device):
 @dataclasses.dataclass
 class SweepGraph:
     """A captured sweep, its static inputs and outputs, and what a replay
-    adds to the launch counters and to an open `gate_tally`."""
+    adds to the launch counters and publishes of its gates."""
 
     label: str
     graph: object  # a `backend` instance
@@ -391,7 +398,7 @@ class SweepGraph:
     refp: tuple
     draws: DrawBuffer | None
     out: tuple  # (palette, palette_map, error) static outputs
-    meta: dict  # "launches", "visits", "closed" from the capture
+    meta: dict  # "launches" and "gates" (a GateCount or None)
     replays: int = 0
     holder: object = None  # the runner whose pyramid `refp` holds
 
@@ -448,23 +455,29 @@ class SweepRunner:
               refp, err, generator, draws: tuple, *, left: int, **sweep_kw):
         """One sweep; returns (state, error) as `run_sweep` does. `draws`
         is (visits, n) of the sweep's random draws, (0, 0) for none;
-        `left` counts the run's steps left, this one included."""
+        `left` counts the run's steps left, this one included. Spans:
+        `sweep.eager`, or `sweep.capture` or `sweep.bind` (the copies into
+        the graph's buffers and the draws), then `sweep.replay` (the
+        launch alone)."""
         if self.backend is None:
-            return run_sweep(method, state, config, refp, err, generator,
-                             **sweep_kw)
+            return _eager(method, state, config, refp, err, generator,
+                          sweep_kw)
         key = sweep_key(method, state, config, refp, err, sweep_kw)
         graph = _GRAPHS.get(key)
         if graph is None:
             runs = self._earlier_runs(key)
             if runs is None or (left < CAPTURE_LEFT and runs < CAPTURE_RUNS):
-                return run_sweep(method, state, config, refp, err, generator,
-                                 **sweep_kw)
-            graph = self._capture(key, method, state, config, refp, err,
-                                  generator, draws, sweep_kw)
+                return _eager(method, state, config, refp, err, generator,
+                              sweep_kw)
+            with span("sweep.capture"):
+                graph = self._capture(key, method, state, config, refp, err,
+                                      generator, draws, sweep_kw)
         else:
-            self._bind(graph, state, err, refp, generator)
+            with span("sweep.bind"):
+                self._bind(graph, state, err, refp, generator)
         _keep(_GRAPHS, key, graph, MAX_GRAPHS)
-        graph.graph.replay()
+        with span("sweep.replay", device=True):
+            graph.graph.replay()
         graph.replays += 1
         self.replayed = True
         self._count(graph.meta)
@@ -517,21 +530,17 @@ class SweepRunner:
                    else None),
             out=(), meta={})
         self._bind(graph, state, err, refp, generator)
-        tallying = bool(refine._GATE_TALLIES)
         captured = {}
 
         def body():
             counts, tables = _counts(), _table_counts()
-            tallies = refine._GATE_TALLIES[:]
-            tally = {"visits": 0, "closed": None, "closed_coarse": None}
-            refine._GATE_TALLIES[:] = [tally] if tallying else []
+            gates = []
             try:
                 out_state, out_err = run_sweep(
                     method, graph.state, config, graph.refp, graph.err, None,
                     None if graph.draws is None else graph.draws.rows,
-                    **sweep_kw)
+                    gates, **sweep_kw)
             finally:
-                refine._GATE_TALLIES[:] = tallies
                 now = _counts()
                 for (fn, name), value in counts.items():
                     setattr(fn, name, value)
@@ -543,14 +552,10 @@ class SweepRunner:
                 if getattr(out_state, f) is not getattr(graph.state, f):
                     raise RuntimeError(f"{graph.label} replaced {f}")
             captured.update({k: now[k] - v for k, v in counts.items()})
-            graph.meta["visits"] = tally["visits"]
-            return (out_state.palette, out_state.palette_map, out_err,
-                    tally["closed"], tally["closed_coarse"])
+            graph.meta["gates"] = gates[0] if gates else None
+            return out_state.palette, out_state.palette_map, out_err
 
-        out = graph.graph.capture(body)
-        graph.out = out[:3]
-        graph.meta["closed"] = dict(zip(("closed", "closed_coarse"),
-                                        out[3:]))
+        graph.out = graph.graph.capture(body)
         graph.meta["launches"] = _measured(graph.graph.kernels, captured,
                                            graph.label)
         return graph
@@ -559,9 +564,12 @@ class SweepRunner:
     def _count(meta: dict) -> None:
         for (fn, name), delta in meta["launches"].items():
             setattr(fn, name, getattr(fn, name) + delta)
-        for tally in refine._GATE_TALLIES:
-            tally["visits"] += meta["visits"]
-            for key, shut in meta["closed"].items():
-                if shut is not None:
-                    tally[key] = (shut.clone() if tally[key] is None
-                                  else tally[key] + shut)
+        if meta["gates"] is not None:
+            meta["gates"].publish()
+
+
+def _eager(method, state, config, refp, err, generator, sweep_kw):
+    """An eager sweep in its span; a gated one publishes its gates."""
+    with span("sweep.eager", device=True):
+        return run_sweep(method, state, config, refp, err, generator,
+                         **sweep_kw)

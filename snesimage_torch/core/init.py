@@ -23,6 +23,7 @@ from snesimage_torch.ops.color import (
     srgb_u8_to_lab,
 )
 from snesimage_torch.ops.kmeans import lloyd_kmeans
+from snesimage_torch.utils import profiling
 
 
 def _tile_pixel_gather(config: QuantConfig) -> tuple[np.ndarray, np.ndarray]:
@@ -51,6 +52,7 @@ def tile_pixels(
     """(T, 64, 3) int32 rgb and (T, 64) opacity, reference traversal order."""
     rows, cols = _tile_pixel_gather(config)
     dev = state.device
+    profiling.count("host_waits", 2)  # copies from pageable host memory
     rows = torch.from_numpy(rows).to(dev)
     cols = torch.from_numpy(cols).to(dev)
     return state.rgb[rows, cols], state.alpha[rows, cols] > 0
@@ -94,6 +96,7 @@ def assign_tiles(state: QuantState, config: QuantConfig) -> QuantState:
     # sums can be negative, and such tiles are excluded too.
     valid = sums.sum(-1) > 0.0
 
+    profiling.count("host_waits")
     km = lloyd_kmeans(
         means,
         valid,

@@ -22,6 +22,14 @@ with `on_slot`, the sweeps run eagerly. The run waits for the device once,
 at the end, unless `converge_tol > 0` or a hook reads each step's error on
 the host.
 
+Spans and counters (utils/profiling.py): `run` records itself, with the
+stages `init`, `cluster`, `pyramid`, `optimize` and `final` as spans, the
+first four timed on the card's clock too; `run_fused`, `run_fused_hybrid`
+and `optimize` mark the same stages for a caller that records or profiles
+them. `optimize` adds `stop_read` and `hook`, core/graphs.py the sweep's
+spans. The counter "host_waits" counts each place where the program
+blocks on the device.
+
 The GUI's manual tile reassignment (clicking a tile cycles its subpalette,
 src/lib.rs:1005-1024) is `reassign_tile` and `apply_tile_reassignments`.
 
@@ -49,6 +57,8 @@ from snesimage_torch.core import graphs, refine
 from snesimage_torch.core.init import assign_tiles, recalculate_palettes
 from snesimage_torch.core.reassign import auto_reassign_tiles
 from snesimage_torch.core.state import QuantState, new_state
+from snesimage_torch.utils import profiling
+from snesimage_torch.utils.profiling import span
 
 log = logging.getLogger("snesimage_torch")
 
@@ -125,6 +135,7 @@ def apply_tile_reassignments(state: QuantState, config: QuantConfig,
     click; `(x, y, palette)` sets it. Applied on the host in one pass, then
     reclustered once, as the reference re-fits its palettes after a
     click."""
+    profiling.count("host_waits", 2)  # the ids to the host and back
     tp = state.tile_palettes.cpu().numpy().copy()
     for item in assignments:
         if len(item) not in (2, 3):
@@ -265,6 +276,7 @@ def _observed_step(state, config, refp, step, generator, on_slot):
                                              visit.channel, generator,
                                              window)
         state, err = res.state, res.error
+        profiling.count("host_waits")
         on_slot(visit, float(err))
     return state, err
 
@@ -322,7 +334,15 @@ def optimize(
     by design. On the CPU every sweep runs eagerly.
 
     Returns (state, per-step errors as a (steps,) tensor on the device, or
-    (steps, N) for a batched state)."""
+    (steps, N) for a batched state). The whole is the span `optimize`."""
+    with span("optimize", device=True):
+        return _optimize(state, config, refp, max_steps, start_step,
+                         reassign_every, on_slot, on_step, on_step_state,
+                         gate, eager)
+
+
+def _optimize(state, config, refp, max_steps, start_step, reassign_every,
+              on_slot, on_step, on_step_state, gate, eager):
     if refp is None:
         refp = refine.make_reference_pyramid(state)
     steps = config.max_steps if max_steps is None else max_steps
@@ -355,24 +375,29 @@ def optimize(
                                       generator, _draw_sizes(config, step),
                                       left=steps - local, **sweep_kw)
         errors.append(err)
+        replacement = None
         if on_step is not None or on_step_state is not None:
-            host_errors.append(float(err))
-        if on_step is not None:
-            on_step(step, runner.release(state), host_errors)
-        if on_step_state is not None:
-            replacement = on_step_state(step, runner.release(state),
-                                        host_errors)
-            if replacement is not None:
-                # The state changed outside the descent (a mid-run tile
-                # reassignment usually worsens the error before it pays
-                # off): restart the plateau window and the confirmation,
-                # and carry the new state's own error.
-                state = replacement
-                err = refine.frame_error_fused(state, config, refp)
-                history.clear()
-                need_exact = False
+            with span("hook"):
+                profiling.count("host_waits")
+                host_errors.append(float(err))
+                if on_step is not None:
+                    on_step(step, runner.release(state), host_errors)
+                if on_step_state is not None:
+                    replacement = on_step_state(step, runner.release(state),
+                                                host_errors)
+        if replacement is not None:
+            # The state changed outside the descent (a mid-run tile
+            # reassignment usually worsens the error before it pays off):
+            # restart the plateau window and the confirmation, and carry
+            # the new state's own error.
+            state = replacement
+            err = refine.frame_error_fused(state, config, refp)
+            history.clear()
+            need_exact = False
         if config.converge_tol > 0:
-            history.append(float(err.mean()))
+            with span("stop_read"):
+                profiling.count("host_waits")
+                history.append(float(err.mean()))
             # A windowed sweep's small step never stops the run: the next
             # exhaustive sweep may still jump.
             starved = (plateau_stop(history, cycle, config.converge_tol)
@@ -415,12 +440,29 @@ def _check_device(device, what: str) -> torch.device:
     return device
 
 
-def _final(state, config, refp, errs) -> torch.Tensor:
-    """The run's final exact error: the last step's carried one, or the
-    state's own where no step ran."""
-    if len(errs):
-        return errs[-1]
-    return refine.frame_error_fused(state, config, refp)
+def _final(state, config, refp, errs) -> np.ndarray:
+    """The per-step errors and the run's final exact error (the last step's
+    carried one, or the state's own where no step ran) on the host: the
+    run's last wait for the device, which first completes the reads of
+    its device counts."""
+    final = errs[-1] if len(errs) else refine.frame_error_fused(state,
+                                                                config, refp)
+    profiling.queue_reads()
+    profiling.count("host_waits")
+    return torch.cat([errs, final.view(1)]).cpu().numpy()
+
+
+def _start(state, config):
+    """`initialize` and `cluster`, the spans `init` and `cluster`."""
+    with span("init", device=True):
+        state = initialize(state, config)
+    with span("cluster", device=True):
+        return cluster(state, config)
+
+
+def _pyramid(state):
+    with span("pyramid", device=True):
+        return refine.make_reference_pyramid(state)
 
 
 def run_fused(
@@ -440,12 +482,12 @@ def run_fused(
     device = _check_device(device, "run_fused")
     state = new_state(source_rgba, config, device)
     t0 = time.perf_counter()  # after new_state, as the JAX package's clock
-    state = cluster(initialize(state, config), config)
-    refp = refine.make_reference_pyramid(state)
+    state = _start(state, config)
+    refp = _pyramid(state)
     state, errs = optimize(state, config, refp=refp,
                            max_steps=max_steps, start_step=start_step)
-    final = _final(state, config, refp, errs)
-    summary = torch.cat([errs, final.view(1)]).cpu().numpy()  # the one sync
+    with span("final"):
+        summary = _final(state, config, refp, errs)  # the one sync
     elapsed = time.perf_counter() - t0
     errors = [float(e) for e in summary[:-1]]
     log_steps(errors, start_step)
@@ -484,14 +526,14 @@ def run_fused_hybrid(
     device = _check_device(device, "run_fused_hybrid")
     state = new_state(source_rgba, config_fast, device)
     t0 = time.perf_counter()
-    state = cluster(initialize(state, config_fast), config_fast)
-    refp = refine.make_reference_pyramid(state)
+    state = _start(state, config_fast)
+    refp = _pyramid(state)
     state, errs1 = optimize(state, config_fast, refp=refp)
     state, errs2 = optimize(state, config_quality, refp=refp,
                             start_step=len(errs1))
     errs = torch.cat([errs1, errs2])
-    final = _final(state, config_quality, refp, errs)
-    summary = torch.cat([errs, final.view(1)]).cpu().numpy()
+    with span("final"):
+        summary = _final(state, config_quality, refp, errs)
     elapsed = time.perf_counter() - t0
     errors = [float(e) for e in summary[:-1]]
     log_steps(errors)
@@ -511,22 +553,25 @@ def run(
     """Full pipeline, timed by stage: init and cluster, then `optimize`.
     Returns (state, per-step errors, {"init_seconds", "optimize_seconds",
     "final_error"}); each clock stops after the device has finished its
-    stage."""
+    stage. The run is recorded (`profiling.recording`): one record of its
+    spans and counters in `profiling.runs()`."""
     device = _check_device(device, "run")
     sync = torch.cuda.synchronize if device.type == "cuda" else (
         lambda: None)
-    t0 = time.perf_counter()
-    state = new_state(source_rgba, config, device)
-    state = cluster(initialize(state, config), config)
-    sync()
-    t_init = time.perf_counter() - t0
-    refp = refine.make_reference_pyramid(state)
-    t1 = time.perf_counter()
-    state, errs = optimize(state, config, refp=refp)
-    sync()
-    t_opt = time.perf_counter() - t1
-    final = _final(state, config, refp, errs)
-    summary = torch.cat([errs, final.view(1)]).cpu().numpy()
+    with profiling.recording(device):
+        t0 = time.perf_counter()
+        state = _start(new_state(source_rgba, config, device), config)
+        profiling.count("host_waits")
+        sync()
+        t_init = time.perf_counter() - t0
+        refp = _pyramid(state)
+        t1 = time.perf_counter()
+        state, errs = optimize(state, config, refp=refp)
+        profiling.count("host_waits")
+        sync()
+        t_opt = time.perf_counter() - t1
+        with span("final"):
+            summary = _final(state, config, refp, errs)
     errors = [float(e) for e in summary[:-1]]
     log_steps(errors)
     return state, errors, {

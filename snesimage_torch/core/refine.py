@@ -83,7 +83,8 @@ full error is predicted from its scale-2..5 sum and the carried terms of
 scales 0 and 1, and where that beats the carried error by no more than the
 margin (and no explore candidate is among the coarse finalists) the visit
 closes before its finalists are scored: kernel B's flag closes both the
-scale-1 and the scale-0 call. `gate_tally` counts the two closures apart.
+scale-1 and the scale-0 call. A gated sweep counts the two closures apart
+on the device (`GateCount`), for `gate_tally` and the profiling counters.
 
 With `dither_proxy` K a dithered visit first ranks its candidates by
 their exact undithered coarse score (`candidate_errors` with
@@ -156,6 +157,7 @@ from snesimage_torch.ops.ssimulacra2 import (
     ssimulacra2_from_ref_linear,
     stack_pyramids,
 )
+from snesimage_torch.utils import profiling
 
 
 def make_reference_pyramid(state: QuantState):
@@ -266,6 +268,8 @@ def gate_base_fused(state: QuantState, config: QuantConfig,
 
 # The active `gate_tally`s.
 _GATE_TALLIES: list = []
+# The GateCounts of the gated sweeps running, the innermost last.
+_GATE_COUNTS: list = []
 
 
 @contextlib.contextmanager
@@ -275,8 +279,8 @@ def gate_tally():
     gated visit, "closed" with every visit whose rank-1 gate closed and
     "closed_coarse" with every visit whose coarse gate (`gate_coarse`)
     closed first (0-dim device tensors, or None before the first such
-    gate; read them after the block). A visit that counts adds a few
-    device operations; outside the block nothing is counted."""
+    gate; read them after the block). Each sweep adds its `GateCount`
+    (one device addition a count); outside the block nothing is added."""
     tally = {"visits": 0, "closed": None, "closed_coarse": None}
     _GATE_TALLIES.append(tally)
     try:
@@ -285,14 +289,95 @@ def gate_tally():
         _GATE_TALLIES.remove(tally)
 
 
-def _count_gates(n: int, **closed) -> None:
-    """Adds n gated visits and, for each key of `closed` ("closed",
-    "closed_coarse"), the bool tensor's closed gates to every tally."""
-    for tally in _GATE_TALLIES:
-        tally["visits"] += n
-        for key, shut in closed.items():
-            add = shut.sum()
-            tally[key] = add if tally[key] is None else tally[key] + add
+class GateCount:
+    """The gates of one gated sweep, or of one gated visit outside a
+    sweep: `visits` (one an image and visit), and once `finish`ed,
+    `closed`, a (2,) int32 device tensor the sweep owns: the visits whose
+    rank-1 gate closed, then those whose coarse gate closed (`coarse`
+    tells whether it is a count at all), or None where no gate could
+    close. A visit adds one device operation a gate flag, which counts
+    the open gates of every image; the host never reads them."""
+
+    def __init__(self):
+        self.visits = 0
+        self.scored = 0  # visits whose gates could close
+        self.coarse = False
+        self.closed = None
+        self._opens = None  # (2, images) int32 open gates
+
+    def add(self, n: int, flag=None, flag_c=None) -> None:
+        """n more gated visits, their rank-1 (or final) and coarse int32
+        gate flags, one an image, where the gates could close."""
+        self.visits += n
+        if flag is None:
+            return
+        self.scored += n
+        if self._opens is None:
+            self._opens = torch.zeros((2, flag.numel()), dtype=torch.int32,
+                                      device=flag.device)
+        self._opens[0].add_(flag)
+        if flag_c is not None:
+            self.coarse = True
+            self._opens[1].add_(flag_c)
+
+    def finish(self) -> "GateCount":
+        if self._opens is not None:
+            self.closed = self.scored - self._opens.sum(-1,
+                                                        dtype=torch.int32)
+            if self.coarse:
+                # A final gate closes where either gate did: the rank-1
+                # closures are the coarse gates that opened, less the
+                # final gates that opened.
+                self.closed[0].sub_(self.closed[1])
+        return self
+
+    def publish(self) -> None:
+        """Adds the counts to every open `gate_tally` and to the profiling
+        counters "gate.visits", "gate.closed", "gate.closed_coarse"."""
+        profiling.count("gate.visits", self.visits)
+        for tally in _GATE_TALLIES:
+            tally["visits"] += self.visits
+        if self.closed is None:
+            return
+        keys = ("closed", "closed_coarse")[:1 + self.coarse]
+        for key, shut in zip(keys, self.closed):
+            profiling.count("gate." + key, shut)
+            for tally in _GATE_TALLIES:
+                tally[key] = (shut.clone() if tally[key] is None
+                              else tally[key] + shut)
+
+
+@contextlib.contextmanager
+def _sweep_gates(gated: bool, gates: list | None):
+    """The GateCount of a sweep, where it gates, that its visits add to;
+    at the end it goes to `gates` where the caller passed a list (a
+    captured sweep's, which each replay publishes), else it is
+    published."""
+    if not gated:
+        yield
+        return
+    count = GateCount()
+    _GATE_COUNTS.append(count)
+    try:
+        yield
+    finally:
+        _GATE_COUNTS.pop()
+    count.finish()
+    if gates is None:
+        count.publish()
+    else:
+        gates.append(count)
+
+
+def _count_gates(n: int, flag=None, flag_c=None) -> None:
+    """Adds n gated visits and their gate flags to the running sweep's
+    GateCount; a visit outside a sweep publishes its own."""
+    if _GATE_COUNTS:
+        _GATE_COUNTS[-1].add(n, flag, flag_c)
+        return
+    count = GateCount()
+    count.add(n, flag, flag_c)
+    count.finish().publish()
 
 
 def compute_d_all(state: QuantState, config: QuantConfig) -> torch.Tensor:
@@ -510,7 +595,6 @@ def _gated_finalists(refp, feats_c: torch.Tensor, sel: torch.Tensor, build,
     sel2 = _smallest(rank1, config.prescreen_full)
     sel_f = _take(sel, sel2)
     gate_open = flag = None
-    closed = {}
     if enable:
         gate_open = (rank1.min(-1).values - base_full
                      < -config.gate_margin)
@@ -518,13 +602,10 @@ def _gated_finalists(refp, feats_c: torch.Tensor, sel: torch.Tensor, build,
             # Explore rows are exempt: their gains are often scale-0 ones
             # the prediction cannot see.
             gate_open = gate_open | (sel_f >= n_gated).any(-1)
-        closed["closed"] = ~gate_open
         if open_c is not None:
-            closed = {"closed": open_c & ~gate_open,
-                      "closed_coarse": ~open_c}
             gate_open = gate_open & open_c
         flag = gate_open.to(torch.int32).reshape(-1)
-    _count_gates(gb[..., 0].numel(), **closed)
+    _count_gates(gb[..., 0].numel(), flag, flag_c)
     feats_0 = fused_scale_feature_block(refp, build(sel_f), 0, 1, gate=flag)
     full = 100.0 - score_from_features(
         feats_0 + _take(feats_1, sel2) + _take(feats_c, sel_f))
@@ -1022,7 +1103,7 @@ def _visit(slot, carry: tuple, gate_base, *args, **kwargs):
 
 def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
                  base_err=None, use_gate: bool = True, gate: bool = True,
-                 *, draws=None):
+                 *, draws=None, gates: list | None = None):
     """One random step: every slot visited once (src/lib.rs:888-932, steps
     with step % 5 < 4), C * S visits with their candidates drawn from
     `generator`. Returns (state, error), the exact error carried through
@@ -1031,7 +1112,9 @@ def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
     `use_gate=False` scores each exactly (the stop rule's confirmation).
     `draws`, a (visits, *lead, n, 3) int32 tensor, gives visit k its
     candidates `draws[k]` in place of drawing them (a captured sweep reads
-    its graph's static draws, core/graphs.py)."""
+    its graph's static draws, core/graphs.py). A gated sweep counts its
+    gates in a `GateCount` and publishes it, or appends it to `gates`
+    where given."""
     s = config.subpalette_size
     err = base_err
     if err is None:
@@ -1039,23 +1122,25 @@ def sweep_random(state: QuantState, config: QuantConfig, refp, generator,
     d_all, t_lab = _sweep_caches(state, config)
     gb = _gate_carry(state, config, refp, gate)
     carry = (state, err, d_all)
-    for k in range(config.subpalette_count * s):
-        carry, gb = _visit(_slot_random, carry, gb, config, refp, k // s,
-                           k % s, generator=generator, t_lab=t_lab,
-                           gate_enable=use_gate,
-                           cand5=None if draws is None else draws[k])
+    with _sweep_gates(gb is not None, gates):
+        for k in range(config.subpalette_count * s):
+            carry, gb = _visit(_slot_random, carry, gb, config, refp, k // s,
+                               k % s, generator=generator, t_lab=t_lab,
+                               gate_enable=use_gate,
+                               cand5=None if draws is None else draws[k])
     return carry[0], carry[1]
 
 
 def sweep_channel(state: QuantState, config: QuantConfig, refp,
                   base_err=None, generator=None, use_gate: bool = True,
-                  gate: bool = True, window: bool = False, *, draws=None):
+                  gate: bool = True, window: bool = False, *, draws=None,
+                  gates: list | None = None):
     """One channel step: every slot visited for channels 0, 1, 2 in turn
     (src/lib.rs:917-923), C * S * 3 visits. Returns (state, error): the
     exact error of the resulting state, carried through the visits (one an
-    image for a batched state). `use_gate`, `gate` and `draws` (the explore
-    candidates) as for `sweep_random`; `window` makes every visit windowed
-    (`_slot_channel`)."""
+    image for a batched state). `use_gate`, `gate`, `draws` (the explore
+    candidates) and `gates` as for `sweep_random`; `window` makes every
+    visit windowed (`_slot_channel`)."""
     s = config.subpalette_size
     err = base_err
     if err is None:
@@ -1063,12 +1148,13 @@ def sweep_channel(state: QuantState, config: QuantConfig, refp,
     d_all, t_lab = _sweep_caches(state, config)
     gb = _gate_carry(state, config, refp, gate)
     carry = (state, err, d_all)
-    for k in range(config.subpalette_count * s * 3):
-        carry, gb = _visit(_slot_channel, carry, gb, config, refp,
-                           k // (s * 3), (k // 3) % s, k % 3,
-                           generator=generator, t_lab=t_lab,
-                           gate_enable=use_gate, window=window,
-                           rand5=None if draws is None else draws[k])
+    with _sweep_gates(gb is not None, gates):
+        for k in range(config.subpalette_count * s * 3):
+            carry, gb = _visit(_slot_channel, carry, gb, config, refp,
+                               k // (s * 3), (k // 3) % s, k % 3,
+                               generator=generator, t_lab=t_lab,
+                               gate_enable=use_gate, window=window,
+                               rand5=None if draws is None else draws[k])
     return carry[0], carry[1]
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from snesimage_torch.config import QuantConfig
+from snesimage_torch.utils import profiling
 
 _FIELDS = ("original", "tile_palettes", "palette", "palette_map")
 _DTYPES = {
@@ -70,6 +71,7 @@ def new_state(
     if isinstance(source_rgba, torch.Tensor):
         source = source_rgba.to(device=device, dtype=torch.uint8)
     else:
+        profiling.count("host_waits")
         source = torch.from_numpy(
             np.ascontiguousarray(source_rgba, dtype=np.uint8)
         ).to(device)

@@ -17,9 +17,12 @@ import numpy as np
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.core.state import QuantState
 from snesimage_torch.ops.color import pack_bgr555
+from snesimage_torch.utils import profiling
+from snesimage_torch.utils.profiling import span
 
 
 def state_to_json_obj(state: QuantState, config: QuantConfig) -> dict:
+    profiling.count("host_waits", 4)
     packed = pack_bgr555(state.palette).cpu().numpy()  # (C, S)
     pmap = state.palette_map.cpu().numpy()
     alpha = state.original[..., 3].cpu().numpy()
@@ -42,10 +45,11 @@ def state_to_json_obj(state: QuantState, config: QuantConfig) -> dict:
 
 
 def state_to_json(state: QuantState, config: QuantConfig) -> str:
-    """Serialize exactly like serde_json's `to_string` (compact)."""
-    return json.dumps(
-        state_to_json_obj(state, config), separators=(",", ":"), ensure_ascii=False
-    )
+    """Serialize exactly like serde_json's `to_string` (compact); the span
+    `json`."""
+    with span("json"):
+        return json.dumps(state_to_json_obj(state, config),
+                          separators=(",", ":"), ensure_ascii=False)
 
 
 def write_json(path: str, state: QuantState, config: QuantConfig) -> None:

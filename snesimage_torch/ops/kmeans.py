@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from snesimage_torch.utils import profiling
+
 
 class KmeansResult(NamedTuple):
     centers: torch.Tensor  # (..., k, D) float32
@@ -105,6 +107,7 @@ def lloyd_kmeans(
     shift = torch.full(batch, float("inf"), device=data.device)
     for _ in range(max_iter):
         active = shift > tol
+        profiling.count("host_waits")
         if not bool(active.any()):
             break
         assign = _assign(data, centers)

@@ -13,6 +13,8 @@ from snesimage_torch.config import QuantConfig
 from snesimage_torch.core.state import QuantState
 from snesimage_torch.ops.color import expand_5bit_to_8bit
 from snesimage_torch.ops.remap import render_rgb8
+from snesimage_torch.utils import profiling
+from snesimage_torch.utils.profiling import span
 
 
 def _grid_darken(rgb: np.ndarray) -> np.ndarray:
@@ -26,13 +28,11 @@ def _grid_darken(rgb: np.ndarray) -> np.ndarray:
     return out
 
 
-def render_palette_swatches(
-    state: QuantState, config: QuantConfig, height: int
-) -> np.ndarray:
-    """Palette swatch panel, 128 wide: entry ci of subpalette pi drawn as an
-    8x8 rect at ((ci+1)*8, pi*8) (src/lib.rs:797-822)."""
+def _swatches(entries8: np.ndarray, height: int) -> np.ndarray:
+    """Palette swatch panel of the (C, S, 3) 8-bit entries, 128 wide: entry
+    ci of subpalette pi drawn as an 8x8 rect at ((ci+1)*8, pi*8)
+    (src/lib.rs:797-822)."""
     panel = np.zeros((height, 128, 3), dtype=np.uint8)
-    entries8 = expand_5bit_to_8bit(state.palette).cpu().numpy()  # (C, S, 3)
     c, s, _ = entries8.shape
     for pi in range(c):
         for ci in range(s):
@@ -45,16 +45,22 @@ def render_palette_swatches(
 def render_preview(
     state: QuantState, config: QuantConfig, *, grid: bool = False
 ) -> np.ndarray:
-    """Composite [source | quantized | palette] frame as (H, W*2+128, 3)."""
-    source = state.original[..., :3].cpu().numpy()
-    quant = render_rgb8(
-        state.palette_map, state.alpha, state.tile_palettes, state.palette
-    ).cpu().numpy().astype(np.uint8)
-    if grid:
-        source = _grid_darken(source)
-        quant = _grid_darken(quant)
-    swatches = render_palette_swatches(state, config, source.shape[0])
-    return np.concatenate([source, quant, swatches], axis=1)
+    """Composite [source | quantized | palette] frame as (H, W*2+128, 3):
+    the span `preview.copy` (its three copies from the device), then
+    `preview.composite`."""
+    with span("preview.copy"):
+        profiling.count("host_waits", 3)
+        source = state.original[..., :3].cpu().numpy()
+        quant = render_rgb8(
+            state.palette_map, state.alpha, state.tile_palettes, state.palette
+        ).cpu().numpy().astype(np.uint8)
+        entries8 = expand_5bit_to_8bit(state.palette).cpu().numpy()
+    with span("preview.composite"):
+        if grid:
+            source = _grid_darken(source)
+            quant = _grid_darken(quant)
+        swatches = _swatches(entries8, source.shape[0])
+        return np.concatenate([source, quant, swatches], axis=1)
 
 
 def save_preview(path: str, state: QuantState, config: QuantConfig,

@@ -8,7 +8,8 @@ graph's static outputs. What the runner adds around a graph is then the
 code under test: the keys, which steps share a graph, the copies into the
 static buffers and out of them, the draws buffer, the launch counters
 (from the stand-in's kernel nodes, none on the CPU unless a test gives
-some), `gate_tally` and the bound on the graphs kept. Every graphed run must equal the eager run (`eager=True`,
+some), the gate counts a replay publishes and the bound on the graphs
+kept. Every graphed run must equal the eager run (`eager=True`,
 the graph's plain twin) bit for bit. On the card the same runs go through
 real graphs in `tests/test_torch_cuda.py` and `chip_smoke.py` phase 44.
 """
@@ -137,7 +138,8 @@ def test_graphed_runs_equal_eager(image, name, params, labels,
 
 def test_keys():
     """A key holds what changes the captured work and nothing else: runs
-    that differ in seed, max_steps or converge_tol share graphs."""
+    that differ in seed, max_steps or converge_tol, or run inside a
+    `gate_tally`, share graphs."""
     config = QuantConfig(**CHANNEL)
     state = new_state(np.zeros((32, 32, 4), np.uint8), config, "cpu")
     refp = refine.make_reference_pyramid(state)
@@ -159,7 +161,7 @@ def test_keys():
                          err.expand(2).contiguous(), {}),
     ]
     with refine.gate_tally():
-        others.append(key())
+        assert key() == base  # counting the gates changes no graph
     assert len({base, *others}) == len(others) + 1
 
 

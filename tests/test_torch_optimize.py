@@ -10,6 +10,7 @@ in tests/test_torch_cli.py / tests/test_torch_reassign.py.
 """
 
 import json
+import logging
 import os
 
 import numpy as np
@@ -21,7 +22,7 @@ from snesimage_torch.core import pipeline as tpipe
 from snesimage_torch.core import refine as tref
 from snesimage_torch.core.state import new_state
 from snesimage_torch.testing import single_torch_thread
-from snesimage_torch.utils.profiling import StepTimer, trace
+from snesimage_torch.utils.profiling import span, trace
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import pipeline as jpipe
 from snesimage_tpu.core.state import new_state as j_new_state
@@ -274,22 +275,16 @@ def test_run_fused_hybrid_reports_its_phases(image, monkeypatch):
             device="cpu")
 
 
-def test_trace_writes_a_trace(tmp_path):
-    """`trace(dir)` writes a Chrome/Perfetto trace of the block; with no
-    directory it does nothing."""
-    with trace(str(tmp_path / "t")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+def test_trace_writes_a_trace(tmp_path, caplog):
+    """`trace(dir)` writes a Chrome/Perfetto trace of the block and logs
+    the totals of its spans; with no directory it does nothing."""
+    with caplog.at_level(logging.INFO, logger="snesimage_torch"):
+        with trace(str(tmp_path / "t")):
+            with span("matmul"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    assert any(m.startswith("timing | matmul: ") for m in caplog.messages)
     events = json.loads((tmp_path / "t" / "trace.json").read_text())
     assert events["traceEvents"]
     with trace(None):
         pass
     assert os.listdir(tmp_path) == ["t"]
-
-
-def test_step_timer_accumulates():
-    timer = StepTimer()
-    for _ in range(2):
-        with timer.time("sweep", block_on=torch.ones(2)):
-            pass
-    assert timer.counts == {"sweep": 2}
-    assert "sweep:" in timer.summary() and "2 calls" in timer.summary()

@@ -147,6 +147,7 @@ instantiation seconds, nodes and kernel nodes.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import sys
 import time
@@ -215,6 +216,10 @@ F32_OPS_PER_S = 67e12
 METRIC_OPS_PER_PX = 680
 # A red-mean distance, the win test and the pooled sums (kernel C).
 REDMEAN_OPS_PER_PX = 17
+# Kernel B in source mode, a level-0 pixel of a frame: the scaled red-mean
+# distance (eleven integer operations), the comparison with bva and three
+# selects, and three more operations for the channel offsets of the loads.
+SOURCE_RULE_OPS_PER_PX = 18
 # CIEDE2000 (csrc/ciede2000.cuh): 141 float32 operations with the win
 # test and pooled sums, plus nine transcendentals (two atan2, two sin,
 # four cos, one exp), each counted as one float32 operation, the fewest
@@ -440,42 +445,94 @@ def _print_a_cases(phase: str, cases) -> None:
 
 def _b_case(label: str, refp, frames, start: int, n: int, pre_ds: int):
     """Kernel B against its twin on `frames` for scales start..start+n-1
-    after `pre_ds` 2x2 means."""
+    after `pre_ds` 2x2 means. `frames` may be a FrameSource (the undithered
+    red-mean visit's finalists, `finalists_source`): then kernel B builds
+    them in its loads (source mode), must give the bits of its frames mode
+    on the frames the source describes (`frames.frames()`, which the twin
+    scores too), and the case also holds the frames mode's device ms."""
     from snesimage_torch.ops import cuda_metric
     from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
 
     refs = tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
                  for s in range(n))
     sizes = [t[0].shape[-2] * t[0].shape[-1] for t in refs]
-    b = len(frames)
+    b = frames.shape[0]
+    source = isinstance(frames, cuda_metric.FrameSource)
+    built = frames.frames() if source else frames
 
-    def kernel():
+    def kernel(frames=frames):
         return cuda_metric.multiscale_feature_sums(refs, frames,
                                                    pre_ds=pre_ds)
 
     def plain():
-        return cuda_metric._multiscale_feature_sums_plain(refs, frames,
+        return cuda_metric._multiscale_feature_sums_plain(refs, built,
                                                           pre_ds)
 
+    before = cuda_metric.multiscale_feature_sums.source_launches
     raw = kernel()
+    check(cuda_metric.multiscale_feature_sums.source_launches - before
+          == source, f"kernel B's source launches ({label})")
     got = finalize_feature_sums(raw.reshape(b, -1, 6), sizes, start)
     want = finalize_feature_sums(plain().reshape(b, -1, 6), sizes, start)
     check(torch.equal(raw, kernel()), "kernel B gave other bits a second time")
-    return dict(
+    case = dict(
         shape=label, max_abs_err=max_err(got, want, FEATURE_TOL),
         ms=median_ms(kernel), device_ms=device_ms(kernel),
         plain_ms=median_ms(plain), **b_bound(refs, frames, raw, pre_ds),
     )
+    if source:
+        check(torch.equal(raw, kernel(built)),
+              f"kernel B's source mode ({label}) differs from its frames "
+              "mode on the same frames")
+        case.update(mode="source", bits_equal_frames=True,
+                    frames_device_ms=device_ms(lambda: kernel(built)))
+    return case
+
+
+def finalists_source(ctx, cand8, cand_lin, k: int):
+    """Candidates 0..k-1 of a visit as kernel B's FrameSource, as
+    core/refine.py `candidate_errors` hands B the undithered red-mean
+    finalists, with the visit's torch glue as its frames."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops.cuda_metric import FrameSource
+
+    frames = refine.candidate_frames(ctx, ctx.cand_dist(cand8[:k]),
+                                     cand_lin[:k]).contiguous()
+    return FrameSource(ctx.target, cand8, cand_lin,
+                       torch.arange(k, device=cand8.device), ctx.rule[0],
+                       ctx.lnc, lambda: frames)
+
+
+def frame_bytes(frames) -> int:
+    """Bytes a call of kernel B reads to have its frames: the frames
+    tensor; in source mode (a FrameSource) no frame but the target, win
+    threshold and no-candidate planes of each image (seven planes, which
+    its frames share), each frame's candidate row and colours."""
+    from snesimage_torch.ops.cuda_metric import FrameSource
+
+    if not isinstance(frames, FrameSource):
+        return nbytes(frames)
+    row = 3 * (frames.cand8.element_size() + frames.cand_lin.element_size())
+    return (nbytes(frames.target, frames.bva, frames.lnc, frames.ix)
+            + frames.ix.numel() * row)
 
 
 def b_bound(refs, frames, raw, pre_ds: int) -> dict:
-    """Bound of one call of kernel B: the frames, reference planes and sums
-    moved once; the metric's operations on every scale and the `pre_ds`
-    2x2 means (three operations a frame pixel and mean)."""
+    """Bound of one call of kernel B: its frames (`frame_bytes`),
+    reference planes and sums moved once; the metric's operations on
+    every scale and the `pre_ds` 2x2 means (three operations a frame pixel
+    and mean), and in source mode the win rule on every level-0 pixel of
+    every frame (SOURCE_RULE_OPS_PER_PX)."""
+    from snesimage_torch.ops.cuda_metric import FrameSource
+
     sizes = [t[0].shape[-2] * t[0].shape[-1] for t in refs]
-    return bound(nbytes(frames, *(a for t in refs for a in t), raw),
-                 metric_ops(len(frames), sizes)
-                 + pre_ds * len(frames) * frames[0].numel())
+    n_frames = math.prod(frames.shape[:-3])
+    px = math.prod(frames.shape[-3:])
+    ops = metric_ops(n_frames, sizes) + pre_ds * n_frames * px
+    if isinstance(frames, FrameSource):
+        ops += n_frames * (px // 3) * SOURCE_RULE_OPS_PER_PX
+    return bound(frame_bytes(frames) + nbytes(*(a for t in refs for a in t),
+                                              raw), ops)
 
 
 def _sum_cases(record: dict, cases) -> dict:
@@ -618,8 +675,10 @@ def _b_record(cases) -> dict:
 def _print_b_cases(phase: str, what: str, cases) -> None:
     print(f"{phase} kernel B {what}: " + "; ".join(
         f"{c['shape']} max_abs_err {c['max_abs_err']:.3g} kernel "
-        f"{c['ms']:.4f} ms wall, {c['device_ms']:.5f} ms device, twin "
-        f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
+        f"{c['ms']:.4f} ms wall, {c['device_ms']:.5f} ms device"
+        + (f" (frames mode {c['frames_device_ms']:.5f} ms, bit-equal)"
+           if "frames_device_ms" in c else "")
+        + f", twin {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
         f"({c['bound_by']})" for c in cases), flush=True)
 
 
@@ -671,17 +730,17 @@ def phase_kernels(img):
         **_coarse_bound(args, nbytes(raw), REDMEAN_OPS_PER_PX),
     ))
 
-    # B: the frame error (B=1, six scales), the scale-1 rank (B=8,
-    # pre_ds=1) and the scale-0 finalists (B=2).
+    # B: the frame error (B=1, six scales), and in source mode the
+    # scale-1 rank (B=8, pre_ds=1) and the scale-0 finalists (B=2).
     frame = render_linear(state.palette_map, state.alpha,
                           state.tile_palettes, state.palette)
     frame = frame.permute(2, 0, 1)[None].contiguous()
-    finals = refine.candidate_frames(ctx, ctx.cand_dist(cand8[:8]),
-                                     cand_lin[:8])
     records.append(_b_record([
         _b_case("B=1, n=6", refp, frame, 0, 6, 0),
-        _b_case("B=8, pre_ds=1, n=1", refp, finals, 1, 1, 1),
-        _b_case("B=2, n=1", refp, finals[:2].contiguous(), 0, 1, 0),
+        _b_case("B=8, pre_ds=1, n=1 (source)", refp,
+                finalists_source(ctx, cand8, cand_lin, 8), 1, 1, 1),
+        _b_case("B=2, n=1 (source)", refp,
+                finalists_source(ctx, cand8, cand_lin, 2), 0, 1, 0),
     ]))
     for r in records:
         r["route"] = "cuda"
@@ -1046,7 +1105,8 @@ def phase_kernel_b_geometry(img, b_record):
     whose pyramid is 240x256, 120x128, 60x64, 30x32, 15x16, 8x8: the frame
     error (B = 1, six scales), the coarse stage on the 48 frames assembled
     from kernel E's sums (60x64 down to 8x8), the scale-1 rank (B = 8, one
-    in-kernel 2x2 mean), and the scale-0 finalists (B = 2; 4 perceptual)."""
+    in-kernel 2x2 mean) and the scale-0 finalists (B = 2) in source mode,
+    and the perceptual visit's scale-0 finalists (B = 4) in frames mode."""
     from snesimage_torch.core import refine
     from snesimage_torch.ops import cuda_prescreen as cp
     from snesimage_torch.ops.remap import render_linear
@@ -1063,8 +1123,10 @@ def phase_kernel_b_geometry(img, b_record):
     cases = [
         _b_case("256x240: B=1, n=6", refp, frame, 0, 6, 0),
         _b_case("256x240: B=48 of 60x64, n=4", refp, quarter, 2, 4, 0),
-        _b_case("256x240: B=8, pre_ds=1, n=1", refp, finals, 1, 1, 1),
-        _b_case("256x240: B=2, n=1", refp, finals[:2].contiguous(), 0, 1, 0),
+        _b_case("256x240: B=8, pre_ds=1, n=1 (source)", refp,
+                finalists_source(ctx, cand8, cand_lin, 8), 1, 1, 1),
+        _b_case("256x240: B=2, n=1 (source)", refp,
+                finalists_source(ctx, cand8, cand_lin, 2), 0, 1, 0),
         _b_case("256x240: B=4, n=1", refp, finals[:4].contiguous(), 0, 1, 0),
     ]
     b_record.update(_b_record(b_record["cases"] + cases))
@@ -1173,7 +1235,8 @@ def kernel_wrappers() -> dict:
 
 def phase_main_path(img, init_state, smi, params: dict, phase: str,
                     label: str, present: tuple, timed_runs: int,
-                    always_replaces: bool = False, record=None):
+                    always_replaces: bool = False, record=None,
+                    source_per_visit: int = 0):
     """One run of a path through `run_fused`, checked; then its warm time
     as the best of `timed_runs` runs (with 0, the checked run's own time:
     the phases before it have warmed every kernel). Returns each wrapper's
@@ -1181,7 +1244,10 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
     launched and no other, kernel G once per visit and twice in the init
     where the path dithers, and kernel E or F once per channel visit.
     `always_replaces` (NES) lifts the check that step errors never rise.
-    A `record` dict receives the run's step errors and warm seconds."""
+    A `record` dict receives the run's step errors and warm seconds.
+    Kernel B must run in source mode `source_per_visit` times a visit
+    (`.source_launches`, eager or replayed): twice on the undithered
+    red-mean prescreened visits, never on the others."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
     from snesimage_torch.io.json_out import state_to_json
@@ -1195,9 +1261,12 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    b_fn = wrappers["multiscale_feature_sums"]
+    b_fn.source_launches = 0
     state, errors, info = pipeline.run_fused(img, config, device="cuda")
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    source = b_fn.source_launches
     for name, n in launches.items():
         if name in present:
             check(n > 0, f"the {label} path never launched {name}")
@@ -1212,6 +1281,9 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
     for name in ("pooled_wins_redmean", "pooled_wins_ciede"):
         check(launches[name] in (0, visits),
               f"{name} launched {launches[name]} times in {visits} visits")
+    check(source == source_per_visit * visits,
+          f"kernel B ran {source} times in source mode in {visits} visits "
+          f"of the {label} path, not {source_per_visit} a visit")
 
     refp = refine.make_reference_pyramid(init_state)
     err0 = float(refine.frame_error_fused(init_state, config, refp))
@@ -1256,7 +1328,8 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
           f"(runs {runs}), init "
           f"error {err0}, final error {info['final_error']}, step errors "
           f"{errors}, frame error kernel {kernel_err} twin {twin_err}, "
-          f"launches {launches}, card '{smi}'", flush=True)
+          f"launches {launches}, B in source mode {source}, card '{smi}'",
+          flush=True)
     return launches
 
 
@@ -1281,6 +1354,8 @@ def _zero_counts() -> dict:
         fn.launches = 0
         if hasattr(fn, "frame_launches"):
             fn.frame_launches = 0
+        if hasattr(fn, "source_launches"):
+            fn.source_launches = 0
     return wrappers
 
 
@@ -1700,7 +1775,8 @@ def fast_params(**change) -> dict:
 
 def _b_flag_case(label: str, refs, frames, flags, unflagged):
     """Kernel B with a gate flag an image against the same call without
-    one: open images bit-equal, closed ones zero sums; device ms."""
+    one (`unflagged`, in frames mode): open images bit-equal, closed ones
+    zero sums; device ms. `frames` may be a FrameSource (source mode)."""
     from snesimage_torch.ops import cuda_metric
 
     gate = torch.tensor(flags, dtype=torch.int32, device="cuda")
@@ -1717,25 +1793,25 @@ def _b_flag_case(label: str, refs, frames, flags, unflagged):
     check(torch.equal(cuda_metric.multiscale_feature_sums(refs, frames),
                       unflagged), "a flagged call changed the next call")
     # The bound: the flags read and the sums written, and for the open
-    # images their frames, the shared reference planes and the metric.
-    per_image = frames if len(flags) > 1 else frames[None]
+    # images their frames (`frame_bytes`), the shared reference planes and
+    # the metric.
     n_open = sum(flags)
     sizes = [t[0].shape[-2] * t[0].shape[-1] for t in refs]
-    n_bytes = (nbytes(gate, got) + n_open * nbytes(per_image[0])
+    n_bytes = (nbytes(gate, got) + n_open * frame_bytes(frames) // len(flags)
                + (nbytes(*(a for t in refs for a in t)) if n_open else 0))
     return dict(shape=label, flags=list(flags), device_ms=device_ms(kernel),
                 unflagged_device_ms=device_ms(
                     lambda: cuda_metric.multiscale_feature_sums(refs,
                                                                 frames)),
-                **bound(n_bytes, n_open * metric_ops(per_image.shape[1],
+                **bound(n_bytes, n_open * metric_ops(frames.shape[-4],
                                                      sizes)))
 
 
 def phase_kernel_b_gate(img, b_record):
     """Kernel B at the gated visit's shapes: the gate's carry (B = 1,
     scales 0-1) against its twin, and the scale-0 finalists (B = 2) with a
-    closed and an open flag, at N = 1 and N = 2 images, against the
-    unflagged call."""
+    closed and an open flag, at N = 1 and N = 2 images, in frames mode and
+    in source mode, against the unflagged frames-mode call."""
     from snesimage_torch.core import refine
     from snesimage_torch.ops import cuda_metric
     from snesimage_torch.ops.remap import render_linear
@@ -1755,6 +1831,18 @@ def phase_kernel_b_gate(img, b_record):
     cases = [_b_flag_case("B=2, n=1, closed", refs, finals, (0,), one),
              _b_flag_case("B=2, n=1, open", refs, finals, (1,), one)]
     cases += [_b_flag_case(f"N=2 x B=2, n=1, flags {f}", refs, two, f, both)
+              for f in ((1, 0), (0, 1), (0, 0), (1, 1))]
+    # The same calls in source mode, as the gated red-mean visit makes
+    # them: each against the frames mode's unflagged bits.
+    src = finalists_source(ctx, cand8, cand_lin, 2)
+    src2 = cuda_metric.FrameSource(
+        *(torch.stack([t, t]) for t in (ctx.target, cand8, cand_lin)),
+        torch.tensor([[0, 1], [1, 0]], device="cuda"),
+        *(torch.stack([t, t]) for t in (ctx.rule[0], ctx.lnc)), lambda: two)
+    cases += [_b_flag_case(f"source: B=2, n=1, flag {f[0]}", refs, src, f,
+                           one) for f in ((0,), (1,))]
+    cases += [_b_flag_case(f"source: N=2 x B=2, n=1, flags {f}", refs, src2,
+                           f, both)
               for f in ((1, 0), (0, 1), (0, 0), (1, 1))]
     b_record["gate_cases"] = cases
     _print_b_cases("phase 32", "at the gate's carry", [carry])
@@ -2758,7 +2846,7 @@ def main() -> int:
     init_state = phase_init_hash(img, BALANCED, INIT_HASH, "phase 3")
     runs["balanced"] = phase_main_path(
         img, init_state, smi, BALANCED, "phase 4", "balanced", (a, b, c), 1,
-        record=balanced)
+        record=balanced, source_per_visit=2)
     records.append(phase_kernel_d(img, records[0]))
     init_state = phase_init_hash(img, PERCEPTUAL, INIT_HASH_PERCEPTUAL,
                                  "phase 6")
@@ -2785,7 +2873,7 @@ def main() -> int:
     init_state = phase_init_hash(img240, GEOMETRY, INIT_HASH_240, "phase 16")
     runs["geometry"] = phase_main_path(
         img240, init_state, smi, GEOMETRY, "phase 17", "balanced", (a, b, e),
-        0)
+        0, source_per_visit=2)
     init_state = phase_init_hash(img240, GEOMETRY_PERCEPTUAL,
                                  INIT_HASH_240_PERCEPTUAL, "phase 18")
     runs["geometry_perceptual"] = phase_main_path(

@@ -29,9 +29,13 @@ profile, batch, gate, init). The phases print one JSON line each, profiles last:
            kernel B at every call shape chip_smoke.py drives (14 shapes) and
            kernels C and D at the first visit: device ms per call (CUDA
            events around 50 calls behind a spin kernel, two runs), device
-           kernels per call (torch.profiler), bound, launches per call and
-           the clusters the card holds at once for each, B's register
-           report; with --parent DIR (a `git archive` of another commit
+           kernels per call (a CUDA graph's kernel nodes), bound, launches
+           per call and the clusters the card holds at once for each, B's
+           register report; kernel B in source mode (ops/cuda_metric.py
+           `FrameSource`) at the visit's finalists calls (8 at scale 1, 2
+           at scale 0, at 256x256 and 256x240), whose sums must equal the
+           frames mode's on the same candidates bit for bit; with
+           --parent DIR (a `git archive` of another commit
            unpacked in a directory .gitignore lists, such as
            snesimage_torch/build/parent) also that tree's kernels on the
            same operands in a process of their own, before and after this
@@ -229,6 +233,34 @@ def phase_coarse(img):
     return out
 
 
+def _refs_of(refp, start, n):
+    return tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
+                 for s in range(n))
+
+
+def _b_source_shapes(img):
+    """Kernel B's finalists calls of the first visit in source mode, on
+    the candidates of `_b_shapes`' frames-mode cases: (label, the label of
+    that case, refs, FrameSource, pre_ds) each."""
+    from snesimage_torch.core import refine
+    from snesimage_torch.ops.cuda_metric import FrameSource
+
+    cases = []
+    for tag, image, params in (("", img, BALANCED),
+                               ("256x240: ", np.ascontiguousarray(img[:240]),
+                                GEOMETRY)):
+        _, refp, ctx, cand8, cand_lin = first_visit(image, params)
+        for k, start, of in ((8, 1, "B=8, pre_ds=1, n=1"), (2, 0, "B=2, n=1")):
+            frames = refine.candidate_frames(
+                ctx, ctx.cand_dist(cand8[:k]), cand_lin[:k]).contiguous()
+            src = FrameSource(ctx.target, cand8, cand_lin,
+                              torch.arange(k, device="cuda"), ctx.rule[0],
+                              ctx.lnc, lambda frames=frames: frames)
+            cases.append((f"{tag}{of} (source)", f"{tag}{of}",
+                          _refs_of(refp, start, 1), src, start))
+    return cases
+
+
 def _b_shapes(img):
     """Kernel B's operands at every call shape chip_smoke.py drives, from
     the same states: (label, refs, frames, pre_ds) each."""
@@ -241,10 +273,6 @@ def _b_shapes(img):
         srgb_u8_to_linear,
     )
     from snesimage_torch.ops.remap import render_linear
-
-    def refs_of(refp, start, n):
-        return tuple(tuple(a.permute(2, 0, 1) for a in refp[start + s])
-                     for s in range(n))
 
     def frames_of(ctx, cand5):
         cand8 = expand_5bit_to_8bit(cand5)
@@ -261,12 +289,12 @@ def _b_shapes(img):
         finals = refine.candidate_frames(ctx, ctx.cand_dist(cand8[:8]),
                                          cand_lin[:8])
         cases += [
-            (f"{tag}B=1, n=6", refs_of(refp, 0, 6),
+            (f"{tag}B=1, n=6", _refs_of(refp, 0, 6),
              frame.permute(2, 0, 1)[None].contiguous(), 0),
-            (f"{tag}B=8, pre_ds=1, n=1", refs_of(refp, 1, 1), finals, 1),
-            (f"{tag}B=2, n=1", refs_of(refp, 0, 1),
+            (f"{tag}B=8, pre_ds=1, n=1", _refs_of(refp, 1, 1), finals, 1),
+            (f"{tag}B=2, n=1", _refs_of(refp, 0, 1),
              finals[:2].contiguous(), 0),
-            (f"{tag}B=4, n=1", refs_of(refp, 0, 1),
+            (f"{tag}B=4, n=1", _refs_of(refp, 0, 1),
              finals[:4].contiguous(), 0),
         ]
         if tag:
@@ -274,7 +302,7 @@ def _b_shapes(img):
                 *refine.pooled_inputs(ctx, cand8))
             quarter = cuda_prescreen.coarse_frames(
                 pooled, cand_lin, refine.ds4_no_candidate(ctx)).contiguous()
-            cases.append((f"{tag}B=48 of 60x64, n=4", refs_of(refp, 2, 4),
+            cases.append((f"{tag}B=48 of 60x64, n=4", _refs_of(refp, 2, 4),
                           quarter, 0))
     for tag, image, params in (("", img, DITHER),
                                ("256x240: ", img240, GEOMETRY_DITHER)):
@@ -287,7 +315,7 @@ def _b_shapes(img):
             maps, state.tile_palettes, state.alpha, state.palette, cand5, 0,
             0)
         cases.append((f"{tag}B=48, pre_ds=2, n=4",
-                      refs_of(refine.make_reference_pyramid(state), 2, 4),
+                      _refs_of(refine.make_reference_pyramid(state), 2, 4),
                       frames, 2))
     state, refp, ctx, _, _ = first_visit(img, REFERENCE)
     gen = torch.Generator(device="cuda")
@@ -295,36 +323,32 @@ def _b_shapes(img):
     draws = torch.randint(0, 32, (64, 3), generator=gen, device="cuda",
                           dtype=torch.int32)
     cases += [
-        ("B=64, n=6 (random visit)", refs_of(refp, 0, 6),
+        ("B=64, n=6 (random visit)", _refs_of(refp, 0, 6),
          frames_of(ctx, draws), 0),
-        ("B=32, n=6 (channel visit)", refs_of(refp, 0, 6),
+        ("B=32, n=6 (channel visit)", _refs_of(refp, 0, 6),
          frames_of(ctx, visit_candidates(state)[:32]), 0),
     ]
     _, refp, ctx, _, _ = first_visit(
         img, dict(preset_fields("nes-compat"), seed=0))
-    cases.append(("B=56, n=6 (NES visit)", refs_of(refp, 0, 6),
+    cases.append(("B=56, n=6 (NES visit)", _refs_of(refp, 0, 6),
                   frames_of(ctx, nes_palette_5bit("cuda")), 0))
     return cases
 
 
 def _kernels_per_call(fn, calls: int = 5):
-    """Device kernels per call of fn(), over `calls` calls under
-    torch.profiler; None if three profiler sessions recorded no device
-    event at all (a session now and then records none)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device kernels per call of fn(), over `calls` calls captured in a
+    CUDA graph: its kernel nodes (core/graphs.py `kernel_nodes`), which
+    torch.profiler's sessions may leave out."""
+    from snesimage_torch.core import graphs
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
-                for e in prof.events())
-        if n:
-            return n / calls
-    return None
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    kernels = graphs.kernel_nodes(graph.raw_cuda_graph())[1]
+    return sum(kernels.values()) / calls
 
 
 def kernel_times(cases) -> dict:
@@ -380,8 +404,11 @@ def phase_multiscale(img, parent):
 
     def parent_run(k):
         dst = _kernels.BUILD_DIR / f"multiscale_parent_{k}.pt"
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--b-times", parent, str(path), str(dst)], check=True)
+        # The parent's own script, so that its process imports the
+        # parent's package first.
+        script = os.path.join(parent, "profile_torch.py")
+        subprocess.run([sys.executable, script, "--b-times", parent,
+                        str(path), str(dst)], check=True)
         return torch.load(dst)
 
     before = parent_run(0) if parent else None
@@ -407,10 +434,25 @@ def phase_multiscale(img, parent):
                 bits_equal_parent=torch.equal(got["sums"],
                                               before[label]["sums"]))
         out["shapes"][label] = rec
+    src_cases = _b_source_shapes(img)
+    src_runs = [kernel_times([(label, "B", (refs, src, pre_ds))
+                              for label, _, refs, src, pre_ds in src_cases])
+                for _ in range(2)]
+    for label, of, *_ in src_cases:
+        got = src_runs[0][label]
+        out["shapes"][label] = {
+            "device_ms": [r[label]["device_ms"] for r in src_runs],
+            "kernels_per_call": got["kernels_per_call"],
+            "same_bits_twice": torch.equal(got["sums"],
+                                           src_runs[1][label]["sums"]),
+            "bits_equal_frames": torch.equal(got["sums"],
+                                             runs[0][of]["sums"]),
+        }
     out["ptxas"] = _ptxas_report(("multiscale_kernel",))
     out["ok"] = all(r["same_bits_twice"]
                     and r["kernels_per_call"] == r.get("launches_per_call", 1)
                     and r.get("bits_equal_parent", True)
+                    and r.get("bits_equal_frames", True)
                     for r in out["shapes"].values())
     return out
 

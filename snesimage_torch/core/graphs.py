@@ -66,9 +66,10 @@ graph (ROADMAP C-12), each handled here or where it lives:
   The captured graph's kernel nodes are counted by kernel name
   (`kernel_nodes`, through libcuda); they must equal what the
   wrappers counted, and every replay adds the nodes' counts
-  (`_measured`). The captured sweep's `refine.GateCount` is published
-  after every replay, to an open `refine.gate_tally` and the profiling
-  counters, with no host read;
+  (`_measured`), kernel B's source-mode calls also to the profiling
+  counter "b.source_calls". The captured sweep's `refine.GateCount` is
+  published after every replay, to an open `refine.gate_tally` and the
+  profiling counters, with no host read;
 - every kernel launches on the current stream (`ops/_kernels.py`
   `stream`), the capture's side stream while capturing.
 """
@@ -87,10 +88,12 @@ import torch
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.core import refine
 from snesimage_torch.core.state import QuantState
+from snesimage_torch.utils import profiling
 from snesimage_torch.utils.profiling import span
 
 _FIELDS = ("original", "tile_palettes", "palette", "palette_map")
-_COUNTERS = ("launches", "frame_launches", "split_launches")
+_COUNTERS = ("launches", "frame_launches", "split_launches",
+             "source_launches")
 # Steps of a run that must be left, the capturing one included, for it to
 # capture a key's graph, or earlier runs of the key (module docstring).
 CAPTURE_LEFT = 5
@@ -207,7 +210,8 @@ def _wrappers() -> tuple:
 
 # The __global__ functions of csrc/ that each wrapper of `_wrappers()`
 # launches, in its order. A three-level launch of C or D (a wrapper's
-# `.frame_launches`) is its kernel<true>.
+# `.frame_launches`) is its kernel<true>; a source-mode launch of B
+# (`.source_launches`) its kernel<., true>.
 _KERNEL_NAMES = (
     ("select_colors_kernel", "prologue_kernel", "render_kernel"),
     ("multiscale_kernel",),
@@ -228,13 +232,15 @@ def _counts() -> dict:
 def _measured(kernels: dict, captured: dict, label: str) -> dict:
     """The wrappers' counters as a replay of a graph with `kernels` ({mangled
     kernel name: nodes}) advances them: a wrapper's launches are the nodes
-    of its kernels, its frame launches those of its kernel<true>, and
-    kernel B's calls that split (`captured`, which no node tells apart)
-    come off its nodes. Raises unless they equal what the wrappers counted
-    while `label` was captured."""
+    of its kernels, its frame launches those of its kernel<true>, kernel
+    B's source launches those of its kernel<., true>, and kernel B's calls
+    that split (`captured`, which no node tells apart) come off its nodes.
+    Raises unless they equal what the wrappers counted while `label` was
+    captured."""
     out = {}
     for fn, names in zip(_wrappers(), _KERNEL_NAMES):
-        # A mangled name spells each identifier as its length, then it.
+        # A mangled name spells each identifier as its length, then it,
+        # and a template's bool arguments as Lb0E or Lb1E.
         tokens = [f"{len(n)}{n}" for n in names]
         nodes = sum(c for name, c in kernels.items()
                     if any(t in name for t in tokens))
@@ -242,6 +248,11 @@ def _measured(kernels: dict, captured: dict, label: str) -> dict:
             out[fn, "frame_launches"] = sum(
                 c for name, c in kernels.items()
                 if any(t + "ILb1E" in name for t in tokens))
+        if hasattr(fn, "source_launches"):
+            out[fn, "source_launches"] = sum(
+                c for name, c in kernels.items()
+                if any(f"{t}ILb{r}ELb1EE" in name for t in tokens
+                       for r in "01"))
         if hasattr(fn, "split_launches"):
             out[fn, "split_launches"] = captured[fn, "split_launches"]
             nodes -= out[fn, "split_launches"]
@@ -425,11 +436,16 @@ def _keep(kept: collections.OrderedDict, key, value, cap: int) -> None:
 
 def stats() -> list:
     """One dict a graph kept: its label, capture, node count and
-    instantiation seconds, nodes, kernel nodes and replays so far."""
+    instantiation seconds, nodes, kernel nodes, kernel B's source-mode
+    calls a replay (`source_calls`) and replays so far."""
+    from snesimage_torch.ops.cuda_metric import multiscale_feature_sums
+
     return [dict(label=g.label, capture_s=g.graph.capture_s,
                  count_s=g.graph.count_s,
                  instantiate_s=g.graph.instantiate_s, nodes=g.graph.nodes,
                  kernel_nodes=sum(g.graph.kernels.values()),
+                 source_calls=g.meta["launches"][multiscale_feature_sums,
+                                                 "source_launches"],
                  replays=g.replays)
             for g in _GRAPHS.values()]
 
@@ -564,6 +580,8 @@ class SweepRunner:
     def _count(meta: dict) -> None:
         for (fn, name), delta in meta["launches"].items():
             setattr(fn, name, getattr(fn, name) + delta)
+            if name == "source_launches":
+                profiling.count("b.source_calls", delta)
         if meta["gates"] is not None:
             meta["gates"].publish()
 

@@ -24,7 +24,9 @@ With `prescreen` K > 0 a visit scores its candidates in stages:
   2. the top K get full-resolution frames. With `prescreen_full` M in
      (0, K) they are ranked at scale 1 by kernel B (one in-kernel 2x2 mean
      first) and the top M scored at scale 0; otherwise all K are scored at
-     scales 0 and 1 in one call.
+     scales 0 and 1 in one call. On an undithered red-mean visit kernel B
+     builds these frames in its loads from the candidates and the win
+     rule (a `FrameSource`); the other visits hand it frames.
 With `prescreen_pre` Q (the three-level prescreen, `_three_level`) the
 first stage splits in two where the sides are multiples of 8 and the batch
 is larger than Q: every candidate is ranked by the exact scale-3..5 score
@@ -130,6 +132,7 @@ from snesimage_torch.ops.color import (
 )
 from snesimage_torch.ops.cuda_dither import dither_remap_candidates
 from snesimage_torch.ops.cuda_metric import (
+    FrameSource,
     coarse_feature_sums_ciede,
     coarse_feature_sums_redmean,
     fused_coarse_ok,
@@ -626,9 +629,10 @@ def _score_finalists(refp, feats_c: torch.Tensor, coarse: torch.Tensor, build,
     """(..., B) exact errors of the candidates that the prescreen keeps,
     +inf for the rest, from all candidates' scale-2..5 features `feats_c`
     and their coarse rank `coarse` (+inf where an earlier stage dropped
-    them); `build(ix)` gives the full-resolution frames of candidates `ix`.
-    With a `gate` (carried errors only), the gated stage `_gated_finalists`,
-    which also returns the per-scale sums."""
+    them); `build(ix)` gives the full-resolution frames of candidates `ix`
+    (frames, or a `FrameSource` of them). With a `gate` (carried errors
+    only), the gated stage `_gated_finalists`, which also returns the
+    per-scale sums."""
     k, m = config.prescreen, config.prescreen_full
     sel = _keep(coarse, k, base_rows)
     if gate is not None:
@@ -733,7 +737,14 @@ def candidate_errors(ctx: SlotContext, config: QuantConfig, refp,
         return ctx.cand_dist(_take(cand8, ix))
 
     def build(ix):
-        return candidate_frames(ctx, dists(ix), _take(cand_lin, ix))
+        def frames():
+            return candidate_frames(ctx, dists(ix), _take(cand_lin, ix))
+
+        if ix is None or ctx.perceptual:
+            return frames()
+        # The finalists: kernel B builds their frames in its loads.
+        return FrameSource(ctx.target, cand8, cand_lin, ix, ctx.rule[0],
+                           ctx.lnc, frames)
 
     if not prescreened:
         feats = fused_scale_feature_block(refp, build(None), 0, NUM_SCALES)

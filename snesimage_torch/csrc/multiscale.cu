@@ -35,6 +35,26 @@
 // stage runs): the clusters of an image whose flag is 0 return after reading
 // it, before any other load, and write zero sums; an open flag gives the
 // bits of a call without one.
+// A frame's pixels come in one of two ways, a template parameter of the
+// kernel (kSource), chosen by the call (ops/cuda_metric.py):
+//   - frames: loaded from the caller's (M, 3, H, W) frames tensor (every
+//     caller but one);
+//   - source: built in the loads from a FrameSource, the undithered
+//     red-mean visit's finalists (core/refine.py candidate_errors): frame
+//     m is candidate row ix[m] of its image, pixel (c, y, x) its linear
+//     colour cand_lin[c] where d < bva[y, x] and the no-candidate frame
+//     lnc[c, y, x] elsewhere, d the exact int32 scaled red-mean distance
+//     of the target pixel to the candidate's 8-bit colour (ops/color.py
+//     red_mean_sq_scaled; the rule of kernels C and E, pooled_cell.cuh).
+//     A pixel is a selection of values the frames tensor would hold, and
+//     its 2x2 means add the same values in the same nesting and order:
+//     both modes walk the pyramid in one level_at and level_at_deep,
+//     templated on the loader of a level-0 pixel (PlanePixel, a channel
+//     of the frames tensor; CandidatePixel, the three channels of one
+//     comparison), so the sums keep the frames mode's bits. The
+//     visit then writes no distance plane and no frame of its finalists;
+//     the target, bva and lnc planes, shared by a visit's frames, stay in
+//     L2. A closed gate (above) returns before the candidate is read.
 // The sums have the bits of a block of 256 threads a (frame, channel,
 // tile) (thread t over pixels t, t + 256, ... of the tile, block_reduce6's
 // shuffle tree and warps in order, then the tiles in index order) and of a
@@ -77,9 +97,22 @@ struct Levels {
   int w[kMaxLevels];
 };
 
+// The frames of a call in source mode (N images, frames_per_image frames
+// each): frame m of image n = m / frames_per_image is candidate row
+// n * n_cand + ix[m].
+struct FrameSource {
+  const int* target;      // (N, 3, h[0], w[0]) int32 8-bit target
+  const int* bva;         // (N, h[0], w[0]) int32 win threshold
+  const float* lnc;       // (N, 3, h[0], w[0]) no-candidate frame
+  const int* cand8;       // (N, n_cand, 3) int32 8-bit colours
+  const float* cand_lin;  // (N, n_cand, 3) their linear colours
+  const long long* ix;    // (N, frames_per_image) candidate rows
+  int n_cand;
+};
+
 // One call, laid out by the wrapper (ops/cuda_metric.py).
 struct MultiscaleCall {
-  const float* frames;  // (M, 3, h[0], w[0]) linear RGB
+  const float* frames;  // (M, 3, h[0], w[0]) linear RGB; null in source mode
   float* out;           // (M, n_scales, 3, 6)
   float* partial;       // (M, tiles_total, 3, 6): each tile's sums
   int* tickets;         // (M, n_tiled): tile blocks done; 0 between calls
@@ -99,36 +132,134 @@ struct MultiscaleCall {
   int tiles_x[kMaxScales];
   int tile_start[kMaxScales + 1];  // a frame's first tile of each scale
   Levels lv;
+  FrameSource source;  // source mode: its ix is set
 };
 
-// Pixel (y, x) of level D of the plane `src` (level 0, lv.w[0] wide): the
-// 2x2 mean of level D - 1 at (2y, 2x), (2y, 2x + 1), (2y + 1, 2x),
-// (2y + 1, 2x + 1), an odd side's last row or column taken twice, as ds2_at
-// adds them.
-template <int D>
-__device__ __forceinline__ float level_at(const float* __restrict__ src,
-                                          const Levels& lv, int y, int x) {
+// The level-0 pixels of a frame, kWidth channels a load. A frame of the
+// frames tensor is walked a plane at a time (PlanePixel, one channel); a
+// frame of a FrameSource three channels at once (CandidatePixel), since
+// one comparison decides all three. `group(g)` is the loader of channels
+// g * kWidth.. of the frame.
+
+// Plane `src` of a frame of the frames tensor (lv.w[0] wide).
+struct PlanePixel {
+  static constexpr int kWidth = 1;
+  const float* __restrict__ src;
+
+  __device__ __forceinline__ void operator()(const Levels& lv, int y, int x,
+                                             float f[1]) const {
+    f[0] = __ldg(src + (size_t)y * lv.w[0] + x);
+  }
+};
+
+// A frame of the frames tensor: three planes of `plane` floats.
+struct FramePlanes {
+  static constexpr int kWidth = 1;
+  const float* src;
+  size_t plane;
+
+  __device__ __forceinline__ PlanePixel group(int ch) const {
+    return {src + ch * plane};
+  }
+};
+
+// A frame of a FrameSource: the candidate's linear colour where its scaled
+// red-mean distance to the target pixel is below bva, the no-candidate
+// frame elsewhere.
+struct CandidatePixel {
+  static constexpr int kWidth = 3;
+  const int* target;  // the image's three target planes
+  const int* bva;
+  const float* lnc;
+  size_t plane;
+  int c8[3];
+  float lin[3];
+
+  __device__ __forceinline__ const CandidatePixel& group(int) const {
+    return *this;
+  }
+
+  // Every plane is loaded before the rule picks, as kernel C's pooling
+  // loads them: the loads are issued together, with no second round after
+  // the comparison.
+  __device__ __forceinline__ void operator()(const Levels& lv, int y, int x,
+                                             float f[3]) const {
+    const size_t o = (size_t)y * lv.w[0] + x;
+    const int r = __ldg(target + o), g = __ldg(target + plane + o),
+              b = __ldg(target + 2 * plane + o), t = __ldg(bva + o);
+    float nc[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) nc[ch] = __ldg(lnc + ch * plane + o);
+    // 512 * red_mean^2 as an exact int32 (peaks near 3.3e8).
+    const int dr = r - c8[0], dg = g - c8[1], db = b - c8[2];
+    const int rsum = r + c8[0];
+    const int d = (1024 + rsum) * dr * dr + 2048 * dg * dg +
+                  (1534 - rsum) * db * db;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) f[ch] = d < t ? lin[ch] : nc[ch];
+  }
+};
+
+// Frame m of the call: its planes in the frames tensor, or in source mode
+// its image's planes and its candidate's colours.
+template <bool kSource>
+__device__ __forceinline__ auto frame_of(const MultiscaleCall& a, int m) {
+  const size_t plane = (size_t)a.lv.h[0] * a.lv.w[0];
+  if constexpr (kSource) {
+    const FrameSource& s = a.source;
+    const int n = m / a.frames_per_image;
+    const long long row = (long long)n * s.n_cand + s.ix[m];
+    CandidatePixel px;
+    px.target = s.target + (size_t)n * 3 * plane;
+    px.bva = s.bva + (size_t)n * plane;
+    px.lnc = s.lnc + (size_t)n * 3 * plane;
+    px.plane = plane;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      px.c8[ch] = s.cand8[row * 3 + ch];
+      px.lin[ch] = s.cand_lin[row * 3 + ch];
+    }
+    return px;
+  } else {
+    return FramePlanes{a.frames + (size_t)m * 3 * plane, plane};
+  }
+}
+
+// Pixel (y, x) of level D of the loader px's channels: the 2x2 mean of
+// level D - 1 at (2y, 2x), (2y, 2x + 1), (2y + 1, 2x), (2y + 1, 2x + 1),
+// an odd side's last row or column taken twice, as ds2_at adds them.
+template <int D, class Px>
+__device__ __forceinline__ void level_at(const Px& px, const Levels& lv,
+                                         int y, int x, float* f) {
   if constexpr (D == 0) {
-    return __ldg(src + (size_t)y * lv.w[0] + x);
+    px(lv, y, x, f);
   } else {
     const int y0 = 2 * y, x0 = 2 * x;
     const int y1 = min(y0 + 1, lv.h[D - 1] - 1);
     const int x1 = min(x0 + 1, lv.w[D - 1] - 1);
-    return __fmul_rn(level_at<D - 1>(src, lv, y0, x0) +
-                         level_at<D - 1>(src, lv, y0, x1) +
-                         level_at<D - 1>(src, lv, y1, x0) +
-                         level_at<D - 1>(src, lv, y1, x1),
-                     0.25f);
+    float q[4][Px::kWidth];
+    level_at<D - 1>(px, lv, y0, x0, q[0]);
+    level_at<D - 1>(px, lv, y0, x1, q[1]);
+    level_at<D - 1>(px, lv, y1, x0, q[2]);
+    level_at<D - 1>(px, lv, y1, x1, q[3]);
+#pragma unroll
+    for (int ch = 0; ch < Px::kWidth; ++ch) {
+      f[ch] = __fmul_rn(q[0][ch] + q[1][ch] + q[2][ch] + q[3][ch], 0.25f);
+    }
   }
 }
 
 // level_at at any depth, with few registers: the 4^depth source pixels in
 // ds2_at's order, a running sum per level, each finished 2x2 sum times 0.25
 // passed up.
-__device__ float level_at_deep(const float* __restrict__ src,
-                               const Levels& lv, int depth, int y, int x) {
-  float acc[kMaxLevels];
-  float v = 0.0f;
+template <class Px>
+__device__ void level_at_deep(const Px& px, const Levels& lv, int depth,
+                              int y, int x, float* f) {
+  constexpr int K = Px::kWidth;
+  float acc[kMaxLevels][K];
+  float v[K];
+#pragma unroll
+  for (int ch = 0; ch < K; ++ch) v[ch] = 0.0f;
 #pragma unroll 1
   for (int k = 0; k < 1 << (2 * depth); ++k) {
     int yy = y, xx = x;
@@ -138,68 +269,73 @@ __device__ float level_at_deep(const float* __restrict__ src,
       yy = min(2 * yy + (d >> 1), lv.h[l - 1] - 1);
       xx = min(2 * xx + (d & 1), lv.w[l - 1] - 1);
     }
-    v = __ldg(src + (size_t)yy * lv.w[0] + xx);
+    px(lv, yy, xx, v);
 #pragma unroll 1
     for (int l = 1; l <= depth; ++l) {
       const int d = (k >> (2 * (l - 1))) & 3;
-      acc[l] = d ? acc[l] + v : v;
+#pragma unroll
+      for (int ch = 0; ch < K; ++ch) {
+        acc[l][ch] = d ? acc[l][ch] + v[ch] : v[ch];
+      }
       if (d != 3) break;
-      v = __fmul_rn(acc[l], 0.25f);
+#pragma unroll
+      for (int ch = 0; ch < K; ++ch) v[ch] = __fmul_rn(acc[l][ch], 0.25f);
     }
   }
-  return v;
+#pragma unroll
+  for (int ch = 0; ch < K; ++ch) f[ch] = v[ch];
 }
 
-template <int D>
-__device__ __forceinline__ void level_rgb_at(const float* src, size_t plane,
+template <int D, class Frame>
+__device__ __forceinline__ void level_rgb_at(const Frame& frame,
                                              const Levels& lv, int y, int x,
                                              float f[3]) {
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    f[ch] = level_at<D>(src + ch * plane, lv, y, x);
+  for (int g = 0; g < 3 / Frame::kWidth; ++g) {
+    level_at<D>(frame.group(g), lv, y, x, f + g * Frame::kWidth);
   }
 }
 
-// Linear RGB of pixel (y, x) at level `depth` of the frame `src` (three
-// planes of `plane` floats): levels up to kUnrolled unrolled into the
-// loads, deeper ones walked in a loop.
-template <int kUnrolled>
-__device__ __forceinline__ void level_rgb(const float* src, size_t plane,
+// Linear RGB of pixel (y, x) at level `depth` of `frame` (FramePlanes or
+// CandidatePixel): levels up to kUnrolled unrolled into the loads, deeper
+// ones walked in a loop.
+template <int kUnrolled, class Frame>
+__device__ __forceinline__ void level_rgb(const Frame& frame,
                                           const Levels& lv, int depth, int y,
                                           int x, float f[3]) {
   static_assert(kUnrolled >= 1 && kUnrolled <= kUnrolledDepth,
                 "levels 1 and 2 have unrolled forms");
   if (depth == 0) {
-    level_rgb_at<0>(src, plane, lv, y, x, f);
+    level_rgb_at<0>(frame, lv, y, x, f);
   } else if (depth == 1) {
-    level_rgb_at<1>(src, plane, lv, y, x, f);
+    level_rgb_at<1>(frame, lv, y, x, f);
   } else if (kUnrolled >= 2 && depth == 2) {
-    level_rgb_at<2>(src, plane, lv, y, x, f);
+    level_rgb_at<2>(frame, lv, y, x, f);
   } else {
-    for (int ch = 0; ch < 3; ++ch) {
-      f[ch] = level_at_deep(src + ch * plane, lv, depth, y, x);
+    for (int g = 0; g < 3 / Frame::kWidth; ++g) {
+      level_at_deep(frame.group(g), lv, depth, y, x, f + g * Frame::kWidth);
     }
   }
 }
 
 // The first small scale of a frame for the cluster pass: cell `cell` of
 // level `depth`, wq wide.
+template <class Frame>
 struct LevelFrame {
-  const float* src;
-  size_t plane;
+  Frame frame;
   Levels lv;
   int depth;
   int wq;
 
   __device__ __forceinline__ void operator()(int cell, float f[3]) const {
-    level_rgb<2>(src, plane, lv, depth, cell / wq, cell % wq, f);
+    level_rgb<2>(frame, lv, depth, cell / wq, cell % wq, f);
   }
 };
 
 // Tile t of tiled scale s of frame m, by one cluster of kBlocks blocks:
 // XYB channel c of the region into block c, which blurs and sums it (a
 // fourth block only loads).
-template <int kBlocks>
+template <int kBlocks, bool kSource>
 static __device__ __forceinline__ void tile_pass(const MultiscaleCall& a,
                                                  const RefPyramid& refs,
                                                  const MetricParams& p,
@@ -244,8 +380,7 @@ static __device__ __forceinline__ void tile_pass(const MultiscaleCall& a,
       x1s[i] = in ? x1g[(size_t)gy * w + gx] : 0.0f;
     }
   }
-  const size_t plane0 = (size_t)a.lv.h[0] * a.lv.w[0];
-  const float* src = a.frames + (size_t)m * 3 * plane0;
+  const auto frame = frame_of<kSource>(a, m);
   float v[kLoads][3];
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
@@ -255,7 +390,7 @@ static __device__ __forceinline__ void tile_pass(const MultiscaleCall& a,
     v[j][0] = v[j][1] = v[j][2] = 0.0f;
     if (i < kRegionPx && gy >= 0 && gy < h && gx >= 0 && gx < w) {
       float f[3];
-      level_rgb<1>(src, plane0, a.lv, depth, gy, gx, f);
+      level_rgb<1>(frame, a.lv, depth, gy, gx, f);
       positive_xyb(p, f[0], f[1], f[2], v[j]);
     }
   }
@@ -379,15 +514,15 @@ static __device__ __forceinline__ void tile_pass(const MultiscaleCall& a,
 }
 
 // Scales n_tiled.. of frame m on the cluster pass of kernels C and D.
+template <bool kSource>
 static __device__ __forceinline__ void resident_pass(const MultiscaleCall& a,
                                                      const RefPyramid& refs,
                                                      const MetricParams& p,
                                                      int m) {
   const int depth = a.pre_ds + a.n_tiled;
-  const size_t plane0 = (size_t)a.lv.h[0] * a.lv.w[0];
   const int hq = a.lv.h[depth], wq = a.lv.w[depth];
-  const LevelFrame frame = {a.frames + (size_t)m * 3 * plane0, plane0, a.lv,
-                            depth, wq};
+  const LevelFrame<decltype(frame_of<kSource>(a, m))> frame = {
+      frame_of<kSource>(a, m), a.lv, depth, wq};
   cluster_pass(frame, hq, wq, refs, a.n_tiled, a.n_scales - a.n_tiled,
                m / a.frames_per_image, p,
                a.out + ((size_t)m * a.n_scales + a.n_tiled) * 18);
@@ -412,7 +547,8 @@ static __device__ __forceinline__ bool closed(const MultiscaleCall& a, int m,
 // first, then the tile clusters frame by frame, scale by scale, tile by
 // tile. kResident: the call has small scales, so its clusters have
 // kClusterBlocks blocks and the shared memory of the cluster pass.
-template <bool kResident>
+// kSource: the call's frames come from a.source (source mode).
+template <bool kResident, bool kSource>
 __global__ void __launch_bounds__(kClusterThreads, kResident ? 2 : 4)
 multiscale_kernel(MultiscaleCall a, RefPyramid refs, MetricParams p) {
   constexpr int kBlocks = kResident ? kClusterBlocks : kTileChannels;
@@ -421,7 +557,7 @@ multiscale_kernel(MultiscaleCall a, RefPyramid refs, MetricParams p) {
   if constexpr (kResident) {
     if (q < a.n_resident_items) {
       if (closed(a, q, first, a.n_tiled, a.n_scales - a.n_tiled)) return;
-      resident_pass(a, refs, p, q);
+      resident_pass<kSource>(a, refs, p, q);
       return;
     }
   }
@@ -430,7 +566,7 @@ multiscale_kernel(MultiscaleCall a, RefPyramid refs, MetricParams p) {
   int s = 0;
   while (r >= a.tile_start[s + 1]) ++s;
   if (closed(a, m, first && r == a.tile_start[s], s, 1)) return;
-  tile_pass<kBlocks>(a, refs, p, m, s, r - a.tile_start[s]);
+  tile_pass<kBlocks, kSource>(a, refs, p, m, s, r - a.tile_start[s]);
 }
 
 // Dynamic shared memory of a call's launch.
@@ -444,35 +580,52 @@ static size_t call_smem(const MultiscaleCall& a) {
   return sizeof(float) * (size_t)floats;
 }
 
+// Launches the call's kernel in mode kSource: clusters of kClusterBlocks
+// blocks if the call has small scales, else of kTileChannels.
+template <bool kSource>
+static int launch_call(const MultiscaleCall& a, const RefPyramid& refs,
+                       const MetricParams& params, cudaStream_t stream) {
+  const int n_items = a.n_resident_items + a.n_frames * a.tiles_total;
+  const size_t smem = call_smem(a);
+  if (a.n_resident_items) {
+    return (int)launch_cluster(multiscale_kernel<true, kSource>, n_items,
+                               kClusterBlocks, smem, stream, a, refs, params);
+  }
+  return (int)launch_cluster(multiscale_kernel<false, kSource>, n_items,
+                             kTileChannels, smem, stream, a, refs, params);
+}
+
+// Clusters of the call's kernel in mode kSource the card holds at once.
+template <bool kSource>
+static int active_clusters(const MultiscaleCall& a) {
+  const size_t smem = call_smem(a);
+  if (a.n_resident_items) {
+    return coarse_active_clusters(multiscale_kernel<true, kSource>, smem);
+  }
+  return coarse_active_clusters(multiscale_kernel<false, kSource>, smem,
+                                kTileChannels);
+}
+
 }  // namespace snes
 
 extern "C" {
 
+// A call whose source has its ix set runs in source mode.
 int snes_multiscale(const snes::MultiscaleCall* call,
                     const snes::RefPyramid* refs,
                     const snes::MetricParams* params, void* stream) {
-  const snes::MultiscaleCall& a = *call;
-  const int n_items = a.n_resident_items + a.n_frames * a.tiles_total;
-  const size_t smem = snes::call_smem(a);
-  if (a.n_resident_items) {
-    return (int)snes::launch_cluster(
-        snes::multiscale_kernel<true>, n_items, snes::kClusterBlocks, smem,
-        (cudaStream_t)stream, a, *refs, *params);
-  }
-  return (int)snes::launch_cluster(
-      snes::multiscale_kernel<false>, n_items, snes::kTileChannels, smem,
-      (cudaStream_t)stream, a, *refs, *params);
+  return call->source.ix
+             ? snes::launch_call<true>(*call, *refs, *params,
+                                       (cudaStream_t)stream)
+             : snes::launch_call<false>(*call, *refs, *params,
+                                        (cudaStream_t)stream);
 }
 
 // Clusters of kernel B the card holds at once for `call`, or a negative
 // CUDA error.
 int snes_multiscale_active_clusters(const snes::MultiscaleCall* call) {
-  const size_t smem = snes::call_smem(*call);
-  if (call->n_resident_items) {
-    return snes::coarse_active_clusters(snes::multiscale_kernel<true>, smem);
-  }
-  return snes::coarse_active_clusters(snes::multiscale_kernel<false>, smem,
-                                      snes::kTileChannels);
+  return call->source.ix ? snes::active_clusters<true>(*call)
+                         : snes::active_clusters<false>(*call);
 }
 
 }  // extern "C"

@@ -85,6 +85,20 @@ class Levels(ctypes.Structure):
     _fields_ = [("h", _I * MAX_LEVELS), ("w", _I * MAX_LEVELS)]
 
 
+class FrameSource(ctypes.Structure):
+    """Mirror of snes::FrameSource (csrc/multiscale.cu)."""
+
+    _fields_ = [
+        ("target", _P),
+        ("bva", _P),
+        ("lnc", _P),
+        ("cand8", _P),
+        ("cand_lin", _P),
+        ("ix", _P),
+        ("n_cand", _I),
+    ]
+
+
 class MultiscaleCall(ctypes.Structure):
     """Mirror of snes::MultiscaleCall (csrc/multiscale.cu)."""
 
@@ -104,6 +118,7 @@ class MultiscaleCall(ctypes.Structure):
         ("tiles_x", _I * MAX_SCALES),
         ("tile_start", _I * (MAX_SCALES + 1)),
         ("lv", Levels),
+        ("source", FrameSource),
     ]
 
 

@@ -28,6 +28,14 @@ of the quarter-resolution frame, and the quarter frames are returned too,
 so that the visit scores scale 2 only for the candidates the scale-3..5
 rank keeps. A wrapper counts those launches in ``.frame_launches`` as well.
 
+Kernel B also takes its frames as a `FrameSource`, the undithered red-mean
+visit's finalists described by the candidates and the win rule: on the
+card it builds each frame pixel in its loads (source mode, one launch of
+its kernel<., true>), bit-equal to the frames that `FrameSource.frames`
+builds in torch, which its twin scores on the CPU. The wrapper counts those
+launches in ``.source_launches``, and such calls on either device in the
+profiling counter "b.source_calls".
+
 All return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
 the pixel count and the fourth root stay in `finalize_feature_sums`. On a
 CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor it
@@ -44,6 +52,8 @@ run the images one after another.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from collections.abc import Callable
 
 import torch
 
@@ -61,6 +71,7 @@ from snesimage_torch.ops.ssimulacra2 import (
     linear_rgb_to_positive_xyb,
     pyramid_size,
 )
+from snesimage_torch.utils import profiling
 
 # Planes up to this many pixels run resident in shared memory, on the
 # cluster pass (kResidentMaxPixels in csrc/metric_common.cuh); kernel B
@@ -76,6 +87,40 @@ SPLIT_FRAMES = 16
 # Blocks per candidate of kernels C and D: a thread-block cluster of four
 # (kClusterBlocks in csrc/coarse_cluster.cuh).
 CLUSTER_BLOCKS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameSource:
+    """Kernel B's frames given by what builds them: frame j is candidate
+    ix[j]'s full-resolution linear frame under the red-mean win rule of
+    kernels C and E, cand_lin[ix[j], c] at the pixels where the exact int32
+    scaled red-mean distance of the target to cand8[ix[j]] is below bva,
+    lnc[c] elsewhere. `frames()` builds the same frames in torch (the
+    visit's `candidate_frames`, core/refine.py), which the twin scores.
+
+    With a leading image axis N on every field, ix (N, k) picks rows of
+    image n's (N, B, 3) candidates, and the frames are (N, k, 3, H, W)."""
+
+    target: torch.Tensor  # (3, H, W) int32 8-bit target
+    cand8: torch.Tensor  # (B, 3) int32 8-bit candidates
+    cand_lin: torch.Tensor  # (B, 3) float32 their linear colours
+    ix: torch.Tensor  # (k,) int64 candidate rows, one a frame
+    bva: torch.Tensor  # (H, W) int32 win threshold
+    lnc: torch.Tensor  # (3, H, W) float32 no-candidate frame
+    frames: Callable[[], torch.Tensor]  # the (k, 3, H, W) frames in torch
+
+    @property
+    def shape(self) -> tuple:
+        """The shape of the frames: (k, 3, H, W), or (N, k, 3, H, W)."""
+        return (*self.ix.shape, 3, *self.bva.shape[-2:])
+
+    @property
+    def device(self) -> torch.device:
+        return self.ix.device
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.ix.is_cuda
 
 
 def _raw_sums(img1, mu1, s11, img2) -> torch.Tensor:
@@ -177,7 +222,7 @@ def _multiscale_call(frames, sizes, pre_ds: int) -> _kernels.MultiscaleCall:
     clusters, the rest one resident cluster a frame. Leaves `out`,
     `partial` and `tickets` to the caller."""
     per_image, _, h, w = frames.shape[-4:]
-    b = per_image * (frames.shape[0] if frames.dim() == 5 else 1)
+    b = per_image * (frames.shape[0] if len(frames.shape) == 5 else 1)
     n = len(sizes)
     n_tiled = sum(hs * ws > RESIDENT_MAX_PIXELS for hs, ws in sizes)
     resident = n_tiled < n
@@ -203,9 +248,11 @@ def _multiscale_call(frames, sizes, pre_ds: int) -> _kernels.MultiscaleCall:
 def _launches(call) -> list:
     """The launches of one call: `call` itself, or from SPLIT_FRAMES frames
     on, where it has tiled and resident scales, its tile clusters and its
-    resident clusters apart."""
+    resident clusters apart. A call in source mode launches once (it
+    scores a visit's few finalists), so that a graph's source-mode kernel
+    nodes count its calls."""
     if not (call.tiles_total and call.n_resident_items
-            and call.n_frames >= SPLIT_FRAMES):
+            and call.n_frames >= SPLIT_FRAMES) or call.source.ix:
         return [call]
     tiles = _kernels.MultiscaleCall.from_buffer_copy(call)
     tiles.n_resident_items = 0
@@ -222,9 +269,12 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate=None):
     call = _multiscale_call(frames, _check_scales(ref_scales, h, w, pre_ds),
                             pre_ds)
     b = call.n_frames
-    call.frames = _kernels.require(frames, "frames", torch.float32,
-                                   (*lead, 3, h, w), dev)
     n_img = lead[0] if len(lead) == 2 else 1
+    if isinstance(frames, FrameSource):
+        call.source = _source_operands(frames, lead, h, w, dev)
+    else:
+        call.frames = _kernels.require(frames, "frames", torch.float32,
+                                       (*lead, 3, h, w), dev)
     if len(lead) == 1 and any(a.dim() != 3 for t in ref_scales for a in t):
         raise ValueError("frames without an image axis take one pyramid")
     refs = _ref_pyramid(ref_scales, dev, n_img)
@@ -245,6 +295,30 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate=None):
         _kernels.check(rc, "multiscale")
     multiscale_feature_sums.launches += 1
     multiscale_feature_sums.split_launches += len(launches) - 1
+    multiscale_feature_sums.source_launches += bool(call.source.ix)
+    return out
+
+
+def _source_operands(src: FrameSource, lead: tuple, h: int, w: int,
+                     dev) -> _kernels.FrameSource:
+    """Kernel B's description of `src`, whose frames are `lead` (k,) or
+    (N, k) frames of h x w: its operands checked, with an image axis where
+    the frames have one."""
+    img = lead[:-1]
+    ix = src.ix.contiguous()
+    n_cand = src.cand8.shape[-2]
+    out = _kernels.FrameSource()
+    out.target = _kernels.require(src.target, "target", torch.int32,
+                                  (*img, 3, h, w), dev)
+    out.bva = _kernels.require(src.bva, "bva", torch.int32, (*img, h, w), dev)
+    out.lnc = _kernels.require(src.lnc, "lnc", torch.float32, (*img, 3, h, w),
+                               dev)
+    out.cand8 = _kernels.require(src.cand8, "cand8", torch.int32,
+                                 (*img, n_cand, 3), dev)
+    out.cand_lin = _kernels.require(src.cand_lin, "cand_lin", torch.float32,
+                                    (*img, n_cand, 3), dev)
+    out.ix = _kernels.require(ix, "ix", torch.int64, lead, dev)
+    out.n_cand = n_cand
     return out
 
 
@@ -287,7 +361,9 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0,
         the frames' size after `pre_ds` 2x2 means, each later scale the
         next 2x2 mean (`pyramid_size`: an odd side's last row or column
         is replicated first, as `downsample2` does).
-    frames: (B, 3, H, W) float32 linear-RGB frames.
+    frames: (B, 3, H, W) float32 linear-RGB frames, or a `FrameSource`
+        of B frames (on the card kernel B builds them in its loads; the
+        twin scores `frames.frames()`).
     Returns (B, n_scales, 3, 6) raw sums.
 
     With frames (N, B, 3, H, W) of N images, the planes are (N, 3, h_s,
@@ -300,6 +376,13 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0,
     rank-1 gate of core/refine.py, decided on the device, so no visit waits
     for it); an open flag gives the sums of a call without one.
     """
+    if isinstance(frames, FrameSource):
+        # A call captured into a CUDA graph counts as the graph replays
+        # (core/graphs.py).
+        if not (frames.is_cuda and torch.cuda.is_current_stream_capturing()):
+            profiling.count("b.source_calls")
+        if not frames.is_cuda:
+            frames = frames.frames()
     if frames.is_cuda:
         return _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate)
     return _multiscale_feature_sums_plain(ref_scales, frames, pre_ds, gate)
@@ -309,6 +392,9 @@ multiscale_feature_sums.launches = 0
 # The second launches of the calls that split (`_launches`): a call counts
 # one in `.launches` however many times it launches.
 multiscale_feature_sums.split_launches = 0
+# The launches in source mode, which `.launches` counts too; a source call
+# launches once.
+multiscale_feature_sums.source_launches = 0
 
 
 def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):

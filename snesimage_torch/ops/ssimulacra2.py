@@ -281,7 +281,9 @@ def fused_scale_feature_block(
     Frames (N, B, 3, h, w) of N images give (N, B, NUM_SCALES, 3, 6): the
     pyramid's planes are then (N, h, w, 3), one pyramid an image, or
     (h, w, 3), one for all. `gate` (an int32 flag an image) zeroes the sums
-    of the images whose flag is 0 (`multiscale_feature_sums`)."""
+    of the images whose flag is 0 (`multiscale_feature_sums`). The frames
+    may also come as a `FrameSource` (ops/cuda_metric.py) of that shape,
+    which kernel B builds in its loads."""
     from snesimage_torch.ops.cuda_metric import multiscale_feature_sums
 
     lead = frames_cmaj.shape[:-3]

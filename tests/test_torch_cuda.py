@@ -14,7 +14,9 @@ E's and F's mask counts equal their twins', their m*ML sums agree within
 1e-5 (16 floats added in another order) and F's distance planes within
 1e-4; restricted to the tiles of one subpalette (none, all, or a ragged
 set of them), F's planes equal the twin's bit for bit. B runs at pyramids with odd scales (240x256, 40x24, 60x60), in one
-kernel launch a call. B's, C's and D's sums equal, bit for bit, the ones
+kernel launch a call. B's source mode (frames built in its loads from an
+`ops/cuda_metric.py` `FrameSource`) gives its frames mode's sums bit for
+bit, and a graphed balanced run launches it twice a visit. B's, C's and D's sums equal, bit for bit, the ones
 kept in tests/data/kernel_sums_frozen.npz (written by
 `python tests/test_torch_cuda.py --freeze PATH`, run against the kernels
 they were taken from). G's
@@ -1021,6 +1023,116 @@ def test_multiscale_gate_flag(dev, flags, h, w, start, count, b):
                        want)
 
 
+# Kernel B's source mode against its frames mode: (label, height, width,
+# images, finalists an image, first scale, scales, pre_ds, gate flags or
+# None). The visit's calls (8 finalists at scale 1 from one 2x2 mean, 2 at
+# scale 0) at 256x256 and 256x240, one image and two, gates open and
+# closed; then all six scales (tiles and resident clusters), levels deeper
+# than the loads unroll, and a call the frames mode would split.
+SOURCE_CASES = [
+    ("8 at scale 1", 256, 256, 1, 8, 1, 1, 1, None),
+    ("2 at scale 0", 256, 256, 1, 2, 0, 1, 0, None),
+    ("2 at scale 0, gate open", 256, 256, 1, 2, 0, 1, 0, (1,)),
+    ("2 at scale 0, gate closed", 256, 256, 1, 2, 0, 1, 0, (0,)),
+    ("8 at scale 1, N=2", 256, 256, 2, 8, 1, 1, 1, None),
+    ("8 at scale 1, N=2, gates closed", 256, 256, 2, 8, 1, 1, 1, (0, 0)),
+    ("2 at scale 0, N=2, gates 1 0", 256, 256, 2, 2, 0, 1, 0, (1, 0)),
+    ("256x240: 8 at scale 1", 240, 256, 1, 8, 1, 1, 1, None),
+    ("256x240: 2 at scale 0, gate open", 240, 256, 1, 2, 0, 1, 0, (1,)),
+    ("256x240: 8 at scale 1, N=2, gates 0 1", 240, 256, 2, 8, 1, 1, 1,
+     (0, 1)),
+    ("256x240: 2 at scale 0, N=2", 240, 256, 2, 2, 0, 1, 0, None),
+    ("3 at scales 0-5", 256, 256, 1, 3, 0, 6, 0, None),
+    ("2 at scales 0-5 of 512", 512, 512, 1, 2, 0, 6, 0, None),
+    ("3 at scales 4-5 of 512", 512, 512, 1, 3, 4, 2, 4, None),
+    ("24 at scales 0-1 of 128", 128, 128, 1, 24, 0, 2, 0, None),
+]
+
+
+def _source_case(dev, h, w, n_img, k, seed):
+    """A FrameSource of k of 48 random candidates an image on random h x w
+    images (a win threshold under which about half the pixels go to a
+    candidate), and the frames of the same candidates from the visit's
+    torch glue (`refine.candidate_frames` on `SlotContext.cand_dist`)."""
+    from snesimage_torch.core import refine
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lead = (n_img,) if n_img > 1 else ()
+    target = torch.randint(0, 256, (*lead, 3, h, w), generator=g,
+                           device=dev, dtype=torch.int32)
+    cand8 = torch.randint(0, 256, (*lead, 48, 3), generator=g, device=dev,
+                          dtype=torch.int32)
+    cand_lin = srgb_u8_to_linear(cand8)
+    bva = torch.randint(-1, 60_000_000, (*lead, h, w), generator=g,
+                        device=dev, dtype=torch.int32)
+    lnc = torch.rand((*lead, 3, h, w), generator=g, device=dev)
+    rows = np.random.default_rng(seed).permuted(
+        np.tile(np.arange(48), (max(n_img, 1), 1)), axis=1)[:, :k]
+    ix = torch.from_numpy(rows).to(dev)
+    if not lead:
+        ix = ix[0]
+    ctx = refine.SlotContext(
+        p=0, i=0, target_u8=target.movedim(-3, -1), target_lab=None,
+        target=target, alpha=None, tile_palettes=None, best_val=None,
+        best_idx=None, base_idx=None, affected=None, map_nc=None, lnc=lnc,
+        rule=(bva,), ml=None)
+    dist = ctx.cand_dist(refine._take(cand8, ix))
+    frames = refine.candidate_frames(ctx, dist,
+                                     refine._take(cand_lin, ix)).contiguous()
+    share = float(ctx.win_mask(dist).float().mean())
+    assert 0.2 < share < 0.8, share
+    src = cuda_metric.FrameSource(target, cand8, cand_lin, ix, bva, lnc,
+                                  lambda: frames)
+    return src, frames
+
+
+def _graph_kernels(fn) -> dict:
+    """{mangled kernel name: launches} of one call of fn(), read from the
+    kernel nodes of a CUDA graph that captures it (core/graphs.py
+    `kernel_nodes`), which a profiler session may leave out."""
+    from snesimage_torch.core import graphs
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    return dict(graphs.kernel_nodes(graph.raw_cuda_graph())[1])
+
+
+@pytest.mark.parametrize("label,h,w,n_img,k,start,n,pre_ds,flags",
+                         SOURCE_CASES, ids=[c[0] for c in SOURCE_CASES])
+def test_multiscale_source_mode(dev, label, h, w, n_img, k, start, n,
+                                pre_ds, flags):
+    """Kernel B in source mode (frames built in its loads from a
+    FrameSource) gives the sums of its frames mode on the visit glue's
+    frames of the same candidates, bit for bit, in one launch of its
+    source-mode kernel."""
+    b = cuda_metric.multiscale_feature_sums
+    pyramids = [_pyramid(dev, h, 11 * m + w + k, width=w)[0]
+                for m in range(n_img)]
+    triples = [tuple(tuple(a.permute(2, 0, 1) for a in refp[sc])
+                     for sc in range(start, start + n)) for refp in pyramids]
+    refs = (triples[0] if n_img == 1 else
+            tuple(tuple(torch.stack(r) for r in zip(*sc))
+                  for sc in zip(*triples)))
+    src, frames = _source_case(dev, h, w, n_img, k, h + w + k + n_img)
+    gate = (None if flags is None
+            else torch.tensor(flags, dtype=torch.int32, device=dev))
+    before = (b.launches, b.source_launches, b.split_launches)
+    got = b(refs, src, pre_ds=pre_ds, gate=gate)
+    assert (b.launches, b.source_launches, b.split_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    kernels = _graph_kernels(lambda: b(refs, src, pre_ds=pre_ds, gate=gate))
+    assert list(kernels.values()) == [1], kernels
+    assert "multiscale_kernelILb" in next(iter(kernels)), kernels
+    assert "ELb1EE" in next(iter(kernels)), kernels
+    want = b(refs, frames, pre_ds=pre_ds, gate=gate)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(b(refs, src, pre_ds=pre_ds, gate=gate), got)
+
+
 # Sweep paths at 64x64 (2x3 palettes) for the compiled sweep: the channel
 # schedule with explore draws, the reference cycle, NES, the rank-1 gate
 # (with a stop rule that forces exact confirmations), windowed descent,
@@ -1113,3 +1225,35 @@ def test_graph_survives_scratch_regrowth(dev):
     graphs.clear()
     _assert_runs_equal(_graph_runs(dict(_GRAPH_CHANNEL, width=128,
                                         height=128), 128, 2, between=grow))
+
+
+def test_graphed_visits_score_finalists_in_source_mode(dev):
+    """A balanced run at 64x64 (2x3 palettes, 18 channel visits a sweep),
+    eagerly and then twice through CUDA graphs: kernel B runs in source
+    mode twice a visit, in `.source_launches` and in the profiling counter
+    "b.source_calls" alike, a replay's counted from its graph's
+    source-mode kernel nodes (two a visit in `graphs.stats()`)."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import graphs, pipeline
+    from snesimage_torch.core.state import new_state
+    from snesimage_torch.testing import bench_image
+    from snesimage_torch.utils import profiling
+
+    b = cuda_metric.multiscale_feature_sums
+    config = QuantConfig(**_GRAPH_CHANNEL)
+    visits = config.subpalette_count * config.subpalette_size * 3
+    img = np.ascontiguousarray(bench_image(0)[96:160, 96:160])
+    state = pipeline.cluster(pipeline.initialize(
+        new_state(img, config, "cuda"), config), config)
+    graphs.clear()
+    for k in range(3):
+        before = b.source_launches
+        replays = sum(g["replays"] for g in graphs.stats())
+        with profiling.recording() as record:
+            _, errs = pipeline.optimize(state, config, eager=k == 0)
+        calls = 2 * visits * len(errs)
+        assert b.source_launches - before == calls, k
+        assert record.total("b.source_calls") == calls, k
+        replayed = sum(g["replays"] for g in graphs.stats()) - replays
+        assert (replayed > 0) == (k > 0), (k, replayed)
+    assert [g["source_calls"] for g in graphs.stats()] == [2 * visits]

@@ -283,7 +283,7 @@ def test_gate_tally_counts_unchanged(image):
 
 # Kernel B's kernel<false> and kernel C's three-level kernel<true>, as
 # mangled names.
-B_KERNEL = "_ZN4snes17multiscale_kernelILb0EEEvNS_14MultiscaleCallE"
+B_KERNEL = "_ZN4snes17multiscale_kernelILb0ELb0EEEvNS_14MultiscaleCallE"
 C_FRAMES = "_ZN4snes21coarse_redmean_kernelILb1EEEvPKiS2_"
 
 
@@ -358,6 +358,22 @@ def test_measured_counts_by_kernel_name():
     assert graphs._measured(kernels, want, "sweep") == want
     with pytest.raises(RuntimeError, match="kernel nodes"):
         graphs._measured(kernels, {**want, (c, "frame_launches"): 5},
+                         "sweep")
+
+
+def test_measured_counts_source_mode_nodes():
+    """Kernel B's source-mode nodes (its kernel<., true>, with tile or
+    resident clusters) count toward its launches and its source launches;
+    its frames-mode nodes toward its launches alone."""
+    b = cuda_metric.multiscale_feature_sums
+    name = "_ZN4snes17multiscale_kernelILb{}ELb{}EEEvNS_14MultiscaleCallE"
+    kernels = {name.format(0, 0): 3, name.format(1, 0): 1,
+               name.format(0, 1): 4, name.format(1, 1): 2}
+    want = dict.fromkeys(graphs._counts(), 0)
+    want.update({(b, "launches"): 10, (b, "source_launches"): 6})
+    assert graphs._measured(kernels, want, "sweep") == want
+    with pytest.raises(RuntimeError, match="kernel nodes"):
+        graphs._measured(kernels, {**want, (b, "source_launches"): 4},
                          "sweep")
 
 

@@ -66,10 +66,10 @@ graph (ROADMAP C-12), each handled here or where it lives:
   The captured graph's kernel nodes are counted by kernel name
   (`kernel_nodes`, through libcuda); they must equal what the
   wrappers counted, and every replay adds the nodes' counts
-  (`_measured`), kernel B's source-mode calls also to the profiling
-  counter "b.source_calls". The captured sweep's `refine.GateCount` is
-  published after every replay, to an open `refine.gate_tally` and the
-  profiling counters, with no host read;
+  (`_measured`), and the kernel calls also to the profiling counters
+  that the wrappers count eagerly (`_call_counts`). The captured sweep's
+  `refine.GateCount` is published after every replay, to an open
+  `refine.gate_tally` and the profiling counters, with no host read;
 - every kernel launches on the current stream (`ops/_kernels.py`
   `stream`), the capture's side stream while capturing.
 """
@@ -264,6 +264,22 @@ def _measured(kernels: dict, captured: dict, label: str) -> dict:
     return out
 
 
+def _call_counts(launches: dict) -> dict:
+    """The profiling counters of kernel calls that a replay of a graph
+    with these launches (`_measured`) adds, as the wrappers count them
+    eagerly: kernel B's calls by how they get their frames, and kernel D's
+    and F's calls."""
+    from snesimage_torch.ops import cuda_metric, cuda_prescreen
+
+    b = cuda_metric.multiscale_feature_sums
+    source = launches[b, "source_launches"]
+    return {"b.source_calls": source,
+            "b.frame_calls": launches[b, "launches"] - source,
+            "d.calls": launches[cuda_metric.coarse_feature_sums_ciede,
+                                "launches"],
+            "f.calls": launches[cuda_prescreen.pooled_wins_ciede, "launches"]}
+
+
 def _named(counts: dict) -> dict:
     return {f"{fn.__name__}.{name}": n for (fn, name), n in counts.items()
             if n}
@@ -438,14 +454,11 @@ def stats() -> list:
     """One dict a graph kept: its label, capture, node count and
     instantiation seconds, nodes, kernel nodes, kernel B's source-mode
     calls a replay (`source_calls`) and replays so far."""
-    from snesimage_torch.ops.cuda_metric import multiscale_feature_sums
-
     return [dict(label=g.label, capture_s=g.graph.capture_s,
                  count_s=g.graph.count_s,
                  instantiate_s=g.graph.instantiate_s, nodes=g.graph.nodes,
                  kernel_nodes=sum(g.graph.kernels.values()),
-                 source_calls=g.meta["launches"][multiscale_feature_sums,
-                                                 "source_launches"],
+                 source_calls=g.meta["calls"]["b.source_calls"],
                  replays=g.replays)
             for g in _GRAPHS.values()]
 
@@ -574,14 +587,16 @@ class SweepRunner:
         graph.out = graph.graph.capture(body)
         graph.meta["launches"] = _measured(graph.graph.kernels, captured,
                                            graph.label)
+        graph.meta["calls"] = _call_counts(graph.meta["launches"])
         return graph
 
     @staticmethod
     def _count(meta: dict) -> None:
         for (fn, name), delta in meta["launches"].items():
             setattr(fn, name, getattr(fn, name) + delta)
-            if name == "source_launches":
-                profiling.count("b.source_calls", delta)
+        for name, n in meta["calls"].items():
+            if n:
+                profiling.count(name, n)
         if meta["gates"] is not None:
             meta["gates"].publish()
 

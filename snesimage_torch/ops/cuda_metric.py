@@ -34,7 +34,8 @@ card it builds each frame pixel in its loads (source mode, one launch of
 its kernel<., true>), bit-equal to the frames that `FrameSource.frames`
 builds in torch, which its twin scores on the CPU. The wrapper counts those
 launches in ``.source_launches``, and such calls on either device in the
-profiling counter "b.source_calls".
+profiling counter "b.source_calls"; its calls handed frames built in torch
+go to the counter "b.frame_calls", and kernel D's calls to "d.calls".
 
 All return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
 the pixel count and the fourth root stay in `finalize_feature_sums`. On a
@@ -60,6 +61,7 @@ import torch
 from snesimage_torch.ops import _kernels
 from snesimage_torch.ops.cuda_prescreen import (
     _batched,
+    _count_call,
     ciede_wins,
     coarse_frames,
     pooled_sums,
@@ -71,7 +73,6 @@ from snesimage_torch.ops.ssimulacra2 import (
     linear_rgb_to_positive_xyb,
     pyramid_size,
 )
-from snesimage_torch.utils import profiling
 
 # Planes up to this many pixels run resident in shared memory, on the
 # cluster pass (kResidentMaxPixels in csrc/metric_common.cuh); kernel B
@@ -376,13 +377,11 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0,
     rank-1 gate of core/refine.py, decided on the device, so no visit waits
     for it); an open flag gives the sums of a call without one.
     """
-    if isinstance(frames, FrameSource):
-        # A call captured into a CUDA graph counts as the graph replays
-        # (core/graphs.py).
-        if not (frames.is_cuda and torch.cuda.is_current_stream_capturing()):
-            profiling.count("b.source_calls")
-        if not frames.is_cuda:
-            frames = frames.frames()
+    source = isinstance(frames, FrameSource)
+    _count_call(frames.is_cuda, "b.source_calls" if source
+                else "b.frame_calls")
+    if source and not frames.is_cuda:
+        frames = frames.frames()
     if frames.is_cuda:
         return _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate)
     return _multiscale_feature_sums_plain(ref_scales, frames, pre_ds, gate)
@@ -631,6 +630,7 @@ def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     `coarse_feature_sums_redmean`, all gain it.
     """
     _check_mode(pre_ds, emit_frames)
+    _count_call(tlab.is_cuda, "d.calls")
     fn = _coarse_ciede_cuda if tlab.is_cuda else _coarse_ciede_plain
     return _batched(lambda *a: fn(*a, flat_refs, pre_ds, emit_frames), tlab,
                     cand_lab, cand_lin, bvalm, adj, ml, ds4_l)

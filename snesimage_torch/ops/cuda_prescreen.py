@@ -33,7 +33,8 @@ Counterpart of snesimage_tpu/ops/pallas_prescreen.py.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the twin. Each wrapper counts its launches in ``.launches``
-(kernel A's three in ``select_colors.launches``). Each also takes a leading
+(kernel A's three in ``select_colors.launches``), and kernel F its calls on
+either device in the profiling counter "f.calls". Each also takes a leading
 image axis N on its operands (the JAX package's `custom_vmap` image fold):
 N images in one launch, each image's outputs bit-equal to its own launch;
 the twins run the images one after another.
@@ -53,6 +54,7 @@ from snesimage_torch.ops.color import (
     srgb_u8_to_linear,
 )
 from snesimage_torch.ops.remap import tile_pixel_map
+from snesimage_torch.utils import profiling
 
 INT32_MAX = torch.iinfo(torch.int32).max
 INT32_MIN = torch.iinfo(torch.int32).min
@@ -419,6 +421,14 @@ def _tiles_ptr(tile_palettes, n, h, w, dev):
                             (n, h // 8, w // 8), dev)
 
 
+def _count_call(is_cuda: bool, counter: str) -> None:
+    """Adds a wrapper's call to the profiling counter `counter`; a call
+    captured into a CUDA graph counts as the graph replays
+    (core/graphs.py)."""
+    if not (is_cuda and torch.cuda.is_current_stream_capturing()):
+        profiling.count(counter)
+
+
 def _batched(fn, first, *rest):
     """fn over operands with a leading image axis, adding one (and taking
     it off the results) where `first` has none; None operands pass as they
@@ -557,6 +567,7 @@ def pooled_wins_ciede(tlab, cand_lab, bvalm, adj, ml, tile_palettes=None,
     tiles of p wins.
     """
     _check_tiles("pooled_wins_ciede", tile_palettes, p)
+    _count_call(tlab.is_cuda, "f.calls")
     fn = _pooled_wins_ciede_cuda if tlab.is_cuda else _pooled_wins_ciede_plain
     return _batched(lambda *a: fn(*a, p=p), tlab, cand_lab, bvalm, adj, ml,
                     tile_palettes)

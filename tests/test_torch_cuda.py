@@ -1257,3 +1257,44 @@ def test_graphed_visits_score_finalists_in_source_mode(dev):
         replayed = sum(g["replays"] for g in graphs.stats()) - replays
         assert (replayed > 0) == (k > 0), (k, replayed)
     assert [g["source_calls"] for g in graphs.stats()] == [2 * visits]
+
+
+COUNTERS = ("b.source_calls", "b.frame_calls", "d.calls", "f.calls")
+
+
+@pytest.mark.parametrize("perceptual,per_visit", [
+    (True, (0, 2, 1, 0)), (False, (2, 0, 0, 0))],
+    ids=["perceptual", "red-mean"])
+def test_graphed_sweeps_count_their_kernel_calls(dev, perceptual, per_visit):
+    """A balanced run at 64x64 (2x3 palettes, 18 channel visits a sweep),
+    eagerly and then twice through CUDA graphs: a replayed run counts
+    kernel B's calls by how they get their frames, and kernel D's and F's
+    calls, as the eager run counts them; an eager perceptual visit makes
+    one call of D and two of B on frames built in torch, a red-mean visit
+    two of B in source mode."""
+    from snesimage_torch.config import QuantConfig
+    from snesimage_torch.core import graphs, pipeline
+    from snesimage_torch.core.state import new_state
+    from snesimage_torch.testing import bench_image
+    from snesimage_torch.utils import profiling
+
+    config = QuantConfig(**dict(_GRAPH_CHANNEL, prescreen_full=4,
+                                perceptual_palettes=perceptual))
+    visits = config.subpalette_count * config.subpalette_size * 3
+    img = np.ascontiguousarray(bench_image(0)[96:160, 96:160])
+    state = pipeline.cluster(pipeline.initialize(
+        new_state(img, config, "cuda"), config), config)
+    graphs.clear()
+    totals = []
+    for k in range(3):
+        replays = sum(g["replays"] for g in graphs.stats())
+        with profiling.recording() as record:
+            _, errs = pipeline.optimize(state, config, eager=k == 0)
+        if k == 0:
+            assert tuple(record.counts.get((c, "sweep.eager"), 0)
+                         for c in COUNTERS) == tuple(
+                n * visits * len(errs) for n in per_visit)
+        totals.append(tuple(record.total(c) for c in COUNTERS))
+        replayed = sum(g["replays"] for g in graphs.stats()) - replays
+        assert (replayed > 0) == (k > 0), (k, replayed)
+    assert totals[0] == totals[1] == totals[2]

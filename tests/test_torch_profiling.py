@@ -133,3 +133,31 @@ def test_runs_keeps_the_last_records():
     assert [r.counts[("n", "")] for r in (runs[0], runs[-1])] == [44, 299]
     assert runs[-1].counts[("n", "stage")] == 1
     assert runs[-1].total("n") == 300
+
+
+KERNEL_CALLS = ("b.source_calls", "b.frame_calls", "d.calls", "f.calls")
+
+
+@pytest.mark.parametrize("change,per_visit", [
+    (dict(perceptual_palettes=True, prescreen_full=4), (0, 2, 1, 0)),
+    (dict(perceptual_palettes=True, prescreen_full=4, width=40, height=24),
+     (0, 3, 0, 1)),
+    ({}, (2, 0, 0, 0))], ids=["perceptual", "perceptual-40x24", "red-mean"])
+def test_visits_count_kernel_calls(change, per_visit):
+    """One eager channel sweep (2x2 palettes, 12 visits): a perceptual
+    visit at 32x32 calls kernel D once and kernel B twice on the
+    finalists' frames built in torch; at 40x24, where D cannot run, kernel
+    F once and B three times (its quarter frames, then the finalists); a
+    red-mean visit calls B twice in source mode, and neither D nor F. The
+    run's initial carried error is one more call of B on a frame, outside
+    the sweep."""
+    config = QuantConfig(**dict(GATED, gate_margin=0.0, max_steps=1,
+                                **change))
+    img = np.ascontiguousarray(
+        bench_image(0)[100:100 + config.height, 100:100 + config.width])
+    pipeline.run(img, config, device="cpu")
+    (record,) = profiling.runs()
+    visits = 12
+    assert tuple(record.counts.get((c, "sweep.eager"), 0)
+                 for c in KERNEL_CALLS) == tuple(n * visits for n in per_visit)
+    assert record.counts[("b.frame_calls", "optimize")] == 1

@@ -51,18 +51,40 @@
 //
 // The block's entry table is its own copy with slot (p, i) overwritten, so
 // the candidate override costs nothing per pixel; the entries arrive as
-// 5-bit colours and are expanded here. Each slot's pixels are loaded
-// kAhead steps before they are needed, off the dependent chain.
+// 5-bit colours and are expanded here. The red-mean search is unrolled over
+// kMaxEntries, every entry a subpalette can have, and compares only the
+// first S: the loads and distances of all entries overlap, where a loop over
+// a runtime S compiled to branches around bodies of 16, 8, 4 and 1 entries
+// that ran one after another.
 //
-// What bounds it on the card: nothing a roofline names. The function is a
-// chain of W + 2H - 2 dependent steps (766 at 256x256), each a distance
-// search over S entries, a reduction over L lanes, a neighbour exchange and
-// a barrier. The bytes (the image once, 12.6 MB of maps per 48-candidate
-// visit) and the arithmetic are small beside that.
+// Memory. The lanes of a warp sit on different rows, so each of their
+// global accesses touches a cache line of its own. A slot therefore loads
+// its row four pixels at a time (three 16-byte vectors of rgb, one of
+// alpha, a tile's subpalette every eight pixels) into a ring of registers,
+// four to eight steps before it needs them, and writes its map entries as
+// one 16-byte vector every fourth pixel: a pixel costs 1.1 load and 0.25
+// store instructions, not 5 and 1. The lanes of one slot load the same
+// addresses, which the card serves once. Every tensor starts on 16 bytes
+// and W % 8 == 0, so every vector is aligned.
+//
+// What bounds it on the card: nothing a roofline names. The function is a chain
+// of W + 2H - 2 dependent steps (766 at 256x256), each a distance search over S
+// entries, a reduction over L lanes, a neighbour exchange and a barrier, run by
+// one warp on each of an SM's four schedulers, so every latency shows. The
+// bytes (the image once, 12.6 MB of maps per 48-candidate visit) and the
+// arithmetic are small beside that. The step was read by taking its parts out
+// of copies of this file (red-mean, 256x256, B = 48, H100): with a scalar load
+// of each pixel's five values, a scalar store and a loop over S it took 0.885
+// us, of which the search was 43%, the barrier 19%, the loads 18% and the store
+// 4%; as it stands it takes 0.494 us, of which the search is 27% and the
+// barrier 17%, and a copy without its loads or its store runs slower (the
+// compiler schedules the step otherwise), so their share no longer reads by
+// subtraction.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 #include <type_traits>
 
 #include "ciede2000.cuh"
@@ -83,24 +105,59 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 // The most threads a block of any variant has (R <= 512 row slots at L = 1).
 constexpr int kMaxThreads = 512;
+// The most entries a subpalette has (a 4bpp SNES subpalette: 15 colours).
+constexpr int kMaxEntries = 16;
 
 struct Pixel {
   int r, g, b, live, sub;
 };
 
-// rgb (H, W, 3) int32, alpha (H, W) int32, tiles (H/8, W/8) int32.
-__device__ __forceinline__ Pixel load_pixel(const int* rgb, const int* alpha,
+// Four neighbouring pixels of a row, from x % 4 == 0, as they are loaded:
+// rgb in three 16-byte vectors (r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3),
+// alpha in one, and the subpalette of their tile.
+struct Group {
+  int4 c0, c1, c2, a;
+  int sub;
+};
+
+// rgb (H, W, 3) int32, alpha (H, W) int32, tiles (H/8, W/8) int32; x is a
+// multiple of 4, and `left` the group at x - 4 where x % 8 == 4 (the same
+// tile). Zeros off the image (y >= H or x < 0).
+__device__ __forceinline__ Group load_group(const int* rgb, const int* alpha,
                                             const int* tiles, int h, int w,
-                                            int y, int x) {
-  Pixel px = {0, 0, 0, 0, 0};
-  if (y < h && x >= 0 && x < w) {
+                                            int y, int x, const Group& left) {
+  Group g = {};
+  if (y < h && x >= 0) {
     const size_t at = (size_t)y * w + x;
-    px.r = rgb[at * 3];
-    px.g = rgb[at * 3 + 1];
-    px.b = rgb[at * 3 + 2];
-    px.live = alpha[at] > 0;
-    px.sub = tiles[(y >> 3) * (w >> 3) + (x >> 3)];
+    const int4* v = reinterpret_cast<const int4*>(rgb + at * 3);
+    g.c0 = __ldg(v);
+    g.c1 = __ldg(v + 1);
+    g.c2 = __ldg(v + 2);
+    g.a = __ldg(reinterpret_cast<const int4*>(alpha + at));
+    g.sub = x & 4 ? left.sub : __ldg(tiles + (y >> 3) * (w >> 3) + (x >> 3));
   }
+  return g;
+}
+
+template <typename T>
+__device__ __forceinline__ T pick4(int o, T v0, T v1, T v2, T v3) {
+  return o == 0 ? v0 : o == 1 ? v1 : o == 2 ? v2 : v3;
+}
+
+// Pixel o (0 to 7) of two neighbouring groups; a select for each field,
+// none where o is known at compile time.
+__device__ __forceinline__ Pixel pixel_at(const Group& g0, const Group& g1,
+                                          int o) {
+  const bool hi = o >= 4;
+  const int q = o & 3;
+  const int4 c0 = hi ? g1.c0 : g0.c0, c1 = hi ? g1.c1 : g0.c1;
+  const int4 c2 = hi ? g1.c2 : g0.c2, a = hi ? g1.a : g0.a;
+  Pixel px;
+  px.r = pick4(q, c0.x, c0.w, c1.z, c2.y);
+  px.g = pick4(q, c0.y, c1.x, c1.w, c2.z);
+  px.b = pick4(q, c0.z, c1.y, c2.x, c2.w);
+  px.live = pick4(q, a.x, a.y, a.z, a.w) > 0;
+  px.sub = hi ? g1.sub : g0.sub;
   return px;
 }
 
@@ -161,9 +218,12 @@ dither_remap_kernel(const int* __restrict__ rgb,
   extern __shared__ __align__(16) unsigned char raw[];
   const int n_ent = c_sub * s_ent;
   const int n_warps = blockDim.x >> 5;
-  // One 16-byte vector per entry: a lane reads an entry in one load.
+  // One 16-byte vector per entry: a lane reads an entry in one load. The
+  // red-mean search reads kMaxEntries entries from its subpalette's first,
+  // so zeros follow the table.
   int4* table = reinterpret_cast<int4*>(raw);                  // 8-bit RGB
-  float4* lab = reinterpret_cast<float4*>(table + n_ent);      // its Lab
+  float4* lab =
+      reinterpret_cast<float4*>(table + n_ent + kMaxEntries);  // its Lab
   float* lut = reinterpret_cast<float*>(lab + n_ent);          // 256
   float* hand = lut + 256;              // [2][n_warps][9]: a warp's last slot
   float* tail = hand + 2 * n_warps * 9;  // [2][9]: the block's last slot
@@ -198,6 +258,9 @@ dither_remap_kernel(const int* __restrict__ rgb,
   }
   __syncthreads();
   // The block's own entry table: slot (p, i) holds the candidate.
+  for (int e = n_ent + tid; e < n_ent + kMaxEntries; e += blockDim.x) {
+    table[e] = make_int4(0, 0, 0, 0);
+  }
   for (int e = tid; e < n_ent; e += blockDim.x) {
     const bool over = p >= 0 && e == p * s_ent + i_slot;
     const int* src = over ? cand5 + (size_t)m * 3 : entries5 + e * 3;
@@ -222,31 +285,47 @@ dither_remap_kernel(const int* __restrict__ rgb,
   float win[3][3] = {};
   float nxt[3][3] = {};
   const int n_steps = w + 2 * h - 2;
-  // ahead[j]: the pixel of the step c with c % kAhead == j, loaded kAhead
-  // steps before its use. The step loop is unrolled kAhead times, so each
-  // ring entry stays in its own registers and no move waits on a load.
-  // Where is the slot at step c + d? On its row while x + d < W, else on
-  // its next row.
-  constexpr int kAhead = kPerceptual ? 1 : 4;
-  Pixel ahead[kAhead];
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j) {
-    const int yy = j - 2 * y >= w ? y + n_slots : y;
-    ahead[j] = load_pixel(rgb, alpha, tiles, h, w, yy, j - 2 * yy);
-  }
+  // The slot's pixels as one stream: its rows y, y + R, ... back to back,
+  // one pixel a step (2R = W, or the slot has one row), loaded a group of
+  // four at a time into a ring of three groups. At a step with c % 4 == 0
+  // the slot's x is 2 (y odd) or 0 (y even) modulo 4, for all its rows (R
+  // is a multiple of 4), so the four steps from there take pixels `odd` to
+  // `odd` + 3 of g0 and g1, and g2 arrives meanwhile: it was asked for four
+  // steps before g1 is first read. (ly, lx) is the next group to load.
+  const int odd = (y & 1) * 2;
+  int ly = y, lx = -2 * y - odd;
+  const auto next = [&](const Group& left) {
+    const Group g = load_group(rgb, alpha, tiles, h, w, ly, lx, left);
+    lx += 4;
+    if (lx == w) {
+      lx = 0;
+      ly += n_slots;
+    }
+    return g;
+  };
+  Group g0 = next(Group{});
+  Group g1 = next(g0);
+  Group g2 = next(g1);
+  // The slot's last four entries, written as one vector at x % 4 == 3.
+  int4 done = make_int4(0, 0, 0, 0);
 
-  // Steps past the last (to fill the unrolled loop) find every slot idle.
-  for (int c0 = 0; c0 < n_steps; c0 += kAhead) {
+  // The step loop is unrolled four times on the red-mean path, so each
+  // step's pixel is a fixed field of g0 or g1 and the ring turns by
+  // renaming registers. Steps past the last (to fill the unrolled loop)
+  // find every slot idle.
+  constexpr int kUnroll = kPerceptual ? 1 : 4;
+  for (int c0 = 0; c0 < n_steps; c0 += kUnroll) {
 #pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
+    for (int j = 0; j < kUnroll; ++j) {
       const int c = c0 + j;
       const int x = c - 2 * y;
       const bool valid = y < h && x >= 0;  // x < W: rows switch at x = W - 1
-      const Pixel px = ahead[j];
-      {
-        const int yy = x + kAhead >= w ? y + n_slots : y;
-        ahead[j] =
-            load_pixel(rgb, alpha, tiles, h, w, yy, c + kAhead - 2 * yy);
+      const int o = c & 3;
+      const Pixel px = odd ? pixel_at(g0, g1, o + 2) : pixel_at(g0, g1, o);
+      if (o == 3) {  // g0 is spent: the ring turns and asks for the next
+        g0 = g1;
+        g1 = g2;
+        g2 = next(g1);
       }
 
       float perr[3] = {0.0f, 0.0f, 0.0f};
@@ -275,13 +354,16 @@ dither_remap_kernel(const int* __restrict__ rgb,
               }
             }
           } else {
-            for (int s = k; s < s_ent; s += kLanes) {
-              const int4 e = ent[s];
+            // Unrolled over every entry a subpalette can have, so that the
+            // loads and distances of all entries overlap.
+#pragma unroll
+            for (int s = k; s < kMaxEntries; s += kLanes) {
+              const int4 e = ent[s];  // past S: the next entries, unused
               const int dr = e.x - qr, dg = e.y - qg, db = e.z - qb;
               const int rsum = e.x + qr;
               const int d = (1024 + rsum) * dr * dr + 2048 * dg * dg +
                             (1534 - rsum) * db * db;
-              if (d < best_d) {
+              if (s < s_ent && d < best_d) {
                 best_d = d;
                 best = s;
               }
@@ -306,7 +388,10 @@ dither_remap_kernel(const int* __restrict__ rgb,
           perr[1] = win[0][1];
           perr[2] = win[0][2];
         }
-        if (k == 0) omap[(size_t)y * w + x] = best;
+        done = make_int4(done.y, done.z, done.w, best);
+        if (k == 0 && (x & 3) == 3) {
+          __stcg(reinterpret_cast<int4*>(omap + (size_t)y * w + x - 3), done);
+        }
       }
 
       // E and SE are masked at x + 1 = W, SW at x = 0; each mask multiplies
@@ -420,9 +505,10 @@ cudaError_t launch_dither(int n_blocks, int n_slots, size_t smem,
 
 // rgb (N, H, W, 3), alpha (N, H, W), tiles (N, H/8, W/8), entries5
 // (N, C, S, 3) and cand5 (N, B, 3) 5-bit colours, all int32; out
-// (N, B, H, W) int32. With shared_image, rgb, alpha and tiles hold one
-// image, which all N palettes remap (a seed portfolio). `lanes` and `cluster` pick a built variant, the ones
-// ops/cuda_dither.py `variant` can choose: red-mean L = 1; perceptual L = 8
+// (N, B, H, W) int32; rgb, alpha and out start on 16 bytes; S <= 16. With
+// shared_image, rgb, alpha and tiles hold one image, which all N palettes
+// remap (a seed portfolio). `lanes` and `cluster` pick a built variant, the
+// ones ops/cuda_dither.py `variant` can choose: red-mean L = 1; perceptual L = 8
 // over a cluster of two blocks, then L = 2 and L = 1 in one block where more
 // row slots leave those no room.
 extern "C" int snes_dither_remap(const void* rgb, const void* alpha,
@@ -433,11 +519,18 @@ extern "C" int snes_dither_remap(const void* rgb, const void* alpha,
                                  int lanes, int cluster,
                                  const snes::DitherParams* params, void* out,
                                  void* stream) {
-  if (h < 1 || w < 1 || h % 8 || w % 8) return (int)cudaErrorInvalidValue;
+  if (h < 1 || w < 1 || h % 8 || w % 8 || s_ent < 1 ||
+      s_ent > snes::kMaxEntries) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (((uintptr_t)rgb | (uintptr_t)alpha | (uintptr_t)out) % 16) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   const int n_slots = h < (w + 1) / 2 ? h : (w + 1) / 2;
   const int per_block = (n_slots + cluster - 1) / cluster;
   const int threads = (per_block * lanes + 31) / 32 * 32;
-  const size_t smem = (sizeof(int4) + sizeof(float4)) * c_sub * s_ent +
+  const size_t smem = sizeof(int4) * (c_sub * s_ent + snes::kMaxEntries) +
+                      sizeof(float4) * c_sub * s_ent +
                       sizeof(float) * (256 + 2 * (threads / 32) * 9 + 18);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;

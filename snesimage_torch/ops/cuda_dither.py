@@ -39,10 +39,13 @@ from snesimage_torch.ops.dither import dither_candidates
 
 # The variants csrc/dither.cu builds, per distance mode (perceptual) in
 # the order `variant` tries them: (lanes per row slot, blocks per
-# candidate). Red-mean L = 1 fits up to 512 row slots; perceptual L = 8
-# over a cluster of two blocks fits up to 128, L = 2 up to 256.
+# candidate). Red-mean L = 1 fits up to 512 row slots (L = 2 and 4, which
+# split the 16-entry search, and a cluster of two blocks are slower on the
+# card at 256x256); perceptual L = 8 over a cluster of two blocks fits up
+# to 128, L = 2 up to 256.
 VARIANTS = {False: ((1, 1),), True: ((8, 2), (2, 1), (1, 1))}
 MAX_THREADS = 512  # a block of any variant
+MAX_ENTRIES = 16  # a subpalette's entries (kMaxEntries; the config's S <= 15)
 
 
 def row_slots(h: int, w: int) -> int:
@@ -66,6 +69,14 @@ def variant(perceptual: bool, h: int, w: int) -> tuple[int, int]:
         f"({h}x{w}); images up to 1024 pixels wide fit")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on 16 bytes, as the kernel's vector loads
+    read it: t itself where it is (every tensor the pipeline makes), else
+    a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
                        perceptual, lanes=None, cluster=None):
     """Kernel G on N palettes (palette5 (N, C, S, 3), cand5 (N, B, 3)) over
@@ -86,6 +97,9 @@ def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
             f"kernel G takes images of whole 8x8 tiles, not {h}x{w}")
     if not -1 <= p < c or not 0 <= i < s:
         raise ValueError(f"slot ({p}, {i}) is outside the {c}x{s} palette")
+    if s > MAX_ENTRIES:
+        raise ValueError(f"kernel G takes subpalettes of at most "
+                         f"{MAX_ENTRIES} entries, not {s}")
     if lanes is None:
         lanes, cluster = variant(perceptual, h, w)
     elif ((lanes, cluster) not in VARIANTS[bool(perceptual)]
@@ -140,7 +154,7 @@ def dither_remap_candidates(
                                        perceptual)[0]
     if rgb.is_cuda:
         return _dither_remap_cuda(
-            rgb.contiguous(), alpha.contiguous(), tile_palettes.contiguous(),
+            _aligned(rgb), _aligned(alpha), tile_palettes.contiguous(),
             palette5.to(torch.int32).contiguous(), p, i,
             cand5.to(torch.int32).contiguous(), perceptual)
     shared = rgb.dim() == 3

@@ -21,8 +21,9 @@ kept in tests/data/kernel_sums_frozen.npz (written by
 `python tests/test_torch_cuda.py --freeze PATH`, run against the kernels
 they were taken from). G's
 maps equal its twin's at the dithered paths' geometries (256x256,
-256x240), a narrow one and one whose row slots take several rows each, in
-both distance modes, and every variant built (lanes per row slot, blocks
+256x240, the dithered cell's 48-candidate visit), a narrow one, W = 8, one
+whose row slots take several rows each and transparent pixels placed on
+its four-pixel loads and stores, in both distance modes, and every variant built (lanes per row slot, blocks
 per candidate) gives the same maps; on random images in perceptual mode
 the older cases ask for 0.99 of the pixels (the card's double pow and
 trigonometry could land across a float32 rounding boundary from the
@@ -540,11 +541,14 @@ def test_pooled_wins_restricted_reject_bad_tile_maps(dev):
         cuda_prescreen.pooled_wins_ciede(*odd, tiles[:2], 0)
 
 
-def _dither_args(dev, h, w, c, s, b, seed):
+def _dither_args(dev, h, w, c, s, b, seed, groups=False):
     """Random image with a transparent tile band, an interior transparent
     block off the tile grid and scattered transparent pixels; a palette
     whose entries 0 and 1 are duplicates (exact distance ties); the last
-    candidate equals the first, and the second equals an entry."""
+    candidate equals the first, and the second equals an entry. With
+    `groups`, also transparent pixels at every place inside the four-pixel
+    groups kernel G loads and stores, pairs across their boundaries and
+    runs over several of them."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def ints(hi, shape):
@@ -556,6 +560,12 @@ def _dither_args(dev, h, w, c, s, b, seed):
     alpha[8:16, : w // 2] = 0
     alpha[h // 2 + 3 : h // 2 + 13, w // 2 + 5 : w // 2 + 14] = 0
     alpha[::7, ::5] = 0
+    if groups:
+        for q in range(4):
+            alpha[q::9, q::4] = 0  # pixel q of every group
+        alpha[4::9, 3::8] = 0  # pairs across a group boundary
+        alpha[4::9, 4::8] = 0
+        alpha[5::9, 2 : w - 3] = 0  # runs over whole groups
     pal = ints(32, (c, s, 3))
     pal[:, 1] = pal[:, 0]
     cand = ints(32, (b, 3))
@@ -612,23 +622,35 @@ def test_dither_remap_candidates_rejects_bad_operands(dev):
     with pytest.raises(ValueError):  # a variant that is not built
         cuda_dither._dither_remap_cuda(rgb, alpha, tiles, pal, p, i, cand,
                                        False, lanes=4, cluster=1)
+    big = torch.zeros((2, cuda_dither.MAX_ENTRIES + 1, 3), dtype=torch.int32,
+                      device=dev)
+    with pytest.raises(ValueError):  # more entries than the kernel holds
+        cuda_dither.dither_remap_candidates(rgb, alpha, tiles, big, 0, 0,
+                                            cand)
 
 
 @pytest.mark.parametrize("perceptual", [False, True])
 @pytest.mark.parametrize(
     # the dithered paths' geometries; a narrow image (R = 12 row slots);
     # slots that take three and more rows (H > 2 ceil(W/2)); and more rows
-    # than the old one-thread-per-row kernel took
-    "h,w,b", [(256, 256, 3), (240, 256, 3), (64, 24, 4), (48, 16, 5),
-              (264, 32, 2)],
+    # than the old one-thread-per-row kernel took; the dithered cell's visit
+    # (C = 8, B = 48); transparent pixels inside and across the four-pixel
+    # groups; W = 8, two groups a row
+    "h,w,c,b,groups", [(256, 256, 4, 3, False), (240, 256, 4, 3, False),
+                       (64, 24, 4, 4, False), (48, 16, 4, 5, False),
+                       (264, 32, 4, 2, False), (256, 256, 8, 48, False),
+                       (96, 64, 8, 5, True), (240, 256, 8, 3, True),
+                       (40, 8, 4, 3, True), (8, 8, 2, 2, False)],
 )
-def test_dither_maps_equal_twin(dev, h, w, b, perceptual):
-    args = _dither_args(dev, h, w, 4, 15, b, 3 * h + w)
+def test_dither_maps_equal_twin(dev, h, w, c, b, groups, perceptual):
+    args = _dither_args(dev, h, w, c, 15, b, 3 * h + w, groups)
     got = cuda_dither.dither_remap_candidates(*args, perceptual)
     want = dither_candidates(*args, perceptual)
     assert got.shape == (b, h, w)
     assert torch.equal(got, want), float((got == want).float().mean())
     assert cuda_dither.row_slots(h, w) == min(h, w // 2)
+    if groups:
+        assert bool((got[:, args[1] == 0] == 0).all())
 
 
 @pytest.mark.parametrize("perceptual", [False, True])
@@ -1152,6 +1174,9 @@ GRAPH_PATHS = {
     "perceptual": dict(_GRAPH_CHANNEL, perceptual_palettes=True,
                        prescreen_full=4),
     "dithered": dict(_GRAPH_CHANNEL, dither=True),
+    # kernel G at the dithered cell's shape: 256x256, 48 candidates a visit
+    "dithered-256": dict(_GRAPH_CHANNEL, dither=True, width=256, height=256,
+                         channel_explore=16),
 }
 
 
@@ -1202,7 +1227,8 @@ def test_graphed_sweeps_equal_eager(dev, path):
     where a key has CAPTURE_LEFT steps left, later sweeps replay), with the
     same kernel launches, a replay's counted from its graph's kernel
     nodes."""
-    _assert_runs_equal(_graph_runs(GRAPH_PATHS[path], 64, 2))
+    params = GRAPH_PATHS[path]
+    _assert_runs_equal(_graph_runs(params, params["width"], 2))
 
 
 def test_graph_survives_scratch_regrowth(dev):

@@ -92,13 +92,13 @@ FRAME_TOL, D's distance planes bit-equal, N = 2 images bit-equal to N = 1
 launches, device ms beside the two-level mode's; and kernel B at the
 three-level visit's shapes (scale 2 of the 16 survivors' quarter frames;
 scales 3-5 of 256x240's quarter frames after one 2x2 mean). Each path after
-it is driven with the counts set to 0 just before it and read just after,
-and its step errors must never rise and end below its init's: the
+it is driven in a recording of its own (utils/profiling.py), and its step
+errors must never rise and end below its init's: the
 three-level prescreen (`prescreen_pre` 16) on the balanced recipe for 4
 steps, the perceptual one for 2 and the balanced one at 256x240 for 2
-(phase 39, C's, D's and E's paths, with the three-level launches counted
-apart, `.frame_launches`); `cli --opt-profile fast --gate-coarse` to its
-stop, with the shares of closed coarse and rank-1 gates (phase 40); the
+(phase 39, C's, D's and E's paths, with the three-level calls counted
+apart); `cli --opt-profile fast --gate-coarse` to its stop, with the
+shares of closed coarse and rank-1 gates (phase 40); the
 dither proxy (`dither_proxy` 8) on the dithered recipe for 2 steps and the
 dithered perceptual one for 1, with kernel G's device ms a sweep at 8 rows
 and at 48 (phase 41); and the balanced recipe with `channel_window` 4 for 8
@@ -123,9 +123,9 @@ replays a CUDA graph of each sweep where a run captured one
 (snesimage_torch/core/graphs.py: not at a key's first sweep, and only with
 `CAPTURE_LEFT` steps of the run left or after `CAPTURE_RUNS` earlier runs
 of the key), so the launch counts it checks are
-partly replayed ones: a replay adds its graph's kernel nodes, counted by
-kernel name through libcuda when the graph was captured, and the
-capture raises unless they equal the launches its wrappers made. Phase 44
+partly replayed ones: a replay adds what its capture counted, and the
+capture raises unless that equals the graph's kernel nodes, counted by
+kernel name through libcuda. Phase 44
 then drives every path both ways through `pipeline.optimize`: eagerly
 (`eager=True`) and graphed, twice, with the graphs dropped before each
 path and captured at a key's second sweep (`CAPTURE_LEFT` 1 for the
@@ -134,7 +134,7 @@ the first graphed run captures and in the second every sweep must replay,
 at least three sweeps each: the balanced, perceptual,
 dithered and dithered perceptual recipes, the three 256x240 paths, the
 reference cycle, `nes-compat`, a config 5 batch of 16, `robust` (K = 2),
-`fast` inside `gate_tally`, host-stepped + resume with an `on_step` hook,
+`fast` with its gate counts, host-stepped + resume with an `on_step` hook,
 a replacement state and `reassign_every`, a windowed and a three-level
 run. Every graphed run's step errors, final state, launches and readings
 must equal the eager run's bit for bit; between two replays of the
@@ -146,6 +146,7 @@ instantiation seconds, nodes and kernel nodes.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -155,6 +156,8 @@ import time
 import numpy as np
 import torch
 
+from perfbench.roofline import F32_OPS_PER_S, MEMORY_BYTES_PER_S
+from perfbench.trace import KERNEL_OF
 # The balanced recipe (bench.py's headline config) and the init hashes
 # every phase below pins, with the function that computes them.
 from snesimage_torch.bench import BALANCED
@@ -169,7 +172,9 @@ from snesimage_torch.testing import (
     INIT_HASH_PERCEPTUAL,
     card_line,
     init_hash,
+    kernel_launches,
 )
+from snesimage_torch.utils import profiling
 
 FEATURE_TOL = 2e-4  # kernel vs twin, finalised features (rtol and atol)
 # Kernel D's distance planes vs its twin (atol and rtol). The kernel takes
@@ -201,15 +206,12 @@ POOLED_SUM_TOL = 1e-5  # kernels E and F vs twins, the three m*ML sums
 # launches is enqueued (`device_ms`): about 0.1 s, longer than any run
 # here takes the host to launch.
 HOLD_CYCLES = 200_000_000
-WRAPPERS = ("select_colors", "multiscale_feature_sums",
-            "coarse_feature_sums_redmean", "coarse_feature_sums_ciede",
-            "pooled_wins_redmean", "pooled_wins_ciede",
-            "dither_remap_candidates")
+# The kernels by letter (perfbench/trace.py `KERNEL_OF`): the counts of a
+# path's launches (`_read_counts`) and each kernel's record.
+KERNEL_LETTERS = tuple(sorted(set(KERNEL_OF.values())))
 
-# The bound of a kernel call. Rates: NVIDIA's H100 SXM data sheet at the
-# full 700 W (HBM3, float32 outside the tensor cores).
-MEMORY_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# The bound of a kernel call: the rates of perfbench/roofline (NVIDIA's
+# H100 SXM data sheet at the full 700 W) and the arithmetic below.
 # Arithmetic per pixel, counted from the device code. One pyramid scale of
 # the metric (csrc/metric_common.cuh): 2x2 mean 12, positive XYB 32, the
 # horizontal blur of three fields 255 and the vertical 306, moments 75.
@@ -468,10 +470,10 @@ def _b_case(label: str, refp, frames, start: int, n: int, pre_ds: int):
         return cuda_metric._multiscale_feature_sums_plain(refs, built,
                                                           pre_ds)
 
-    before = cuda_metric.multiscale_feature_sums.source_launches
-    raw = kernel()
-    check(cuda_metric.multiscale_feature_sums.source_launches - before
-          == source, f"kernel B's source launches ({label})")
+    with profiling.recording() as rec:
+        raw = kernel()
+    check(rec.total("b.source_calls") == source,
+          f"kernel B's source calls ({label})")
     got = finalize_feature_sums(raw.reshape(b, -1, 6), sizes, start)
     want = finalize_feature_sums(plain().reshape(b, -1, 6), sizes, start)
     check(torch.equal(raw, kernel()), "kernel B gave other bits a second time")
@@ -659,13 +661,14 @@ def _render_cases(label: str, state, cand5, maps):
 
 def _a_record(cases) -> dict:
     return _sum_cases(dict(
-        name="select_colors", source="snesimage_torch/csrc/select_colors.cu",
+        name="select_colors", kernel="A",
+        source="snesimage_torch/csrc/select_colors.cu",
         replaces="snesimage_tpu/ops/pallas_prescreen.py:384"), cases)
 
 
 def _b_record(cases) -> dict:
     record = _sum_cases(dict(
-        name="multiscale_feature_sums",
+        name="multiscale_feature_sums", kernel="B",
         source="snesimage_torch/csrc/multiscale.cu",
         replaces="snesimage_tpu/ops/pallas_metric.py:194"), cases)
     record["device_ms"] = sum(c["device_ms"] for c in cases)
@@ -715,7 +718,7 @@ def phase_kernels(img):
     again = cuda_metric.coarse_feature_sums_redmean(*args)
     check(torch.equal(raw, again), "kernel C gave other bits a second time")
     records.append(dict(
-        name="coarse_feature_sums_redmean",
+        name="coarse_feature_sums_redmean", kernel="C",
         source="snesimage_torch/csrc/coarse_redmean.cu",
         replaces="snesimage_tpu/ops/pallas_metric.py:522",
         max_abs_err=max_err(got, want, FEATURE_TOL),
@@ -779,7 +782,7 @@ def phase_kernel_d(img, a_record):
           "kernel D gave other bits a second time")
     kernel = lambda: cuda_metric.coarse_feature_sums_ciede(*args)  # noqa: E731
     record = dict(
-        name="coarse_feature_sums_ciede", route="cuda",
+        name="coarse_feature_sums_ciede", kernel="D", route="cuda",
         source="snesimage_torch/csrc/coarse_ciede.cu",
         replaces="snesimage_tpu/ops/pallas_metric.py:594",
         max_abs_err=max(feat_err, d_err), feature_max_abs_err=feat_err,
@@ -924,7 +927,7 @@ def phase_kernel_g(img, a_record, b_record):
     b_record.update(_b_record(b_record["cases"] + [frames_case]))
     main = cases[0]  # the dithered path's visit
     record = dict(
-        name="dither_remap_candidates", route="cuda",
+        name="dither_remap_candidates", kernel="G", route="cuda",
         source="snesimage_torch/csrc/dither.cu",
         replaces="snesimage_tpu/ops/pallas_dither.py:483",
         max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -1069,8 +1072,8 @@ def phase_kernels_ef(img, a_record):
         mean = {k: statistics.mean(c[k] for c in per_p)
                 for k in ("device_ms", "bound_ms", "bound_whole_ms", "tiles")}
         records.append(dict(
-            name=name, route="cuda",
-            source="snesimage_torch/csrc/pooled_wins.cu",
+            name=name, kernel="F" if name.endswith("ciede") else "E",
+            route="cuda", source="snesimage_torch/csrc/pooled_wins.cu",
             replaces=f"snesimage_tpu/ops/pallas_prescreen.py:{tpu_line}",
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main["ms"], device_ms=main["device_ms"],
@@ -1221,16 +1224,31 @@ def phase_init_hash(img, params: dict, want: str, phase: str):
     return state
 
 
-def kernel_wrappers() -> dict:
-    from snesimage_torch.ops import cuda_dither, cuda_metric, cuda_prescreen
+@contextlib.contextmanager
+def recorded():
+    """Records the block as one run (utils/profiling.py) and, at its end,
+    queues the reads of the run's device counts (the gates) and waits for
+    the card, so that the record holds every count."""
+    with profiling.recording() as record:
+        yield record
+        profiling.queue_reads()
+        torch.cuda.synchronize()
 
-    fns = (cuda_prescreen.select_colors, cuda_metric.multiscale_feature_sums,
-           cuda_metric.coarse_feature_sums_redmean,
-           cuda_metric.coarse_feature_sums_ciede,
-           cuda_prescreen.pooled_wins_redmean,
-           cuda_prescreen.pooled_wins_ciede,
-           cuda_dither.dither_remap_candidates)
-    return dict(zip(WRAPPERS, fns))
+
+def _read_counts(record, label: str, present: tuple) -> dict:
+    """A `recorded` run's launches of each kernel, A to G (A's three
+    kernels together), and kernel B's calls
+    ("B calls": a call that splits launches twice); the kernels in
+    `present` must have launched and no other."""
+    launches = kernel_launches(record, KERNEL_OF)
+    for name, n in launches.items():
+        if name in present:
+            check(n > 0, f"the {label} path never launched kernel {name}")
+        else:
+            check(n == 0, f"the {label} path launched kernel {name}")
+    launches["B calls"] = (record.total("b.frame_calls")
+                           + record.total("b.source_calls"))
+    return launches
 
 
 def phase_main_path(img, init_state, smi, params: dict, phase: str,
@@ -1239,14 +1257,15 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
                     source_per_visit: int = 0):
     """One run of a path through `run_fused`, checked; then its warm time
     as the best of `timed_runs` runs (with 0, the checked run's own time:
-    the phases before it have warmed every kernel). Returns each wrapper's
-    launches in the checked run: the wrappers in `present` must have
-    launched and no other, kernel G once per visit and twice in the init
-    where the path dithers, and kernel E or F once per channel visit.
+    the phases before it have warmed every kernel). Returns each kernel's
+    launches in the checked run (`_read_counts`): the kernels in `present`
+    must have launched and no other, kernel G once per visit and twice in
+    the init where the path dithers, and kernel E or F once per channel
+    visit.
     `always_replaces` (NES) lifts the check that step errors never rise.
     A `record` dict receives the run's step errors and warm seconds.
     Kernel B must run in source mode `source_per_visit` times a visit
-    (`.source_launches`, eager or replayed): twice on the undithered
+    ("b.source_calls", eager or replayed): twice on the undithered
     red-mean prescreened visits, never on the others."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
@@ -1258,27 +1277,16 @@ def phase_main_path(img, init_state, smi, params: dict, phase: str,
     )
 
     config = QuantConfig(**params)
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    b_fn = wrappers["multiscale_feature_sums"]
-    b_fn.source_launches = 0
-    state, errors, info = pipeline.run_fused(img, config, device="cuda")
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    source = b_fn.source_launches
-    for name, n in launches.items():
-        if name in present:
-            check(n > 0, f"the {label} path never launched {name}")
-        else:
-            check(n == 0, f"the {label} path launched {name}")
+    with recorded() as rec:
+        state, errors, info = pipeline.run_fused(img, config, device="cuda")
+    launches = _read_counts(rec, label, present)
+    source = rec.total("b.source_calls")
     visits = (config.max_steps * config.subpalette_count
               * config.subpalette_size * 3)
     if config.dither:
-        check(launches["dither_remap_candidates"] >= visits + 2,
-              f"kernel G launched {launches['dither_remap_candidates']} "
-              f"times in {visits} visits")
-    for name in ("pooled_wins_redmean", "pooled_wins_ciede"):
+        check(launches["G"] >= visits + 2,
+              f"kernel G launched {launches['G']} times in {visits} visits")
+    for name in ("E", "F"):
         check(launches[name] in (0, visits),
               f"{name} launched {launches[name]} times in {visits} visits")
     check(source == source_per_visit * visits,
@@ -1348,28 +1356,6 @@ def _batch_seeds():
     return np.random.default_rng(1).integers(0, 1 << 31, BATCH_IMAGES)
 
 
-def _zero_counts() -> dict:
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-        if hasattr(fn, "frame_launches"):
-            fn.frame_launches = 0
-        if hasattr(fn, "source_launches"):
-            fn.source_launches = 0
-    return wrappers
-
-
-def _read_counts(wrappers: dict, label: str, present: tuple) -> dict:
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    for name, n in launches.items():
-        if name in present:
-            check(n > 0, f"the {label} path never launched {name}")
-        else:
-            check(n == 0, f"the {label} path launched {name}")
-    return launches
-
-
 def phase_batch(smi, nes: dict):
     """BASELINE config 5 through `batched_run`, then `batch_cli` on the
     first 16 images written as PNGs: every JSON must equal `state_to_json`
@@ -1389,16 +1375,15 @@ def phase_batch(smi, nes: dict):
 
     config = QuantConfig(**dict(nes, max_steps=BATCH_STEPS))
     images = np.stack([bench_image(int(s)) for s in _batch_seeds()])
-    wrappers = _zero_counts()
     chunks, secs = [], []
-    for c in range(0, BATCH_IMAGES, BATCH_CHUNK):
-        t0 = time.perf_counter()
-        chunks.append(pb.batched_run(images[c:c + BATCH_CHUNK], config,
-                                     device="cuda", image_errors=True))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    a, b = WRAPPERS[:2]
-    launches = _read_counts(wrappers, "image batch", (a, b))
+    with recorded() as rec:
+        for c in range(0, BATCH_IMAGES, BATCH_CHUNK):
+            t0 = time.perf_counter()
+            chunks.append(pb.batched_run(images[c:c + BATCH_CHUNK], config,
+                                         device="cuda", image_errors=True))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    launches = _read_counts(rec, "image batch", ("A", "B"))
     for states, means, per in chunks:
         check(per.shape == (BATCH_STEPS, BATCH_CHUNK), f"errors {per.shape}")
         check(bool(np.isfinite(per).all()), "non-finite batch error")
@@ -1502,16 +1487,15 @@ def phase_robust(img, smi, balanced: dict):
     with tempfile.TemporaryDirectory() as tmp:
         src, out = Path(tmp) / "src.png", Path(tmp) / "out.json"
         Image.fromarray(img, "RGBA").save(src)
-        wrappers = _zero_counts()
         t0 = time.perf_counter()
         # The profile's recipe at config 2's geometry, as BALANCED has it
         # (the CLI's own default is the reference's 1 x 7).
-        rc = cli.main([str(src), str(out), "--opt-profile", "robust", "-c",
-                       str(config.subpalette_count), "-s",
-                       str(config.subpalette_size)])
+        with recorded() as rec:
+            rc = cli.main([str(src), str(out), "--opt-profile", "robust",
+                           "-c", str(config.subpalette_count), "-s",
+                           str(config.subpalette_size)])
         secs["cli robust"] = time.perf_counter() - t0
-        a, b, c = WRAPPERS[:3]
-        launches = _read_counts(wrappers, "robust", (a, b, c))
+        launches = _read_counts(rec, "robust", ("A", "B", "C"))
         check(rc == 0, f"cli.main robust exited {rc}")
         check(out.read_text() == state_to_json(best2, config),
               "the robust CLI's JSON is not the K = 2 portfolio's")
@@ -1536,13 +1520,11 @@ def phase_dither_portfolio(img, smi):
     init, _ = prepared_state(img, params)
     err0 = float(refine.frame_error_fused(
         init, config, refine.make_reference_pyramid(init)))
-    wrappers = _zero_counts()
     t0 = time.perf_counter()
-    best, finals, steps = portfolio_run(img, config, 2, device="cuda")
+    with recorded() as rec:
+        best, finals, steps = portfolio_run(img, config, 2, device="cuda")
     secs = time.perf_counter() - t0
-    a, b = WRAPPERS[:2]
-    launches = _read_counts(wrappers, "dithered portfolio",
-                            (a, b, WRAPPERS[6]))
+    launches = _read_counts(rec, "dithered portfolio", ("A", "B", "G"))
     check(bool((finals < err0).all()), f"seed finals {finals} vs {err0}")
     cand = torch.stack([visit_candidates(init, 0), visit_candidates(init, 1)])
     pals = torch.stack([init.palette, init.palette.clone()])
@@ -1636,7 +1618,7 @@ def phase_image_axis(records):
     from snesimage_torch.ops.dither import dither_candidates
     from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
 
-    cases = {name: [] for name in WRAPPERS}
+    cases = {r["name"]: [] for r in records}
     sizes = [(256 >> s) ** 2 for s in range(2, 6)]
 
     # A's prologue and C on the balanced visit.
@@ -1869,9 +1851,19 @@ def _cli(argv, quiet: bool = False):
     return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
 
 
+GATE_COUNTERS = ("gate.visits", "gate.closed", "gate.closed_coarse")
+
+
+def _gate_counts(record) -> dict:
+    """A `recorded` run's gated visits, closed rank-1 gates and closed
+    coarse gates (GATE_COUNTERS)."""
+    out = {k.removeprefix("gate."): record.total(k) for k in GATE_COUNTERS}
+    check(None not in out.values(), f"gate counts not read: {out}")
+    return out
+
+
 def _gate_share(tally) -> float:
-    closed = 0 if tally["closed"] is None else int(tally["closed"])
-    return closed / max(tally["visits"], 1)
+    return tally["closed"] / max(tally["visits"], 1)
 
 
 def _check_fast_run(label, config, errors, err0, may_run_out=False):
@@ -1909,7 +1901,7 @@ def phase_fast(img, smi, balanced: dict, record: dict):
     from snesimage_torch.io.checkpoint import load_checkpoint
     from snesimage_torch.io.json_out import state_to_json
 
-    a, b, c, _, e, _, _ = WRAPPERS
+    a, b, c, _, e, _, _ = KERNEL_LETTERS
     config = QuantConfig(**fast_params())
     init, _ = prepared_state(img, fast_params())
     err0 = float(refine.frame_error_fused(
@@ -1918,11 +1910,11 @@ def phase_fast(img, smi, balanced: dict, record: dict):
         src, out, ck = (Path(tmp) / n for n in ("src.png", "out.json",
                                                 "ck.npz"))
         Image.fromarray(img, "RGBA").save(src)
-        wrappers = _zero_counts()
-        with refine.gate_tally() as tally:
+        with recorded() as rec:
             rc, _, secs = _cli([src, out, "--opt-profile", "fast",
                                 *FAST_GEOMETRY, "--checkpoint", ck])
-        launches = _read_counts(wrappers, "fast", (a, b, c))
+        tally = _gate_counts(rec)
+        launches = _read_counts(rec, "fast", (a, b, c))
         check(rc == 0, f"cli --opt-profile fast exited {rc}")
         state, _, meta = load_checkpoint(str(ck), "cuda")
         check(out.read_text() == state_to_json(state, config),
@@ -1937,11 +1929,11 @@ def phase_fast(img, smi, balanced: dict, record: dict):
     init240, _ = prepared_state(img240, params240)
     err0_240 = float(refine.frame_error_fused(
         init240, config240, refine.make_reference_pyramid(init240)))
-    wrappers = _zero_counts()
-    with refine.gate_tally() as tally240:
+    with recorded() as rec:
         _, errors240, info240 = pipeline.run_fused(img240, config240,
                                                    device="cuda")
-    launches240 = _read_counts(wrappers, "fast 256x240", (a, b, e))
+    tally240 = _gate_counts(rec)
+    launches240 = _read_counts(rec, "fast 256x240", (a, b, e))
     exact240 = _check_fast_run("fast 256x240", config240, errors240,
                                err0_240)
     print(f"phase 33 fast: cli --opt-profile fast 256x256 8x15 exit 0, "
@@ -1974,19 +1966,20 @@ def phase_host_stepped(img, smi, balanced: dict):
     from snesimage_torch.io.checkpoint import load_checkpoint
     from snesimage_torch.io.json_out import state_to_json
 
-    a, b, c, *_ = WRAPPERS
+    a, b, c, *_ = KERNEL_LETTERS
     config = QuantConfig(**BALANCED)
     with tempfile.TemporaryDirectory() as tmp:
         src, out, ck = (Path(tmp) / n for n in ("src.png", "out.json",
                                                 "ck.npz"))
         Image.fromarray(img, "RGBA").save(src)
-        wrappers = _zero_counts()
-        rc1, log1, s1 = _cli([src, out, "--opt-profile", "balanced",
-                              *FAST_GEOMETRY, "--steps", "4", "--dump-every",
-                              "2", "--checkpoint", ck], quiet=True)
-        rc2, log2, s2 = _cli([src, out, "--resume", ck, "--steps", "4",
-                              "--checkpoint", ck], quiet=True)
-        launches = _read_counts(wrappers, "host-stepped", (a, b, c))
+        with recorded() as rec:
+            rc1, log1, s1 = _cli([src, out, "--opt-profile", "balanced",
+                                  *FAST_GEOMETRY, "--steps", "4",
+                                  "--dump-every", "2", "--checkpoint", ck],
+                                 quiet=True)
+            rc2, log2, s2 = _cli([src, out, "--resume", ck, "--steps", "4",
+                                  "--checkpoint", ck], quiet=True)
+        launches = _read_counts(rec, "host-stepped", (a, b, c))
         check(rc1 == rc2 == 0, f"the host-stepped CLI exited {rc1}, {rc2}")
         dumps = [ln for ln in log1 if "Mid-run output written" in ln]
         check(len(dumps) == 2, f"{len(dumps)} mid-run dumps in 4 steps")
@@ -2017,18 +2010,19 @@ def phase_interactive(img, smi):
 
     from PIL import Image
 
-    a, b, c, *_ = WRAPPERS
+    a, b, c, *_ = KERNEL_LETTERS
     with tempfile.TemporaryDirectory() as tmp:
         src, out, tiles = (Path(tmp) / n for n in ("src.png", "out.json",
                                                    "tiles.txt"))
         Image.fromarray(img, "RGBA").save(src)
         tiles.write_text("# two clicks\n3 5\n0 0 1\n")
-        wrappers = _zero_counts()
-        rc, log, secs = _cli([src, out, "--opt-profile", "balanced",
-                              *FAST_GEOMETRY, "--steps", "2",
-                              "--reassign-tiles", tiles, "--reassign-every",
-                              "2", "--dump-every", "2", "-v"], quiet=True)
-        launches = _read_counts(wrappers, "interactive", (a, b, c))
+        with recorded() as rec:
+            rc, log, secs = _cli([src, out, "--opt-profile", "balanced",
+                                  *FAST_GEOMETRY, "--steps", "2",
+                                  "--reassign-tiles", tiles,
+                                  "--reassign-every", "2", "--dump-every",
+                                  "2", "-v"], quiet=True)
+        launches = _read_counts(rec, "interactive", (a, b, c))
         check(rc == 0, f"the interactive CLI exited {rc}")
         steps = [ln.rsplit(" ", 1)[1] for ln in log
                  if "] step " in ln and " error: " in ln]
@@ -2057,7 +2051,7 @@ def phase_hybrid(img, smi):
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
 
-    a, b, c, *_ = WRAPPERS
+    a, b, c, *_ = KERNEL_LETTERS
     fast = QuantConfig(**fast_params(max_steps=HYBRID_STEPS[0]))
     quality = QuantConfig(**dict(OPT_PROFILES["hybrid"][1], seed=0,
                                  subpalette_count=8, subpalette_size=15,
@@ -2065,10 +2059,10 @@ def phase_hybrid(img, smi):
     init, _ = prepared_state(img, fast_params())
     err0 = float(refine.frame_error_fused(
         init, fast, refine.make_reference_pyramid(init)))
-    wrappers = _zero_counts()
-    _, errors, info = pipeline.run_fused_hybrid(img, fast, quality,
-                                                device="cuda")
-    launches = _read_counts(wrappers, "hybrid", (a, b, c))
+    with recorded() as rec:
+        _, errors, info = pipeline.run_fused_hybrid(img, fast, quality,
+                                                    device="cuda")
+    launches = _read_counts(rec, "hybrid", (a, b, c))
     k1, k2 = info["phase_steps"]
     check(1 <= k1 <= HYBRID_STEPS[0] and k2 == HYBRID_STEPS[1]
           and len(errors) == k1 + k2, f"hybrid phase steps {(k1, k2)}")
@@ -2115,7 +2109,8 @@ def phase_profile_dir(img, smi):
 # (`prescreen_pre`; the JAX package's tests use 16 too).
 PRESCREEN_PRE = 16
 FRAME_TOL = 1e-6  # kernels C and D vs twins, the three-level quarter frames
-THREE_LEVEL = ("coarse_feature_sums_redmean", "coarse_feature_sums_ciede")
+# Kernel C's and D's calls in the three-level mode, by their counters.
+THREE_LEVEL = {"C": "c.three_level_calls", "D": "d.three_level_calls"}
 
 
 def _three_level_bound(args, frames, out_bytes: int, px_ops: float):
@@ -2191,7 +2186,8 @@ def phase_three_level_kernels(img, b_record):
                                             brefp, 3), mode)
         kernel = lambda: wrapper(*args, **mode)  # noqa: E731
         records.append(dict(
-            name=f"{wrapper.__name__}_three_level", route="cuda",
+            name=f"{wrapper.__name__}_three_level",
+            kernel="D" if perceptual else "C", route="cuda",
             source=f"snesimage_torch/csrc/{source}",
             replaces=f"snesimage_tpu/ops/pallas_metric.py:{line}",
             mode="pre_ds=1, emit_frames=True",
@@ -2250,10 +2246,10 @@ def _run_checked(label: str, img, params: dict, present: tuple,
     init, _ = prepared_state(img, params)
     err0 = float(refine.frame_error_fused(
         init, config, refine.make_reference_pyramid(init)))
-    wrappers = _zero_counts()
-    _, errors, info = pipeline.run_fused(img, config, device="cuda")
-    launches = _read_counts(wrappers, label, present)
-    frames = {name: wrappers[name].frame_launches for name in THREE_LEVEL}
+    with recorded() as rec:
+        _, errors, info = pipeline.run_fused(img, config, device="cuda")
+    launches = _read_counts(rec, label, present)
+    frames = {k: rec.total(n) for k, n in THREE_LEVEL.items()}
     if frame_kernel is not None:
         check(frames[frame_kernel] > 0,
               f"the {label} path never ran {frame_kernel}'s three-level mode")
@@ -2269,7 +2265,7 @@ def phase_three_level_runs(img, smi, balanced: dict):
     balanced recipe at 256x256 for 4 steps (kernel C's three-level mode),
     the perceptual one for 2 steps (D's), and the balanced one at 256x240
     for 2 steps (kernels E and B)."""
-    a, b, c, d, e, _, _ = WRAPPERS
+    a, b, c, d, e, _, _ = KERNEL_LETTERS
     img240 = np.ascontiguousarray(img[:240])
     runs, frames = {}, {}
     for key, label, image, params, present, kernel in (
@@ -2311,7 +2307,7 @@ def phase_gate_coarse(img, smi, balanced: dict):
     from snesimage_torch.io.checkpoint import load_checkpoint
     from snesimage_torch.io.json_out import state_to_json
 
-    a, b, c, *_ = WRAPPERS
+    a, b, c, *_ = KERNEL_LETTERS
     params = fast_params(gate_coarse=True)
     config = QuantConfig(**params)
     init, _ = prepared_state(img, params)
@@ -2321,12 +2317,12 @@ def phase_gate_coarse(img, smi, balanced: dict):
         src, out, ck = (Path(tmp) / n for n in ("src.png", "out.json",
                                                 "ck.npz"))
         Image.fromarray(img, "RGBA").save(src)
-        wrappers = _zero_counts()
-        with refine.gate_tally() as tally:
+        with recorded() as rec:
             rc, _, secs = _cli([src, out, "--opt-profile", "fast",
                                 "--gate-coarse", *FAST_GEOMETRY,
                                 "--checkpoint", ck])
-        launches = _read_counts(wrappers, "fast --gate-coarse", (a, b, c))
+        tally = _gate_counts(rec)
+        launches = _read_counts(rec, "fast --gate-coarse", (a, b, c))
         check(rc == 0, f"cli --opt-profile fast --gate-coarse exited {rc}")
         state, _, meta = load_checkpoint(str(ck), "cuda")
         check(out.read_text() == state_to_json(state, config),
@@ -2335,8 +2331,7 @@ def phase_gate_coarse(img, smi, balanced: dict):
     exact = _check_fast_run("fast --gate-coarse", config, errors, err0,
                             may_run_out=True)
     visits = max(tally["visits"], 1)
-    coarse = (0 if tally["closed_coarse"] is None
-              else int(tally["closed_coarse"]))
+    coarse = tally["closed_coarse"]
     print(f"phase 40 fast --gate-coarse: cli 256x256 8x15 exit 0, "
           f"{len(errors)} steps, ended by an exact sweep {exact}, init error "
           f"{err0}, step errors {errors}, closed coarse gates "
@@ -2371,7 +2366,7 @@ def phase_dither_proxy(img, smi, dithered: dict):
     candidates by their undithered coarse score (kernel A's prologue and
     kernel C or D) before kernel G remaps the top 8. Kernel G's device ms
     per sweep at 8 rows against 48."""
-    a, b, c, d, _, _, g = WRAPPERS
+    a, b, c, d, _, _, g = KERNEL_LETTERS
     out = {}
     for key, label, params, present in (
             ("proxy", "dithered, dither_proxy 8",
@@ -2405,18 +2400,18 @@ def phase_windows(img, smi):
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
 
-    a, b, c, *_ = WRAPPERS
+    a, b, c, *_ = KERNEL_LETTERS
     params = dict(BALANCED, channel_window=WINDOW)
     config = QuantConfig(**params)
     state, _ = prepared_state(img, params)
     refp = refine.make_reference_pyramid(state)
     err0 = float(refine.frame_error_fused(state, config, refp))
     stamps = [time.perf_counter()]
-    wrappers = _zero_counts()
-    _, errs = pipeline.optimize(
-        state, config, refp=refp,
-        on_step=lambda *_: stamps.append(time.perf_counter()))
-    launches = _read_counts(wrappers, "windowed", (a, b, c))
+    with recorded() as rec:
+        _, errs = pipeline.optimize(
+            state, config, refp=refp,
+            on_step=lambda *_: stamps.append(time.perf_counter()))
+    launches = _read_counts(rec, "windowed", (a, b, c))
     errors = [float(e) for e in errs]
     check(len(errors) == config.max_steps, f"{len(errors)} windowed steps")
     check(all(np.isfinite(errors)), "windowed: non-finite step error")
@@ -2465,15 +2460,15 @@ def phase_bench(img, smi, balanced: dict, fast: dict) -> dict:
     from snesimage_torch import bench, benchmarks
     from snesimage_torch.config import QuantConfig
 
-    a, b, c, _, _, f, g = WRAPPERS
+    a, b, c, _, _, f, g = KERNEL_LETTERS
     frozen = json.loads((Path(__file__).parent / BENCH_FINALS).read_text())
     jax, port_cpu = frozen["jax_cpu"], frozen["port_cpu"]
     runs = {}
 
     def measured(label, params):
-        wrappers = _zero_counts()
-        out = bench.measure(img, QuantConfig(**params), repeats=1)
-        runs[label] = _read_counts(wrappers, label, (a, b, c))
+        with recorded() as rec:
+            out = bench.measure(img, QuantConfig(**params), repeats=1)
+        runs[label] = _read_counts(rec, label, (a, b, c))
         check(all(np.isfinite(out["step_errors"])),
               f"{label}: non-finite step error")
         return out
@@ -2511,14 +2506,13 @@ def phase_bench(img, smi, balanced: dict, fast: dict) -> dict:
     cpu_gaps = [abs(x - y) for x, y in
                 zip(free, port_cpu["balanced_explore0"]["step_errors"])]
 
-    wrappers = _zero_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with recorded() as rec, contextlib.redirect_stdout(buf):
         rc = benchmarks.main(["--steps", "1", "--batch", "16", "--chunk",
                               "16"])
     secs = time.perf_counter() - t0
-    runs["benchmarks"] = _read_counts(wrappers, "benchmarks", (a, b, f, g))
+    runs["benchmarks"] = _read_counts(rec, "benchmarks", (a, b, f, g))
     check(rc == 0, f"benchmarks.main exited {rc}: {buf.getvalue()}")
     lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
     check(len(lines) == 6 and lines[0] == {"device": smi},
@@ -2574,10 +2568,10 @@ def _graph_case(label: str, run, present: tuple, regrow=None) -> dict:
     (`run(True)`), graphed (which captures where its keys have no graph
     yet), and graphed again, where every sweep must replay; with `regrow`
     a fourth graphed run after `regrow()` has grown kernel B's tile
-    scratch. Each run with the counts set to 0 just before it and read just
-    after. Every graphed run's step errors, final state, launches, three-
-    level launches and `run`'s extra readings (gate tallies, hook dumps)
-    must equal the eager run's. Returns the seconds a sweep of each run."""
+    scratch. Each run recorded on its own (`recorded`). Every graphed
+    run's step errors, final state, launches, three-level calls, gate
+    counts and `run`'s extra readings (hook dumps) must equal the eager
+    run's. Returns the seconds a sweep of each run."""
     from snesimage_torch.core import graphs
 
     modes = ("eager", "graphed", "replayed") + (("regrown",) if regrow
@@ -2587,30 +2581,31 @@ def _graph_case(label: str, run, present: tuple, regrow=None) -> dict:
         if mode == "regrown":
             regrow()
         replays = sum(g["replays"] for g in graphs.stats())
-        wrappers = _zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, errs, extra = run(mode == "eager")
-        errs = errs.cpu()  # waits for the card
-        secs[mode] = time.perf_counter() - t0
-        launches = _read_counts(wrappers, f"{label} {mode}", present)
-        frames = {n: wrappers[n].frame_launches for n in THREE_LEVEL}
+        with recorded() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, errs, extra = run(mode == "eager")
+            errs = errs.cpu()  # waits for the card
+            secs[mode] = time.perf_counter() - t0
+        launches = _read_counts(rec, f"{label} {mode}", present)
+        counts = {n: rec.total(n) for n in (*THREE_LEVEL.values(),
+                                            *GATE_COUNTERS)}
         replayed = sum(g["replays"] for g in graphs.stats()) - replays
-        out[mode] = (errs, _digest(state), launches, frames, extra, replayed)
-    errs0, digest0, launches0, frames0, extra0, replayed0 = out["eager"]
+        out[mode] = (errs, _digest(state), launches, counts, extra, replayed)
+    errs0, digest0, launches0, counts0, extra0, replayed0 = out["eager"]
     sweeps = len(errs0)
     check(sweeps >= GRAPH_STEPS, f"{label}: {sweeps} sweeps")
     check(bool(torch.isfinite(errs0).all()), f"{label}: non-finite error")
     check(replayed0 == 0, f"{label}: the eager run replayed {replayed0}")
     for mode in modes[1:]:
-        errs, digest, launches, frames, extra, replayed = out[mode]
+        errs, digest, launches, counts, extra, replayed = out[mode]
         check(torch.equal(errs, errs0),
               f"{label} {mode} step errors {errs.tolist()} != eager "
               f"{errs0.tolist()}")
         check(digest == digest0, f"{label} {mode}: another final state")
-        check(launches == launches0 and frames == frames0,
-              f"{label} {mode} launches {launches} {frames} != eager "
-              f"{launches0} {frames0}")
+        check(launches == launches0 and counts == counts0,
+              f"{label} {mode} launches {launches} {counts} != eager "
+              f"{launches0} {counts0}")
         check(extra == extra0, f"{label} {mode}: {extra} != eager {extra0}")
     check(out["replayed"][5] == sweeps,
           f"{label}: {out['replayed'][5]} of {sweeps} sweeps replayed")
@@ -2621,35 +2616,25 @@ def _graph_case(label: str, run, present: tuple, regrow=None) -> dict:
 
 def _profiled_replay(run) -> tuple:
     """`run()` (one replayed sweep) under torch.profiler: (its kernel events
-    by wrapper, from the wrappers' kernel names in core/graphs.py
-    `_KERNEL_NAMES`, less kernel B's second launches; what the run added
-    to the wrappers' counters). A reading beside the counts, not a check:
-    in a fresh process the two agreed on three paths, in this script's
-    process the profiler has seen one of kernel B's 721 launches fewer
-    (PERF.md §7)."""
+    by kernel, perfbench/trace.py `KERNEL_OF`; the launches the run
+    counted, by letter). A reading beside the counts, not a
+    check: in a fresh process the two agreed on three paths, in this
+    script's process the profiler has seen one of kernel B's 721 launches
+    fewer (PERF.md §7)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from snesimage_torch.core import graphs
-
-    b = graphs._wrappers()[1]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        before = graphs._counts()
-        run()
-        torch.cuda.synchronize()
-    after = graphs._counts()
-    added = {fn.__name__: n - before[fn, name]
-             for (fn, name), n in after.items() if name == "launches"}
-    events = dict.fromkeys(added, 0)
+        with recorded() as rec:
+            run()
+    events = dict.fromkeys(KERNEL_LETTERS, 0)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for fn, names in zip(graphs._wrappers(), graphs._KERNEL_NAMES):
-            if any(n in e.name for n in names):
-                events[fn.__name__] += 1
-    events[b.__name__] -= (after[b, "split_launches"]
-                           - before[b, "split_launches"])
-    return events, added
+        for name, kernel in KERNEL_OF.items():
+            if name in e.name:
+                events[kernel] += 1
+    return events, kernel_launches(rec, KERNEL_OF)
 
 
 def phase_graphs(img, smi, balanced: dict) -> None:
@@ -2657,9 +2642,9 @@ def phase_graphs(img, smi, balanced: dict) -> None:
     graphed through `pipeline.optimize` (`_graph_case`), bit for bit: the
     balanced, perceptual, dithered and dithered perceptual recipes, the
     three 256x240 paths, the reference cycle, `nes-compat`, a config 5
-    batch of 16, `robust` (K = 2), `fast` (inside `gate_tally`, whose counts
-    must agree), host-stepped + resume (an `on_step` hook that digests each
-    step's state, then a resumed run), tile reassignment (a replacement
+    batch of 16, `robust` (K = 2), `fast` (whose gate counts must agree),
+    host-stepped + resume (an `on_step` hook that digests each step's
+    state, then a resumed run), tile reassignment (a replacement
     state from `on_step_state` and `reassign_every` 2), a windowed and a
     three-level run. Between two replays of the balanced graph kernel B's
     tile scratch grows by a larger call (ROADMAP C-12). The graphs are
@@ -2681,7 +2666,7 @@ def phase_graphs(img, smi, balanced: dict) -> None:
     from snesimage_torch.parallel import batch as pb
     from snesimage_torch.testing import bench_image
 
-    a, b, c, d, e, f, g = WRAPPERS
+    a, b, c, d, e, f, g = KERNEL_LETTERS
     img240 = np.ascontiguousarray(img[:240])
     check([round(balanced["errors"][k], 4) for k in (0, -1)]
           == list(BALANCED_ENDS),
@@ -2698,13 +2683,6 @@ def phase_graphs(img, smi, balanced: dict) -> None:
         state, config = prepared_state(image, params)
         return optimize_run(state, config,
                             refine.make_reference_pyramid(state), steps, **kw)
-
-    def tallied(run):
-        def go(eager):
-            with refine.gate_tally() as tally:
-                st, errs, _ = run(eager)
-            return st, errs, (tally["visits"], _gate_share(tally))
-        return go
 
     def host_stepped(eager):
         state, config = prepared_state(img, BALANCED)
@@ -2775,7 +2753,7 @@ def phase_graphs(img, smi, balanced: dict) -> None:
             shared_states(seed_state, 2), robust_config,
             shared_pyramid(refine.make_reference_pyramid(seed_state), 2),
             gate=False), (a, b, c), None),
-        ("fast", tallied(single(img, fast_params(), 5)), (a, b, c), None),
+        ("fast", single(img, fast_params(), 5), (a, b, c), None),
         ("host-stepped + resume", host_stepped, (a, b, c), None),
         ("reassigned tiles", reassigned, (a, b, c), None),
         ("windowed", single(img, dict(BALANCED, channel_window=WINDOW), 4),
@@ -2841,7 +2819,7 @@ def main() -> int:
     img = bench_image(0)
     smi, name = phase_device()
     records = phase_kernels(img)
-    a, b, c, d, e, f, g = WRAPPERS
+    a, b, c, d, e, f, g = KERNEL_LETTERS
     runs, balanced, dithered = {}, {}, {}
     init_state = phase_init_hash(img, BALANCED, INIT_HASH, "phase 3")
     runs["balanced"] = phase_main_path(
@@ -2912,7 +2890,8 @@ def main() -> int:
     runs["interactive"] = phase_interactive(img, smi)
     runs["hybrid"] = phase_hybrid(img, smi)
     phase_profile_dir(img, smi)
-    three_records = phase_three_level_kernels(img, by_name[b])
+    three_records = phase_three_level_kernels(
+        img, by_name["multiscale_feature_sums"])
     three_runs, frames = phase_three_level_runs(img, smi, balanced)
     runs.update(three_runs)
     runs["gate_coarse"] = phase_gate_coarse(img, smi, balanced)
@@ -2923,16 +2902,16 @@ def main() -> int:
     path_of = {d: "perceptual", g: "dither", e: "geometry",
                f: "geometry_perceptual"}
     for r in records:
-        r["launches_by_path"] = {path: n[r["name"]] for path, n in runs.items()}
-        r["launches"] = runs[path_of.get(r["name"], "balanced")][r["name"]]
+        k = r["kernel"]
+        r["launches_by_path"] = {path: n[k] for path, n in runs.items()}
+        r["launches"] = runs[path_of.get(k, "balanced")][k]
     for r, path in zip(three_records,
                        ("three_level", "three_level_perceptual")):
-        wrapper = r["name"].removesuffix("_three_level")
-        r["launches_by_path"] = {k: n[wrapper] for k, n in frames.items()}
-        r["launches"] = frames[path][wrapper]
+        k = r["kernel"]
+        r["launches_by_path"] = {p: n[k] for p, n in frames.items()}
+        r["launches"] = frames[path][k]
     records += three_records
-    records.sort(key=lambda r: (WRAPPERS.index(r["name"].removesuffix(
-        "_three_level")), r["name"]))
+    records.sort(key=lambda r: (r["kernel"], r["name"]))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -49,7 +49,7 @@ profile, batch, gate, init). The phases print one JSON line each, profiles last:
            share of the sweep's host-clock time
            (the same sweep unprofiled, timed before any profiler ran),
            device operations per visit, device time by kernel, and device
-           time per wrapper call of kernels A, B and C (balanced), A, B
+           time per launch of kernels A, B and C (balanced), A, B
            and D (perceptual), A, B and G (dithered) or A, B and E or F
            (256x240); then the 8-step dithered perceptual run once
            (seconds, step errors, launches);
@@ -65,8 +65,9 @@ profile, batch, gate, init). The phases print one JSON line each, profiles last:
            (8x15, the rank-1 gate on) from the state after its first
            GATE_WARM_STEPS steps, and for the same sweep with
            gate_margin=0 (every visit scored exactly), with the share of
-           closed gates (core/refine.py `gate_tally`) and kernel B's device
-           ms in both: what a closed gate saves on the card;
+           closed gates (the counters "gate.*", core/refine.py `GateCount`)
+           and kernel B's device ms in both: what a closed gate saves on
+           the card;
   init     `pipeline.run` with one step, twice a path (the balanced,
            perceptual and dithered recipes at 256x256, balanced at
            256x240, `nes-compat`): the init's seconds (new_state,
@@ -107,6 +108,9 @@ import time
 import numpy as np
 import torch
 
+from perfbench.trace import KERNEL_OF
+from snesimage_torch.testing import kernel_launches
+
 from chip_smoke import (
     BALANCED,
     fast_params,
@@ -121,25 +125,13 @@ from chip_smoke import (
     b_bound,
     device_ms,
     first_visit,
-    kernel_wrappers,
     prepared_state,
+    recorded,
     unfused_coarse_ms,
     visit_candidates,
     visit_of,
 )
 
-# Device kernels of each wrapper (csrc/*.cu), by the name the profiler shows.
-KERNEL_OF = {
-    "select_colors_kernel": "select_colors",
-    "prologue_kernel": "select_colors",
-    "render_kernel": "select_colors",
-    "multiscale_kernel": "multiscale_feature_sums",
-    "coarse_redmean_kernel": "coarse_feature_sums_redmean",
-    "coarse_ciede_kernel": "coarse_feature_sums_ciede",
-    "pooled_wins_redmean_kernel": "pooled_wins_redmean",
-    "pooled_wins_ciede_kernel": "pooled_wins_ciede",
-    "dither_remap_kernel": "dither_remap_candidates",
-}
 SEEDS = (0, 1, 2)
 PARITY_STEPS = 2
 WALK_DITHER_VISITS = 45  # the first subpalette; a CPU twin visit takes seconds
@@ -463,16 +455,14 @@ def phase_dither_perceptual_8(img):
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline
 
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    _, errors, info = pipeline.run_fused(
-        img, QuantConfig(**dict(DITHER_PERCEPTUAL, max_steps=8)),
-        device="cuda")
+    with recorded() as rec:
+        _, errors, info = pipeline.run_fused(
+            img, QuantConfig(**dict(DITHER_PERCEPTUAL, max_steps=8)),
+            device="cuda")
     return {"phase": "dither_perceptual_8", "steps": 8,
             "seconds": info["total_seconds"], "step_errors": errors,
             "final_error": info["final_error"],
-            "launches": {k: fn.launches for k, fn in wrappers.items()}}
+            "launches": kernel_launches(rec, KERNEL_OF)}
 
 
 def _pooled_times(img, params: dict, wrapper) -> dict:
@@ -672,30 +662,30 @@ def phase_profile(label: str, config, sweep, wall: float,
                   graphed: bool = False):
     """One profiled sweep; `wall` is the same sweep's unprofiled time.
     `graphed`: the sweep replays a CUDA graph, whose nodes are the device
-    operations counted."""
+    operations counted. Device ms and launches by kernel (A to G), and
+    the closed gates of a gated sweep."""
     from torch.profiler import ProfilerActivity, profile
 
     visits = (config.subpalette_count * config.subpalette_size
               * (1 if config.nes else 3))
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_wall = sweep()
-    calls = {name: fn.launches for name, fn in wrappers.items()}
+        with recorded() as rec:
+            profiled_wall = sweep()
+    launches = kernel_launches(rec, KERNEL_OF)
+    gated, closed = rec.total("gate.visits"), rec.total("gate.closed")
 
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_kernel, by_wrapper = {}, dict.fromkeys(calls, 0.0)
+    by_name, by_kernel = {}, dict.fromkeys(launches, 0.0)
     for e in device:
         us = e.time_range.end - e.time_range.start
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
-        for kname, wrapper in KERNEL_OF.items():
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        for kname, kernel in KERNEL_OF.items():
             if kname in e.name:
-                by_wrapper[wrapper] += us
+                by_kernel[kernel] += us
     busy_ms = _union_ms((e.time_range.start, e.time_range.end) for e in device)
-    glue_ms = (sum(by_kernel.values()) - sum(by_wrapper.values())) / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    glue_ms = (sum(by_name.values()) - sum(by_kernel.values())) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "phase": "profile",
         "profile": label,
@@ -707,13 +697,16 @@ def phase_profile(label: str, config, sweep, wall: float,
         "device_busy_ms": busy_ms,
         # against the unprofiled sweep: the profiler slows the host only
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-        "wrapper_calls": calls,
-        "wrapper_device_ms": {k: v / 1e3 for k, v in by_wrapper.items()},
-        "device_ms_per_wrapper_call": {
-            k: by_wrapper[k] / 1e3 / calls[k] for k in calls if calls[k]
+        "launches": launches,
+        "kernel_device_ms": {k: v / 1e3 for k, v in by_kernel.items()},
+        "device_ms_per_launch": {
+            k: by_kernel[k] / 1e3 / n for k, n in launches.items() if n
         },
         "other_device_ms": glue_ms,
         "top_device_ms": [[name[:80], us / 1e3] for name, us in top],
+        "gated_visits": gated,
+        "closed_gates": closed,
+        "closed_share": closed / max(gated, 1),
     }
 
 
@@ -723,11 +716,10 @@ GATE_WARM_STEPS = 2
 
 
 def _gate_sweepers(img) -> dict:
-    """(config, sweep, tally) of one `fast` sweep from the state after
+    """(config, sweep) of one `fast` sweep from the state after
     GATE_WARM_STEPS gated steps, gated and with gate_margin=0, each eagerly
     and replayed as a CUDA graph (labels with ", graphed"): sweep() runs
-    the same work on every call and returns its host-clock seconds; tally
-    counts its gated visits and closed gates."""
+    the same work on every call and returns its host-clock seconds."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import pipeline, refine
 
@@ -742,34 +734,26 @@ def _gate_sweepers(img) -> dict:
                               **fast_params(gate_margin=0.0)))):
         gate_kw = (dict(use_gate=True, gate=True)
                    if refine._gating_active(config) else {})
-        with refine.gate_tally():  # the graph of a sweep inside a tally
-            graphed = _graphed("channel", state, config, refp, err,
-                               **gate_kw)
+        graphed = _graphed("channel", state, config, refp, err, **gate_kw)
         for suffix, fn in (("", lambda config=config: refine.sweep_channel(
                 state, config, refp, err)), (", graphed", graphed)):
-            tally = {"visits": 0, "closed": None}
 
-            def sweep(fn=fn, tally=tally):
+            def sweep(fn=fn):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with refine.gate_tally() as t:
-                    fn()
+                fn()
                 torch.cuda.synchronize()
-                tally.update(visits=t["visits"], closed=t["closed"])
                 return time.perf_counter() - t0
 
-            out[label + suffix] = (config, sweep, tally)
+            out[label + suffix] = (config, sweep)
     return out
 
 
-def phase_gate(label: str, config, sweep, tally, wall: float):
+def phase_gate(label: str, config, sweep, wall: float):
     """The `profile` record of one `fast` sweep, with its closed gates."""
     out = phase_profile(label, config, sweep, wall,
                         graphed=label.endswith(", graphed"))
-    closed = 0 if tally["closed"] is None else int(tally["closed"])
-    out.update(phase="gate", gated_visits=tally["visits"],
-               closed_gates=closed,
-               closed_share=closed / max(tally["visits"], 1), card=_card())
+    out.update(phase="gate", card=_card())
     return out
 
 
@@ -1086,9 +1070,9 @@ def main() -> int:
     walls = {label: sweep() for group in (sweeps, batch)
              for label, (_, sweep) in group.items()}
     gate = _gate_sweepers(img) if "gate" in phases else {}
-    for _, sweep, _ in gate.values():  # a first run at the gate's shapes
+    for _, sweep in gate.values():  # a first run at the gate's shapes
         sweep()
-    walls.update((label, sweep()) for label, (_, sweep, _) in gate.items())
+    walls.update((label, sweep()) for label, (_, sweep) in gate.items())
     # The explore-off parity runs again on the CPU with the twins; the
     # dithered twin takes too long there for whole sweeps at full size, so
     # the dithered path is walked over its first visits only.

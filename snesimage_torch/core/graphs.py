@@ -61,15 +61,14 @@ graph (ROADMAP C-12), each handled here or where it lives:
   (`_lazy_tables`); the warm-up sweep builds them;
 - kernel B's tile scratch (`ops/cuda_metric.py` `_tile_scratch`) keeps
   every buffer it outgrows alive and refuses to grow inside a capture;
-- the launch counters of the kernel wrappers tick only when Python calls
-  them: what they counted while capturing is taken back out (nothing ran).
-  The captured graph's kernel nodes are counted by kernel name
-  (`kernel_nodes`, through libcuda); they must equal what the
-  wrappers counted, and every replay adds the nodes' counts
-  (`_measured`), and the kernel calls also to the profiling counters
-  that the wrappers count eagerly (`_call_counts`). The captured sweep's
-  `refine.GateCount` is published after every replay, to an open
-  `refine.gate_tally` and the profiling counters, with no host read;
+- the counters (utils/profiling.py: kernel launches, kernel calls)
+  tick only when Python makes the call: the capture's body runs inside
+  `profiling.diverted`, so what it counts (nothing ran) becomes the
+  graph's tally and not the run's, and every replay adds the tally. The
+  captured graph's kernel nodes are counted by kernel name (`kernel_nodes`,
+  through libcuda); their launch counters (`_kernels.node_launches`) must
+  equal the tally's, or the capture raises. The captured sweep's
+  `refine.GateCount` is published after every replay, with no host read;
 - every kernel launches on the current stream (`ops/_kernels.py`
   `stream`), the capture's side stream while capturing.
 """
@@ -88,12 +87,11 @@ import torch
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.core import refine
 from snesimage_torch.core.state import QuantState
+from snesimage_torch.ops import _kernels
 from snesimage_torch.utils import profiling
 from snesimage_torch.utils.profiling import span
 
 _FIELDS = ("original", "tile_palettes", "palette", "palette_map")
-_COUNTERS = ("launches", "frame_launches", "split_launches",
-             "source_launches")
 # Steps of a run that must be left, the capturing one included, for it to
 # capture a key's graph, or earlier runs of the key (module docstring).
 CAPTURE_LEFT = 5
@@ -196,93 +194,15 @@ class DrawBuffer:
                           out=row)
 
 
-def _wrappers() -> tuple:
-    from snesimage_torch.ops import cuda_dither, cuda_metric, cuda_prescreen
-
-    return (cuda_prescreen.select_colors,
-            cuda_metric.multiscale_feature_sums,
-            cuda_metric.coarse_feature_sums_redmean,
-            cuda_metric.coarse_feature_sums_ciede,
-            cuda_prescreen.pooled_wins_redmean,
-            cuda_prescreen.pooled_wins_ciede,
-            cuda_dither.dither_remap_candidates)
-
-
-# The __global__ functions of csrc/ that each wrapper of `_wrappers()`
-# launches, in its order. A three-level launch of C or D (a wrapper's
-# `.frame_launches`) is its kernel<true>; a source-mode launch of B
-# (`.source_launches`) its kernel<., true>.
-_KERNEL_NAMES = (
-    ("select_colors_kernel", "prologue_kernel", "render_kernel"),
-    ("multiscale_kernel",),
-    ("coarse_redmean_kernel",),
-    ("coarse_ciede_kernel",),
-    ("pooled_wins_redmean_kernel",),
-    ("pooled_wins_ciede_kernel",),
-    ("dither_remap_kernel",),
-)
-
-
-def _counts() -> dict:
-    """Every kernel wrapper's launch counters, keyed (wrapper, name)."""
-    return {(fn, name): getattr(fn, name) for fn in _wrappers()
-            for name in _COUNTERS if hasattr(fn, name)}
-
-
-def _measured(kernels: dict, captured: dict, label: str) -> dict:
-    """The wrappers' counters as a replay of a graph with `kernels` ({mangled
-    kernel name: nodes}) advances them: a wrapper's launches are the nodes
-    of its kernels, its frame launches those of its kernel<true>, kernel
-    B's source launches those of its kernel<., true>, and kernel B's calls
-    that split (`captured`, which no node tells apart) come off its nodes.
-    Raises unless they equal what the wrappers counted while `label` was
-    captured."""
-    out = {}
-    for fn, names in zip(_wrappers(), _KERNEL_NAMES):
-        # A mangled name spells each identifier as its length, then it,
-        # and a template's bool arguments as Lb0E or Lb1E.
-        tokens = [f"{len(n)}{n}" for n in names]
-        nodes = sum(c for name, c in kernels.items()
-                    if any(t in name for t in tokens))
-        if hasattr(fn, "frame_launches"):
-            out[fn, "frame_launches"] = sum(
-                c for name, c in kernels.items()
-                if any(t + "ILb1E" in name for t in tokens))
-        if hasattr(fn, "source_launches"):
-            out[fn, "source_launches"] = sum(
-                c for name, c in kernels.items()
-                if any(f"{t}ILb{r}ELb1EE" in name for t in tokens
-                       for r in "01"))
-        if hasattr(fn, "split_launches"):
-            out[fn, "split_launches"] = captured[fn, "split_launches"]
-            nodes -= out[fn, "split_launches"]
-        out[fn, "launches"] = nodes
-    if out != captured:
-        raise RuntimeError(
-            f"{label}: the graph's kernel nodes give the launches "
-            f"{_named(out)}, the wrappers counted {_named(captured)}")
-    return out
-
-
-def _call_counts(launches: dict) -> dict:
-    """The profiling counters of kernel calls that a replay of a graph
-    with these launches (`_measured`) adds, as the wrappers count them
-    eagerly: kernel B's calls by how they get their frames, and kernel D's
-    and F's calls."""
-    from snesimage_torch.ops import cuda_metric, cuda_prescreen
-
-    b = cuda_metric.multiscale_feature_sums
-    source = launches[b, "source_launches"]
-    return {"b.source_calls": source,
-            "b.frame_calls": launches[b, "launches"] - source,
-            "d.calls": launches[cuda_metric.coarse_feature_sums_ciede,
-                                "launches"],
-            "f.calls": launches[cuda_prescreen.pooled_wins_ciede, "launches"]}
-
-
-def _named(counts: dict) -> dict:
-    return {f"{fn.__name__}.{name}": n for (fn, name), n in counts.items()
-            if n}
+def _check_nodes(kernels: dict, tally: dict, label: str) -> None:
+    """Raises unless a graph's kernel nodes ({mangled name: nodes}) are the
+    launches that its capture's `tally` counted."""
+    launched = {k: n for k, n in tally.items()
+                if k.startswith(_kernels.LAUNCH)}
+    nodes = _kernels.node_launches(kernels)
+    if nodes != launched:
+        raise RuntimeError(f"{label}: the graph's kernel nodes give the "
+                           f"launches {nodes}, the capture counted {launched}")
 
 
 def _lazy_tables() -> tuple:
@@ -416,7 +336,7 @@ def backend(device: torch.device):
 @dataclasses.dataclass
 class SweepGraph:
     """A captured sweep, its static inputs and outputs, and what a replay
-    adds to the launch counters and publishes of its gates."""
+    adds to the counters: its capture's tally and its gates."""
 
     label: str
     graph: object  # a `backend` instance
@@ -425,7 +345,8 @@ class SweepGraph:
     refp: tuple
     draws: DrawBuffer | None
     out: tuple  # (palette, palette_map, error) static outputs
-    meta: dict  # "launches" and "gates" (a GateCount or None)
+    tally: dict = dataclasses.field(default_factory=dict)
+    gates: refine.GateCount | None = None
     replays: int = 0
     holder: object = None  # the runner whose pyramid `refp` holds
 
@@ -458,7 +379,7 @@ def stats() -> list:
                  count_s=g.graph.count_s,
                  instantiate_s=g.graph.instantiate_s, nodes=g.graph.nodes,
                  kernel_nodes=sum(g.graph.kernels.values()),
-                 source_calls=g.meta["calls"]["b.source_calls"],
+                 source_calls=g.tally.get("b.source_calls", 0),
                  replays=g.replays)
             for g in _GRAPHS.values()]
 
@@ -509,7 +430,10 @@ class SweepRunner:
             graph.graph.replay()
         graph.replays += 1
         self.replayed = True
-        self._count(graph.meta)
+        for name, n in graph.tally.items():
+            profiling.count(name, n)
+        if graph.gates is not None:
+            graph.gates.publish()
         palette, palette_map, err_out = graph.out
         return (graph.state.replace(palette=palette, palette_map=palette_map),
                 err_out.clone())
@@ -557,22 +481,17 @@ class SweepRunner:
             refp=tuple(tuple(_buffer(a) for a in scale) for scale in refp),
             draws=(DrawBuffer(visits, lead, n, state.device) if visits
                    else None),
-            out=(), meta={})
+            out=())
         self._bind(graph, state, err, refp, generator)
-        captured = {}
 
         def body():
-            counts, tables = _counts(), _table_counts()
+            tables = _table_counts()
             gates = []
-            try:
+            with profiling.diverted() as tally:
                 out_state, out_err = run_sweep(
                     method, graph.state, config, graph.refp, graph.err, None,
                     None if graph.draws is None else graph.draws.rows,
                     gates, **sweep_kw)
-            finally:
-                now = _counts()
-                for (fn, name), value in counts.items():
-                    setattr(fn, name, value)
             if _table_counts() != tables:
                 raise RuntimeError(
                     f"a device table was built while capturing {graph.label}:"
@@ -580,25 +499,12 @@ class SweepRunner:
             for f in ("original", "tile_palettes"):
                 if getattr(out_state, f) is not getattr(graph.state, f):
                     raise RuntimeError(f"{graph.label} replaced {f}")
-            captured.update({k: now[k] - v for k, v in counts.items()})
-            graph.meta["gates"] = gates[0] if gates else None
+            graph.tally, graph.gates = tally, gates[0] if gates else None
             return out_state.palette, out_state.palette_map, out_err
 
         graph.out = graph.graph.capture(body)
-        graph.meta["launches"] = _measured(graph.graph.kernels, captured,
-                                           graph.label)
-        graph.meta["calls"] = _call_counts(graph.meta["launches"])
+        _check_nodes(graph.graph.kernels, graph.tally, graph.label)
         return graph
-
-    @staticmethod
-    def _count(meta: dict) -> None:
-        for (fn, name), delta in meta["launches"].items():
-            setattr(fn, name, getattr(fn, name) + delta)
-        for name, n in meta["calls"].items():
-            if n:
-                profiling.count(name, n)
-        if meta["gates"] is not None:
-            meta["gates"].publish()
 
 
 def _eager(method, state, config, refp, err, generator, sweep_kw):

@@ -86,7 +86,7 @@ scales 0 and 1, and where that beats the carried error by no more than the
 margin (and no explore candidate is among the coarse finalists) the visit
 closes before its finalists are scored: kernel B's flag closes both the
 scale-1 and the scale-0 call. A gated sweep counts the two closures apart
-on the device (`GateCount`), for `gate_tally` and the profiling counters.
+on the device (`GateCount`), for the profiling counters.
 
 With `dither_proxy` K a dithered visit first ranks its candidates by
 their exact undithered coarse score (`candidate_errors` with
@@ -269,27 +269,8 @@ def gate_base_fused(state: QuantState, config: QuantConfig,
     return _scale_sums(feats)[..., 0, :]
 
 
-# The active `gate_tally`s.
-_GATE_TALLIES: list = []
 # The GateCounts of the gated sweeps running, the innermost last.
 _GATE_COUNTS: list = []
-
-
-@contextlib.contextmanager
-def gate_tally():
-    """Counts gated visits and closed gates while the block runs: yields a
-    dict whose "visits" (an int, one an image and visit) grows with every
-    gated visit, "closed" with every visit whose rank-1 gate closed and
-    "closed_coarse" with every visit whose coarse gate (`gate_coarse`)
-    closed first (0-dim device tensors, or None before the first such
-    gate; read them after the block). Each sweep adds its `GateCount`
-    (one device addition a count); outside the block nothing is added."""
-    tally = {"visits": 0, "closed": None, "closed_coarse": None}
-    _GATE_TALLIES.append(tally)
-    try:
-        yield tally
-    finally:
-        _GATE_TALLIES.remove(tally)
 
 
 class GateCount:
@@ -335,19 +316,15 @@ class GateCount:
         return self
 
     def publish(self) -> None:
-        """Adds the counts to every open `gate_tally` and to the profiling
-        counters "gate.visits", "gate.closed", "gate.closed_coarse"."""
+        """Adds the counts to the profiling counters "gate.visits",
+        "gate.closed" and "gate.closed_coarse" (device tensors, which an
+        open run reads at its last wait: utils/profiling.py)."""
         profiling.count("gate.visits", self.visits)
-        for tally in _GATE_TALLIES:
-            tally["visits"] += self.visits
         if self.closed is None:
             return
         keys = ("closed", "closed_coarse")[:1 + self.coarse]
         for key, shut in zip(keys, self.closed):
             profiling.count("gate." + key, shut)
-            for tally in _GATE_TALLIES:
-                tally[key] = (shut.clone() if tally[key] is None
-                              else tally[key] + shut)
 
 
 @contextlib.contextmanager

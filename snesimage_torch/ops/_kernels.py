@@ -9,6 +9,12 @@ build. Nothing builds at import: the first call of `library()` does, and it
 raises when no ``nvcc`` is found. Every C entry point launches on the
 stream it is given and returns ``cudaGetLastError()``; `check` turns a
 non-zero code into an exception.
+
+`KERNELS` names the ``__global__`` function of csrc/ that each entry point
+launches, once a call. `launch` makes the call and counts it in the
+profiling counter "launch.<kernel>" (utils/profiling.py), the program's
+one count of launches; `node_launches` gives the same counters for the
+kernel nodes of a captured CUDA graph (core/graphs.py).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from snesimage_torch.ops.ssimulacra2_consts import (
     XYB_X_SCALE,
     XYB_Y_OFFSET,
 )
+from snesimage_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -175,6 +182,22 @@ _SIGNATURES = {
     ),
 }
 
+# The __global__ function of csrc/ that each entry point of `_SIGNATURES`
+# launches, once a call (the ones not here launch nothing); `launch` counts
+# it as LAUNCH + its name.
+KERNELS = {
+    "snes_select_colors": "select_colors_kernel",
+    "snes_select_colors_prologue": "prologue_kernel",
+    "snes_select_colors_render": "render_kernel",
+    "snes_multiscale": "multiscale_kernel",
+    "snes_coarse_redmean": "coarse_redmean_kernel",
+    "snes_coarse_ciede": "coarse_ciede_kernel",
+    "snes_pooled_wins_redmean": "pooled_wins_redmean_kernel",
+    "snes_pooled_wins_ciede": "pooled_wins_ciede_kernel",
+    "snes_dither_remap": "dither_remap_kernel",
+}
+LAUNCH = "launch."
+
 
 def _sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
@@ -262,6 +285,28 @@ def entry(name: str):
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {rc}")
+
+
+def launch(name: str, *args) -> None:
+    """Calls the entry point `name` with `args`, raises where it returns an
+    error, and counts its kernel's launch (`KERNELS`)."""
+    check(entry(name)(*args), name)
+    profiling.count(LAUNCH + KERNELS[name])
+
+
+def node_launches(kernels: dict) -> dict:
+    """The launch counters ({LAUNCH + kernel: nodes}) of a CUDA graph's
+    kernel nodes ({mangled name: nodes}). A mangled name spells each
+    identifier as its length, then the identifier, so a node counts toward
+    the kernel of `KERNELS` whose token it holds, whatever its namespace
+    and template arguments; other libraries' nodes count toward none."""
+    out = {}
+    for name in KERNELS.values():
+        token = f"{len(name)}{name}"
+        nodes = sum(n for k, n in kernels.items() if token in k)
+        if nodes:
+            out[LAUNCH + name] = nodes
+    return out
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> int:

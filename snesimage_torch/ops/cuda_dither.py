@@ -107,7 +107,8 @@ def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
         raise ValueError(f"kernel G has no variant of {lanes} lanes over "
                          f"{cluster} block(s) for {h}x{w}")
     out = torch.empty((n, b, h, w), dtype=torch.int32, device=dev)
-    rc = _kernels.entry("snes_dither_remap")(
+    _kernels.launch(
+        "snes_dither_remap",
         _kernels.require(rgb, "rgb", torch.int32, (*lead, h, w, 3), dev),
         _kernels.require(alpha, "alpha", torch.int32, (*lead, h, w), dev),
         _kernels.require(tile_palettes, "tile_palettes", torch.int32,
@@ -120,8 +121,6 @@ def _dither_remap_cuda(rgb, alpha, tile_palettes, palette5, p, i, cand5,
         _kernels.dither_params_address(), out.data_ptr(),
         _kernels.stream(dev),
     )
-    _kernels.check(rc, "dither_remap")
-    dither_remap_candidates.launches += 1
     return out
 
 
@@ -163,6 +162,3 @@ def dither_remap_candidates(
                             (rgb[n], alpha[n], tile_palettes[n])),
                           palette5[n], p, i, cand5[n], perceptual)
         for n in range(palette5.shape[0])])
-
-
-dither_remap_candidates.launches = 0

@@ -26,21 +26,25 @@ C and D also have the three-level mode of the JAX kernels (`pre_ds=1,
 emit_frames=True`): the cluster pass starts at scale 3 from the 2x2 means
 of the quarter-resolution frame, and the quarter frames are returned too,
 so that the visit scores scale 2 only for the candidates the scale-3..5
-rank keeps. A wrapper counts those launches in ``.frame_launches`` as well.
+rank keeps. Such calls count in the profiling counters
+"c.three_level_calls" and "d.three_level_calls".
 
 Kernel B also takes its frames as a `FrameSource`, the undithered red-mean
 visit's finalists described by the candidates and the win rule: on the
 card it builds each frame pixel in its loads (source mode, one launch of
 its kernel<., true>), bit-equal to the frames that `FrameSource.frames`
-builds in torch, which its twin scores on the CPU. The wrapper counts those
-launches in ``.source_launches``, and such calls on either device in the
-profiling counter "b.source_calls"; its calls handed frames built in torch
-go to the counter "b.frame_calls", and kernel D's calls to "d.calls".
+builds in torch, which its twin scores on the CPU. Such calls count in
+the profiling counter "b.source_calls"; its calls handed frames built in
+torch in "b.frame_calls", and kernel D's calls in "d.calls".
 
 All return raw sums of [d, art, det, d^4, art^4, det^4]; the division by
 the pixel count and the fourth root stay in `finalize_feature_sums`. On a
 CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor it
-runs the twin. Each wrapper counts its launches in ``.launches``.
+runs the twin. Each launch counts in the profiling counter
+"launch.<kernel>" (ops/_kernels.py `launch`): a call of B that splits
+(`_launches`) counts two. A call counter counts where the call's work
+runs: on the card after its launches, on the CPU beside the twin, so a
+card's count is one of calls its kernel took.
 
 Each also takes a leading image axis N (the counterpart of the JAX
 package's `custom_vmap` image fold): N images' operands in one launch, each
@@ -61,7 +65,6 @@ import torch
 from snesimage_torch.ops import _kernels
 from snesimage_torch.ops.cuda_prescreen import (
     _batched,
-    _count_call,
     ciede_wins,
     coarse_frames,
     pooled_sums,
@@ -73,6 +76,7 @@ from snesimage_torch.ops.ssimulacra2 import (
     linear_rgb_to_positive_xyb,
     pyramid_size,
 )
+from snesimage_torch.utils import profiling
 
 # Planes up to this many pixels run resident in shared memory, on the
 # cluster pass (kResidentMaxPixels in csrc/metric_common.cuh); kernel B
@@ -249,9 +253,8 @@ def _multiscale_call(frames, sizes, pre_ds: int) -> _kernels.MultiscaleCall:
 def _launches(call) -> list:
     """The launches of one call: `call` itself, or from SPLIT_FRAMES frames
     on, where it has tiled and resident scales, its tile clusters and its
-    resident clusters apart. A call in source mode launches once (it
-    scores a visit's few finalists), so that a graph's source-mode kernel
-    nodes count its calls."""
+    resident clusters apart. A call in source mode launches once: it
+    scores a visit's few finalists."""
     if not (call.tiles_total and call.n_resident_items
             and call.n_frames >= SPLIT_FRAMES) or call.source.ix:
         return [call]
@@ -288,16 +291,18 @@ def _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate=None):
         sums, tickets = _tile_scratch(dev, b * call.tiles_total * 18,
                                       b * call.n_tiled)
         call.partial, call.tickets = sums.data_ptr(), tickets.data_ptr()
-    launches = _launches(call)
-    for c in launches:
-        rc = _kernels.entry("snes_multiscale")(
-            ctypes.addressof(c), ctypes.addressof(refs),
-            ctypes.addressof(_kernels.metric_params()), _kernels.stream(dev))
-        _kernels.check(rc, "multiscale")
-    multiscale_feature_sums.launches += 1
-    multiscale_feature_sums.split_launches += len(launches) - 1
-    multiscale_feature_sums.source_launches += bool(call.source.ix)
+    for c in _launches(call):
+        _kernels.launch("snes_multiscale", ctypes.addressof(c),
+                        ctypes.addressof(refs),
+                        ctypes.addressof(_kernels.metric_params()),
+                        _kernels.stream(dev))
+    profiling.count(_b_counter(frames))
     return out
+
+
+def _b_counter(frames) -> str:
+    return ("b.source_calls" if isinstance(frames, FrameSource)
+            else "b.frame_calls")
 
 
 def _source_operands(src: FrameSource, lead: tuple, h: int, w: int,
@@ -377,23 +382,12 @@ def multiscale_feature_sums(ref_scales, frames, *, pre_ds: int = 0,
     rank-1 gate of core/refine.py, decided on the device, so no visit waits
     for it); an open flag gives the sums of a call without one.
     """
-    source = isinstance(frames, FrameSource)
-    _count_call(frames.is_cuda, "b.source_calls" if source
-                else "b.frame_calls")
-    if source and not frames.is_cuda:
-        frames = frames.frames()
     if frames.is_cuda:
         return _multiscale_feature_sums_cuda(ref_scales, frames, pre_ds, gate)
+    profiling.count(_b_counter(frames))
+    if isinstance(frames, FrameSource):
+        frames = frames.frames()
     return _multiscale_feature_sums_plain(ref_scales, frames, pre_ds, gate)
-
-
-multiscale_feature_sums.launches = 0
-# The second launches of the calls that split (`_launches`): a call counts
-# one in `.launches` however many times it launches.
-multiscale_feature_sums.split_launches = 0
-# The launches in source mode, which `.launches` counts too; a source call
-# launches once.
-multiscale_feature_sums.source_launches = 0
 
 
 def _coarse_frames_plain(tg, cand8, cand_lin, bva, ml, ds4_l):
@@ -513,14 +507,13 @@ def _coarse_cuda(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs, pre_ds=0,
     refs = _ref_pyramid(triples, dev, n_img)
     out = torch.empty((n_img, b, n, 3, 6), dtype=torch.float32, device=dev)
     frames = _frames_out(three, n_img, b, h, w, dev)
-    rc = _kernels.entry("snes_coarse_redmean")(
-        *ptrs, ctypes.addressof(refs), 0, n, n_img, b, h, w,
-        ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
+    _kernels.launch(
+        "snes_coarse_redmean", *ptrs, ctypes.addressof(refs), 0, n, n_img, b,
+        h, w, ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
         frames.data_ptr() if three else None, _kernels.stream(dev),
     )
-    _kernels.check(rc, "coarse_redmean")
-    coarse_feature_sums_redmean.launches += 1
-    coarse_feature_sums_redmean.frame_launches += three
+    if three:
+        profiling.count("c.three_level_calls")
     sums = out.reshape(n_img, b, 3 * n, 6)
     return (sums, frames) if three else sums
 
@@ -548,13 +541,11 @@ def coarse_feature_sums_redmean(tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs,
     are (N, B, 3 * n_scales, 6) and the frames (N, B, 3, H/4, W/4).
     """
     _check_mode(pre_ds, emit_frames)
+    if pre_ds and not tg.is_cuda:  # `_coarse_cuda` counts at its launch
+        profiling.count("c.three_level_calls")
     fn = _coarse_cuda if tg.is_cuda else _coarse_plain
     return _batched(lambda *a: fn(*a, flat_refs, pre_ds, emit_frames), tg,
                     cand8, cand_lin, bva, ml, ds4_l)
-
-
-coarse_feature_sums_redmean.launches = 0
-coarse_feature_sums_redmean.frame_launches = 0
 
 
 def _coarse_ciede_plain(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
@@ -598,17 +589,21 @@ def _coarse_ciede_cuda(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     out = torch.empty((n_img, b, n, 3, 6), dtype=torch.float32, device=dev)
     dcand = torch.empty((n_img, b, h, w), dtype=torch.float32, device=dev)
     frames = _frames_out(three, n_img, b, h, w, dev)
-    rc = _kernels.entry("snes_coarse_ciede")(
-        *ptrs, ctypes.addressof(refs), 0, n, n_img, b, h, w,
-        ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
+    _kernels.launch(
+        "snes_coarse_ciede", *ptrs, ctypes.addressof(refs), 0, n, n_img, b,
+        h, w, ctypes.addressof(_kernels.metric_params()), out.data_ptr(),
         dcand.data_ptr(), frames.data_ptr() if three else None,
         _kernels.stream(dev),
     )
-    _kernels.check(rc, "coarse_ciede")
-    coarse_feature_sums_ciede.launches += 1
-    coarse_feature_sums_ciede.frame_launches += three
+    _count_d(three)
     sums = out.reshape(n_img, b, 3 * n, 6)
     return (sums, dcand, frames) if three else (sums, dcand)
+
+
+def _count_d(three: bool) -> None:
+    profiling.count("d.calls")
+    if three:
+        profiling.count("d.three_level_calls")
 
 
 def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
@@ -630,11 +625,8 @@ def coarse_feature_sums_ciede(tlab, cand_lab, cand_lin, bvalm, adj, ml, ds4_l,
     `coarse_feature_sums_redmean`, all gain it.
     """
     _check_mode(pre_ds, emit_frames)
-    _count_call(tlab.is_cuda, "d.calls")
+    if not tlab.is_cuda:  # `_coarse_ciede_cuda` counts at its launch
+        _count_d(bool(pre_ds))
     fn = _coarse_ciede_cuda if tlab.is_cuda else _coarse_ciede_plain
     return _batched(lambda *a: fn(*a, flat_refs, pre_ds, emit_frames), tlab,
                     cand_lab, cand_lin, bvalm, adj, ml, ds4_l)
-
-
-coarse_feature_sums_ciede.launches = 0
-coarse_feature_sums_ciede.frame_launches = 0

@@ -32,12 +32,12 @@ Counterpart of snesimage_tpu/ops/pallas_prescreen.py.
   within 1e-5; F's distance planes equal the twin's to the bit.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it runs the twin. Each wrapper counts its launches in ``.launches``
-(kernel A's three in ``select_colors.launches``), and kernel F its calls on
-either device in the profiling counter "f.calls". Each also takes a leading
-image axis N on its operands (the JAX package's `custom_vmap` image fold):
-N images in one launch, each image's outputs bit-equal to its own launch;
-the twins run the images one after another.
+tensor it runs the twin. A launch counts in the profiling counter
+"launch.<kernel>" (ops/_kernels.py `launch`), and kernel F its calls in
+"f.calls": on the card after its launch, on the CPU beside the twin. Each
+also takes a leading image axis N on its operands (the JAX package's
+`custom_vmap` image fold): N images in one launch, each image's outputs
+bit-equal to its own launch; the twins run the images one after another.
 """
 
 from __future__ import annotations
@@ -78,7 +78,8 @@ def _select_colors_cuda(key: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     k = table.shape[2]
     dev = key.device
     out = torch.empty((n, 3, h, w), dtype=torch.float32, device=dev)
-    rc = _kernels.entry("snes_select_colors")(
+    _kernels.launch(
+        "snes_select_colors",
         _kernels.require(key, "key", torch.int32, (n, h, w), dev),
         _kernels.require(table, "table", torch.float32, (n, 3, k), dev),
         out.data_ptr(),
@@ -87,8 +88,6 @@ def _select_colors_cuda(key: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         k,
         _kernels.stream(dev),
     )
-    _kernels.check(rc, "select_colors")
-    select_colors.launches += 1
     return out
 
 
@@ -106,9 +105,6 @@ def select_colors(key: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     fn = _select_colors_cuda if key.is_cuda else _select_colors_plain
     out = fn(key, table)
     return out if batched else out[0]
-
-
-select_colors.launches = 0
 
 
 def _check_slot(name, palette5, p, i, h, w):
@@ -234,16 +230,15 @@ def _visit_prologue_cuda(d_all, tile_palettes, alpha, palette5, p, i):
         planes, rule = floats, (thr,)
     lnc, ml = (planes[k * 3 * plane:(k + 1) * 3 * plane].view(n, 3, h, w)
                for k in range(2))
-    rc = _kernels.entry("snes_select_colors_prologue")(
-        *ptrs, n, h, w, c, s, p, i, int(perceptual),
+    _kernels.launch(
+        "snes_select_colors_prologue", *ptrs, n, h, w, c, s, p, i,
+        int(perceptual),
         _linear_lut(dev).data_ptr(),
         best_val.data_ptr(), best_idx.data_ptr(), base_idx.data_ptr(),
         affected.data_ptr(), map_nc.data_ptr(), lnc.data_ptr(),
         thr.data_ptr(), None if adj is None else adj.data_ptr(),
         ml.data_ptr(), _kernels.stream(dev),
     )
-    _kernels.check(rc, "select_colors_prologue")
-    select_colors.launches += 1
     return VisitPrologue(best_val, best_idx, base_idx, affected, map_nc, lnc,
                          rule, ml)
 
@@ -313,12 +308,10 @@ def _render_cuda(maps, tile_palettes, alpha, palette5, cand5, p, i):
         raise ValueError("render_palette_maps takes 1 to 65535 maps of 1 to "
                          f"65535 images, not {b} of {n}")
     out = torch.empty((n, b, 3, h, w), dtype=torch.float32, device=dev)
-    rc = _kernels.entry("snes_select_colors_render")(
-        *ptrs, n, b, h, w, c, s, p, i, _linear_lut(dev).data_ptr(),
-        out.data_ptr(), _kernels.stream(dev),
+    _kernels.launch(
+        "snes_select_colors_render", *ptrs, n, b, h, w, c, s, p, i,
+        _linear_lut(dev).data_ptr(), out.data_ptr(), _kernels.stream(dev),
     )
-    _kernels.check(rc, "select_colors_render")
-    select_colors.launches += 1
     return out
 
 
@@ -421,14 +414,6 @@ def _tiles_ptr(tile_palettes, n, h, w, dev):
                             (n, h // 8, w // 8), dev)
 
 
-def _count_call(is_cuda: bool, counter: str) -> None:
-    """Adds a wrapper's call to the profiling counter `counter`; a call
-    captured into a CUDA graph counts as the graph replays
-    (core/graphs.py)."""
-    if not (is_cuda and torch.cuda.is_current_stream_capturing()):
-        profiling.count(counter)
-
-
 def _batched(fn, first, *rest):
     """fn over operands with a leading image axis, adding one (and taking
     it off the results) where `first` has none; None operands pass as they
@@ -467,11 +452,9 @@ def _pooled_wins_redmean_cuda(tg, cand8, bva, ml, tile_palettes=None,
     tiles = _tiles_ptr(tile_palettes, n, h, w, dev)
     out = torch.empty((n, b, 4, h // 4, w // 4), dtype=torch.float32,
                       device=dev)
-    rc = _kernels.entry("snes_pooled_wins_redmean")(
-        *ptrs, tiles, -1 if p is None else int(p), n, b, h, w,
-        out.data_ptr(), _kernels.stream(dev))
-    _kernels.check(rc, "pooled_wins_redmean")
-    pooled_wins_redmean.launches += 1
+    _kernels.launch("snes_pooled_wins_redmean", *ptrs, tiles,
+                    -1 if p is None else int(p), n, b, h, w, out.data_ptr(),
+                    _kernels.stream(dev))
     return out
 
 
@@ -500,9 +483,6 @@ def pooled_wins_redmean(tg, cand8, bva, ml, tile_palettes=None,
           else _pooled_wins_redmean_plain)
     return _batched(lambda *a: fn(*a, p=p), tg, cand8, bva, ml,
                     tile_palettes)
-
-
-pooled_wins_redmean.launches = 0
 
 
 def _pooled_wins_ciede_plain(tlab, cand_lab, bvalm, adj, ml,
@@ -537,11 +517,10 @@ def _pooled_wins_ciede_cuda(tlab, cand_lab, bvalm, adj, ml,
     out = torch.empty((n, b, 4, h // 4, w // 4), dtype=torch.float32,
                       device=dev)
     dcand = torch.empty((n, b, h, w), dtype=torch.float32, device=dev)
-    rc = _kernels.entry("snes_pooled_wins_ciede")(
-        *ptrs, tiles, -1 if p is None else int(p), n, b, h, w,
-        out.data_ptr(), dcand.data_ptr(), _kernels.stream(dev))
-    _kernels.check(rc, "pooled_wins_ciede")
-    pooled_wins_ciede.launches += 1
+    _kernels.launch("snes_pooled_wins_ciede", *ptrs, tiles,
+                    -1 if p is None else int(p), n, b, h, w, out.data_ptr(),
+                    dcand.data_ptr(), _kernels.stream(dev))
+    profiling.count("f.calls")
     return out, dcand
 
 
@@ -567,10 +546,8 @@ def pooled_wins_ciede(tlab, cand_lab, bvalm, adj, ml, tile_palettes=None,
     tiles of p wins.
     """
     _check_tiles("pooled_wins_ciede", tile_palettes, p)
-    _count_call(tlab.is_cuda, "f.calls")
+    if not tlab.is_cuda:  # `_pooled_wins_ciede_cuda` counts at its launch
+        profiling.count("f.calls")
     fn = _pooled_wins_ciede_cuda if tlab.is_cuda else _pooled_wins_ciede_plain
     return _batched(lambda *a: fn(*a, p=p), tlab, cand_lab, bvalm, adj, ml,
                     tile_palettes)
-
-
-pooled_wins_ciede.launches = 0

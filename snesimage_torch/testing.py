@@ -6,7 +6,9 @@ copied so that the port's scripts import nothing of that harness;
 tests/test_torch_consts.py pins the copy to the original. The init hashes
 pin the init artifacts of eight configs on that image to the JAX package's
 CPU values; `card_line` reads the card's name and power limit, which every
-number taken on the card is written beside.
+number taken on the card is written beside; `kernel_launches` reads the
+launches a recorded run counted, and `expect_launches` holds a block to
+the launches it names.
 """
 
 from __future__ import annotations
@@ -71,6 +73,35 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def kernel_launches(record, by=None) -> dict:
+    """{kernel: launches} of every kernel of ops/_kernels.py `KERNELS` that
+    a `profiling.recording()` record counted, 0 for the others; with `by`,
+    a map of those kernels to groups (perfbench/trace.py `KERNEL_OF`, the
+    kernels' letters), {group: launches}."""
+    from snesimage_torch.ops import _kernels
+
+    out: dict = {}
+    for name in dict.fromkeys(_kernels.KERNELS.values()):
+        key = name if by is None else by[name]
+        out[key] = out.get(key, 0) + record.total(_kernels.LAUNCH + name)
+    return out
+
+
+@contextlib.contextmanager
+def expect_launches(**want):
+    """Records the block (yielding the record) and raises unless it
+    launched the kernels `want` names, each as many times as it gives,
+    and no other kernel of `KERNELS`: with none named, no kernel (CPU
+    tensors take the twins)."""
+    from snesimage_torch.utils import profiling
+
+    with profiling.recording() as record:
+        yield record
+    launched = {k: n for k, n in kernel_launches(record).items() if n}
+    if launched != want:
+        raise AssertionError(f"launched {launched}, not {want}")
 
 
 @contextlib.contextmanager

@@ -14,6 +14,12 @@ observability is throttled error logging (src/lib.rs:910-915). Here:
 - `count(name, n)` adds n to the open run's count of `name`, keyed by the
   innermost open span. n is an int, or a device tensor that is never read
   before the run's own last wait for the device (the gate's closed counts).
+  It is the program's one counter of kernel launches ("launch.<kernel>",
+  ops/_kernels.py `launch`), kernel calls ("b.frame_calls", ...) and gates
+  ("gate.*", core/refine.py `GateCount`). Inside `diverted()` the counts
+  go to the block's own dict instead, and the open run gets none of them:
+  a CUDA graph's capture (core/graphs.py) collects what its body counted,
+  where nothing ran, and each replay adds that tally.
 - `recording(device)` opens the record of one run (a block nested in
   another joins the outer run). Its events and device counts are read as
   the block closes, after the run's last wait for the device: events only
@@ -52,6 +58,9 @@ MAX_RUNS = 256
 
 _NULL = contextlib.nullcontext()
 _run = None  # the open RunRecord, or None
+# Where `count` adds: the open RunRecord, the innermost `diverted` tally,
+# or None.
+_sink = None
 _runs: collections.deque = collections.deque(maxlen=MAX_RUNS)
 
 
@@ -142,9 +151,12 @@ class RunRecord:
             self._reads.append((key, host, done))
 
     def _resolve(self) -> None:
-        """Reads what has completed on the device, without waiting."""
-        for key, host, done in self._reads:
-            if done.query() and key in self._device_counts:
+        """Reads what has completed on the device, without waiting: of
+        each count, the read queued last, and nothing where that read has
+        not completed (`total` then gives None)."""
+        last = {key: (host, done) for key, host, done in self._reads}
+        for key, (host, done) in last.items():
+            if done.query():
                 del self._device_counts[key]
                 self.counts[key] = self.counts.get(key, 0) + int(host)
         self._reads.clear()
@@ -199,10 +211,31 @@ def span(name: str, device: bool = False):
 
 
 def count(name: str, n=1) -> None:
-    """Adds n to the open run's count of `name`; nothing outside
-    `recording()`."""
-    if _run is not None:
-        _run._count(name, n)
+    """Adds n to the open run's count of `name` (or to the innermost
+    `diverted` tally); nothing outside `recording()`."""
+    if _sink is not None:
+        _sink._count(name, n)
+
+
+class _Tally(dict):
+    """What a `diverted` block counted: {counter: total}."""
+
+    def _count(self, name: str, n) -> None:
+        self[name] = self.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def diverted():
+    """Collects the counts made in the block into the dict it yields,
+    with or without a `recording()` open, and adds none of them to the
+    open run."""
+    global _sink
+    outer, tally = _sink, _Tally()
+    _sink = tally
+    try:
+        yield tally
+    finally:
+        _sink = outer
 
 
 def queue_reads() -> None:
@@ -218,18 +251,21 @@ def recording(device=None):
     """Records the block as one run (module docstring); with `device` on
     the card, device spans are timed by CUDA events. Yields the
     RunRecord; a block inside another yields the outer one."""
-    global _run
+    global _run, _sink
     if _run is not None:
         yield _run
         return
     cuda = device is not None and torch.device(device).type == "cuda"
     record = RunRecord(profiled=bool(_autograd_profiler._is_profiler_enabled),
                        cuda=cuda)
+    outer = _sink
     _run = record
+    if outer is None:
+        _sink = record
     try:
         yield record
     finally:
-        _run = None
+        _run, _sink = None, outer
         record._resolve()
         _runs.append(record)
 

@@ -37,7 +37,12 @@ import numpy as np
 import pytest
 import torch
 
-from snesimage_torch.ops import cuda_dither, cuda_metric, cuda_prescreen
+from snesimage_torch.ops import (
+    _kernels,
+    cuda_dither,
+    cuda_metric,
+    cuda_prescreen,
+)
 from snesimage_torch.ops.color import srgb_u8_to_lab, srgb_u8_to_linear
 from snesimage_torch.ops.dither import dither_candidates
 from snesimage_torch.ops.ssimulacra2 import (
@@ -45,6 +50,8 @@ from snesimage_torch.ops.ssimulacra2 import (
     pyramid_size,
     reference_pyramid,
 )
+from snesimage_torch.testing import expect_launches, kernel_launches
+from snesimage_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4
@@ -81,6 +88,10 @@ def _assert_frozen(key: str, got) -> None:
     assert got.shape == want.shape and torch.equal(got.cpu(), want), key
 
 
+def _b_calls(record) -> int:
+    return record.total("b.frame_calls") + record.total("b.source_calls")
+
+
 def _one_launch(refs, frames, pre_ds):
     """Kernel B under torch.profiler: the call must run kernel B's kernel
     once on the card and nothing else (twice where a call of many frames
@@ -109,9 +120,8 @@ def test_select_colors(dev, h, w, k):
     key = torch.randint(0, k + 1, (h, w), generator=g, device=dev,
                         dtype=torch.int32)
     table = torch.rand((3, k), generator=g, device=dev)
-    before = cuda_prescreen.select_colors.launches
-    got = cuda_prescreen.select_colors(key, table)
-    assert cuda_prescreen.select_colors.launches == before + 1
+    with expect_launches(select_colors_kernel=1):
+        got = cuda_prescreen.select_colors(key, table)
     assert torch.equal(got, cuda_prescreen._select_colors_plain(key, table))
 
 
@@ -142,9 +152,10 @@ def _b_inputs(dev, size, start, n, pre_ds, b):
 def test_multiscale_feature_sums(dev, size, start, n, pre_ds, b):
     refs, frames = _b_inputs(dev, size, start, n, pre_ds, b)
     sizes = [(size >> (start + s)) ** 2 for s in range(n)]
-    before = cuda_metric.multiscale_feature_sums.launches
-    got = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
-    assert cuda_metric.multiscale_feature_sums.launches == before + 1
+    split = len(cuda_metric.multiscale_launches(refs, frames, pre_ds))
+    with expect_launches(multiscale_kernel=split) as record:
+        got = cuda_metric.multiscale_feature_sums(refs, frames, pre_ds=pre_ds)
+    assert _b_calls(record) == 1
     want = cuda_metric._multiscale_feature_sums_plain(refs, frames, pre_ds)
     _close(finalize_feature_sums(got.reshape(b, -1, 6), sizes, start),
            finalize_feature_sums(want.reshape(b, -1, 6), sizes, start))
@@ -185,9 +196,8 @@ def _coarse_redmean_args(dev, h, w, b, seed=None):
 def test_coarse_feature_sums_redmean(dev, h, w, b):
     args = _coarse_redmean_args(dev, h, w, b)
     sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
-    before = cuda_metric.coarse_feature_sums_redmean.launches
-    got = cuda_metric.coarse_feature_sums_redmean(*args)
-    assert cuda_metric.coarse_feature_sums_redmean.launches == before + 1
+    with expect_launches(coarse_redmean_kernel=1):
+        got = cuda_metric.coarse_feature_sums_redmean(*args)
     want = cuda_metric._coarse_plain(*args)
     _close(finalize_feature_sums(got, sizes, 2),
            finalize_feature_sums(want, sizes, 2))
@@ -228,9 +238,8 @@ CIEDE_SHAPES = [(64, 96, 7), (128, 128, 48)] + COARSE_SHAPES[3:]
 def test_coarse_feature_sums_ciede(dev, h, w, b):
     args = _coarse_ciede_args(dev, h, w, b, h + w + b)
     sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
-    before = cuda_metric.coarse_feature_sums_ciede.launches
-    sums, dcand = cuda_metric.coarse_feature_sums_ciede(*args)
-    assert cuda_metric.coarse_feature_sums_ciede.launches == before + 1
+    with expect_launches(coarse_ciede_kernel=1):
+        sums, dcand = cuda_metric.coarse_feature_sums_ciede(*args)
     want_sums, want_d = cuda_metric._coarse_ciede_plain(*args)
     assert dcand.shape == (b, h, w)
     # The distance planes: kernel F's (the same device code) and the twin's.
@@ -287,10 +296,11 @@ def test_coarse_three_level(dev, perceptual, h, w, b):
                          cuda_metric._coarse_plain)
     three = _three_level(args)
     mode = dict(pre_ds=1, emit_frames=True)
-    before = (wrapper.launches, wrapper.frame_launches)
-    got = wrapper(*three, **mode)
-    assert (wrapper.launches, wrapper.frame_launches) == (before[0] + 1,
-                                                          before[1] + 1)
+    kernel = "ciede" if perceptual else "redmean"
+    with expect_launches(**{f"coarse_{kernel}_kernel": 1}) as record:
+        got = wrapper(*three, **mode)
+    counter = "d" if perceptual else "c"
+    assert record.total(f"{counter}.three_level_calls") == 1
     want = twin(*three, **mode)
     sizes = [(h >> s) * (w >> s) for s in range(3, 6)]
     _close(finalize_feature_sums(got[0], sizes, 3),
@@ -416,9 +426,8 @@ def _check_pooled(got, want, lead, b, h, w):
 @pytest.mark.parametrize("n,h,w,b", POOLED_SHAPES)
 def test_pooled_wins_redmean(dev, n, h, w, b):
     args = _pooled_args(dev, n, h, w, b, h + 2 * w + b, False)
-    before = cuda_prescreen.pooled_wins_redmean.launches
-    got = cuda_prescreen.pooled_wins_redmean(*args)
-    assert cuda_prescreen.pooled_wins_redmean.launches == before + 1
+    with expect_launches(pooled_wins_redmean_kernel=1):
+        got = cuda_prescreen.pooled_wins_redmean(*args)
     batched = [a if n else a[None] for a in args]
     want = cuda_prescreen._pooled_wins_redmean_plain(*batched)
     _check_pooled(got, want if n else want[0], (n,) if n else (), b, h, w)
@@ -429,9 +438,8 @@ def test_pooled_wins_redmean(dev, n, h, w, b):
 @pytest.mark.parametrize("n,h,w,b", POOLED_SHAPES)
 def test_pooled_wins_ciede(dev, n, h, w, b):
     args = _pooled_args(dev, n, h, w, b, h + 2 * w + b, True)
-    before = cuda_prescreen.pooled_wins_ciede.launches
-    got, dcand = cuda_prescreen.pooled_wins_ciede(*args)
-    assert cuda_prescreen.pooled_wins_ciede.launches == before + 1
+    with expect_launches(pooled_wins_ciede_kernel=1):
+        got, dcand = cuda_prescreen.pooled_wins_ciede(*args)
     batched = [a if n else a[None] for a in args]
     want, want_d = cuda_prescreen._pooled_wins_ciede_plain(*batched)
     lead = (n,) if n else ()
@@ -481,9 +489,9 @@ def test_pooled_wins_restricted(dev, n, h, w, b, case, perceptual):
          cuda_prescreen._pooled_wins_ciede_plain) if perceptual
         else (cuda_prescreen.pooled_wins_redmean,
               cuda_prescreen._pooled_wins_redmean_plain))
-    before = wrapper.launches
-    got = wrapper(*args, tiles, 2)
-    assert wrapper.launches == before + 1
+    kernel = "ciede" if perceptual else "redmean"
+    with expect_launches(**{f"pooled_wins_{kernel}_kernel": 1}):
+        got = wrapper(*args, tiles, 2)
     want = twin(*(a if n else a[None] for a in [*args, tiles]), p=2)
     want = want if n else (tuple(o[0] for o in want) if perceptual
                            else want[0])
@@ -583,9 +591,8 @@ def _dither_args(dev, h, w, c, s, b, seed, groups=False):
 )
 def test_dither_remap_candidates(dev, h, w, c, s, b, perceptual):
     args = _dither_args(dev, h, w, c, s, b, h + w + b)
-    before = cuda_dither.dither_remap_candidates.launches
-    got = cuda_dither.dither_remap_candidates(*args, perceptual)
-    assert cuda_dither.dither_remap_candidates.launches == before + 1
+    with expect_launches(dither_remap_kernel=1):
+        got = cuda_dither.dither_remap_candidates(*args, perceptual)
     want = dither_candidates(*args, perceptual)
     assert got.shape == (b, h, w) and got.dtype == torch.int32
     share = float((got == want).float().mean())
@@ -700,9 +707,8 @@ def _all_planes(out):
 )
 def test_visit_prologue(dev, h, w, c, s, p, i, perceptual):
     args = _prologue_args(dev, h, w, c, s, perceptual, h + w + s + i)
-    before = cuda_prescreen.select_colors.launches
-    got = cuda_prescreen.visit_prologue(*args, p, i)
-    assert cuda_prescreen.select_colors.launches == before + 1
+    with expect_launches(prologue_kernel=1):
+        got = cuda_prescreen.visit_prologue(*args, p, i)
     want = cuda_prescreen._visit_prologue_plain(*args, p, i)
     for a, b in zip(_all_planes(got), _all_planes(want)):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -721,10 +727,9 @@ def test_render_palette_maps(dev, h, w, c, s, b, p, i):
                          dtype=torch.int32)
     cand5 = torch.randint(0, 32, (b, 3), generator=g, device=dev,
                           dtype=torch.int32)
-    before = cuda_prescreen.select_colors.launches
-    got = cuda_prescreen.render_palette_maps(maps, tiles, alpha, pal, cand5,
-                                             p, i)
-    assert cuda_prescreen.select_colors.launches == before + 1
+    with expect_launches(render_kernel=1):
+        got = cuda_prescreen.render_palette_maps(maps, tiles, alpha, pal,
+                                                 cand5, p, i)
     want = cuda_prescreen._render_plain(maps, tiles, alpha, pal, cand5, p, i)
     assert got.shape == (b, 3, h, w) and torch.equal(got, want)
     with pytest.raises(ValueError):  # a slot outside the palette
@@ -762,13 +767,12 @@ def test_run_fused_256x224_takes_the_fused_route(dev, perceptual):
         prescreen_full=4 if perceptual else 2, channel_explore=16,
         accept_margin=0.005, perceptual_palettes=perceptual)
     img = bench_image(0)[16:240]
-    wrappers = (cuda_metric.coarse_feature_sums_redmean,
-                cuda_metric.coarse_feature_sums_ciede,
-                cuda_prescreen.pooled_wins_redmean,
-                cuda_prescreen.pooled_wins_ciede)
-    before = [fn.launches for fn in wrappers]
-    state, errors, _ = pipeline.run_fused(img, config, device="cuda")
-    c, d, e, f = (fn.launches - n for fn, n in zip(wrappers, before))
+    with profiling.recording() as record:
+        state, errors, _ = pipeline.run_fused(img, config, device="cuda")
+    launches = kernel_launches(record)
+    c, d, e, f = (launches[f"{k}_kernel"] for k in (
+        "coarse_redmean", "coarse_ciede", "pooled_wins_redmean",
+        "pooled_wins_ciede"))
     assert (c, d, e, f) == ((0, 360, 0, 0) if perceptual else (360, 0, 0, 0))
     init = pipeline.cluster(
         pipeline.initialize(new_state(img, config, "cuda"), config), config)
@@ -789,14 +793,13 @@ def test_run_fused_nes_perceptual(dev):
     from snesimage_torch.testing import bench_image
 
     config = get_preset("nes-compat", perceptual_palettes=True, max_steps=1)
-    wrappers = (cuda_prescreen.pooled_wins_ciede,
-                cuda_metric.coarse_feature_sums_ciede,
-                cuda_metric.multiscale_feature_sums)
-    before = [fn.launches for fn in wrappers]
-    state, errors, _ = pipeline.run_fused(bench_image(0), config,
-                                          device="cuda")
-    f, d, b = (fn.launches - n for fn, n in zip(wrappers, before))
-    assert (f, d, b) == (12, 0, 13)
+    with profiling.recording() as record:
+        state, errors, _ = pipeline.run_fused(bench_image(0), config,
+                                              device="cuda")
+    launches = kernel_launches(record)
+    f = launches["pooled_wins_ciede_kernel"]
+    d = launches["coarse_ciede_kernel"]
+    assert (f, d, _b_calls(record)) == (12, 0, 13)
     assert len(errors) == 1 and errors[0] == errors[0] < float("inf")
     nes = {tuple(c) for c in nes_palette_5bit(state.device).tolist()}
     assert {tuple(c) for c in state.palette.reshape(-1, 3).tolist()} <= nes
@@ -863,9 +866,8 @@ def _assert_rows(batched, singles):
 def test_visit_prologue_images(dev, n, h, w, perceptual):
     per = [_prologue_args(dev, h, w, 8, 15, perceptual, 11 * k + h)
            for k in range(n)]
-    before = cuda_prescreen.select_colors.launches
-    got = cuda_prescreen.visit_prologue(*_stack(per), 3, 7)
-    assert cuda_prescreen.select_colors.launches == before + 1
+    with expect_launches(prologue_kernel=1):
+        got = cuda_prescreen.visit_prologue(*_stack(per), 3, 7)
     _assert_rows(got, [cuda_prescreen.visit_prologue(*a, 3, 7) for a in per])
     want = cuda_prescreen.visit_prologue(*(a.cpu() for a in _stack(per)),
                                          3, 7)
@@ -938,9 +940,8 @@ def test_coarse_feature_sums_redmean_images(dev, n, h, w, shared):
     args = _stack(per)
     if shared:
         args[-1] = per[0][-1]
-    before = cuda_metric.coarse_feature_sums_redmean.launches
-    got = cuda_metric.coarse_feature_sums_redmean(*args)
-    assert cuda_metric.coarse_feature_sums_redmean.launches == before + 1
+    with expect_launches(coarse_redmean_kernel=1):
+        got = cuda_metric.coarse_feature_sums_redmean(*args)
     assert got.shape[:2] == (n, 12)
     for k, one in enumerate(per):
         assert torch.equal(got[k],
@@ -1141,10 +1142,9 @@ def test_multiscale_source_mode(dev, label, h, w, n_img, k, start, n,
     src, frames = _source_case(dev, h, w, n_img, k, h + w + k + n_img)
     gate = (None if flags is None
             else torch.tensor(flags, dtype=torch.int32, device=dev))
-    before = (b.launches, b.source_launches, b.split_launches)
-    got = b(refs, src, pre_ds=pre_ds, gate=gate)
-    assert (b.launches, b.source_launches, b.split_launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    with expect_launches(multiscale_kernel=1) as record:
+        got = b(refs, src, pre_ds=pre_ds, gate=gate)
+    assert record.total("b.source_calls") == 1
     kernels = _graph_kernels(lambda: b(refs, src, pre_ds=pre_ds, gate=gate))
     assert list(kernels.values()) == [1], kernels
     assert "multiscale_kernelILb" in next(iter(kernels)), kernels
@@ -1183,7 +1183,8 @@ GRAPH_PATHS = {
 def _graph_runs(params: dict, size: int, runs: int, between=None):
     """The eager run of `params` on a size x size crop of the bench image,
     then `runs` graphed runs (`between()` before the last): each run's
-    step errors, palette, map, kernel launches and graph replays."""
+    step errors, palette, map, kernel launches and calls, and graph
+    replays."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import graphs, pipeline
     from snesimage_torch.core.state import new_state
@@ -1194,17 +1195,17 @@ def _graph_runs(params: dict, size: int, runs: int, between=None):
     config = QuantConfig(**params)
     state = pipeline.cluster(pipeline.initialize(
         new_state(img, config, "cuda"), config), config)
-    wrappers = graphs._wrappers()
     out = []
     for k in range(runs + 1):
         if between is not None and k == runs:
             between()
-        for fn in wrappers:
-            fn.launches = 0
         replays = sum(g["replays"] for g in graphs.stats())
-        got, errs = pipeline.optimize(state, config, eager=k == 0)
+        with profiling.recording() as record:
+            got, errs = pipeline.optimize(state, config, eager=k == 0)
+        counts = dict(kernel_launches(record), **{
+            c: record.total(c) for c in COUNTERS})
         out.append((errs.cpu(), got.palette.cpu(), got.palette_map.cpu(),
-                    [fn.launches for fn in wrappers],
+                    counts,
                     sum(g["replays"] for g in graphs.stats()) - replays))
     return out
 
@@ -1225,8 +1226,8 @@ def test_graphed_sweeps_equal_eager(dev, path):
     """Sweeps replayed from CUDA graphs (core/graphs.py) equal the eager
     sweeps bit for bit over 6 steps, twice (the first graphed run captures
     where a key has CAPTURE_LEFT steps left, later sweeps replay), with the
-    same kernel launches, a replay's counted from its graph's kernel
-    nodes."""
+    same kernel launches and calls, a replay's those its capture
+    counted."""
     params = GRAPH_PATHS[path]
     _assert_runs_equal(_graph_runs(params, params["width"], 2))
 
@@ -1256,16 +1257,14 @@ def test_graph_survives_scratch_regrowth(dev):
 def test_graphed_visits_score_finalists_in_source_mode(dev):
     """A balanced run at 64x64 (2x3 palettes, 18 channel visits a sweep),
     eagerly and then twice through CUDA graphs: kernel B runs in source
-    mode twice a visit, in `.source_launches` and in the profiling counter
-    "b.source_calls" alike, a replay's counted from its graph's
-    source-mode kernel nodes (two a visit in `graphs.stats()`)."""
+    mode twice a visit, in the profiling counter "b.source_calls", one
+    launch a call, a replay's counted by its capture (two a visit in
+    `graphs.stats()`)."""
     from snesimage_torch.config import QuantConfig
     from snesimage_torch.core import graphs, pipeline
     from snesimage_torch.core.state import new_state
     from snesimage_torch.testing import bench_image
-    from snesimage_torch.utils import profiling
 
-    b = cuda_metric.multiscale_feature_sums
     config = QuantConfig(**_GRAPH_CHANNEL)
     visits = config.subpalette_count * config.subpalette_size * 3
     img = np.ascontiguousarray(bench_image(0)[96:160, 96:160])
@@ -1273,13 +1272,13 @@ def test_graphed_visits_score_finalists_in_source_mode(dev):
         new_state(img, config, "cuda"), config), config)
     graphs.clear()
     for k in range(3):
-        before = b.source_launches
         replays = sum(g["replays"] for g in graphs.stats())
         with profiling.recording() as record:
             _, errs = pipeline.optimize(state, config, eager=k == 0)
         calls = 2 * visits * len(errs)
-        assert b.source_launches - before == calls, k
         assert record.total("b.source_calls") == calls, k
+        assert (record.total(_kernels.LAUNCH + "multiscale_kernel")
+                == calls + record.total("b.frame_calls")), k
         replayed = sum(g["replays"] for g in graphs.stats()) - replays
         assert (replayed > 0) == (k > 0), (k, replayed)
     assert [g["source_calls"] for g in graphs.stats()] == [2 * visits]
@@ -1302,7 +1301,6 @@ def test_graphed_sweeps_count_their_kernel_calls(dev, perceptual, per_visit):
     from snesimage_torch.core import graphs, pipeline
     from snesimage_torch.core.state import new_state
     from snesimage_torch.testing import bench_image
-    from snesimage_torch.utils import profiling
 
     config = QuantConfig(**dict(_GRAPH_CHANNEL, prescreen_full=4,
                                 perceptual_palettes=perceptual))

@@ -32,7 +32,11 @@ from snesimage_torch.ops import cuda_dither
 from snesimage_torch.ops import dither as tdither
 from snesimage_torch.ops.remap import quantize_target_u8 as t_quantize
 from snesimage_torch.ops.remap import remap_undithered as t_remap_undithered
-from snesimage_torch.testing import bench_image, single_torch_thread
+from snesimage_torch.testing import (
+    bench_image,
+    expect_launches,
+    single_torch_thread,
+)
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import pipeline as jpipe
 from snesimage_tpu.core import refine as jref
@@ -208,10 +212,9 @@ def test_candidate_row_equals_full_remap(perceptual):
     rng = np.random.default_rng(10)
     p, i = 0, 3
     cands = rng.integers(0, 32, (4, 3)).astype(np.int32)
-    before = cuda_dither.dither_remap_candidates.launches
-    maps = cuda_dither.dither_remap_candidates(
-        *_t(rgba, tp, pal), p, i, torch.from_numpy(cands), perceptual)
-    assert cuda_dither.dither_remap_candidates.launches == before
+    with expect_launches():
+        maps = cuda_dither.dither_remap_candidates(
+            *_t(rgba, tp, pal), p, i, torch.from_numpy(cands), perceptual)
     for b, c5 in enumerate(cands):
         changed = pal.copy()
         changed[p, i] = c5

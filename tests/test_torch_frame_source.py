@@ -170,7 +170,7 @@ def test_cuda_wrapper_lays_out_a_source_call(monkeypatch):
     hands kernel B the source's operands (frames null, its ix, 48
     candidates an image) in one launch, where the frames of the same call
     would launch their tiles and resident clusters apart (24 frames at
-    128x128, scales 0-1), and counts it in `.source_launches`."""
+    128x128, scales 0-1): three launches of B's kernel counted."""
     from snesimage_torch.ops import _kernels
 
     launched = []
@@ -202,13 +202,11 @@ def test_cuda_wrapper_lays_out_a_source_call(monkeypatch):
         rng.integers(0, 256, (128, 128, 3), dtype=np.int32)))
     refs = tuple(tuple(a.movedim(-1, -3).contiguous() for a in refp[s])
                  for s in (0, 1))
-    b = cuda_metric.multiscale_feature_sums
-    before = (b.launches, b.source_launches, b.split_launches)
-    for frames in (src, src.frames()):
-        out = cuda_metric._multiscale_feature_sums_cuda(refs, frames, 0)
-        assert tuple(out.shape) == (24, 2, 3, 6)
+    with profiling.recording() as record:
+        for frames in (src, src.frames()):
+            out = cuda_metric._multiscale_feature_sums_cuda(refs, frames, 0)
+            assert tuple(out.shape) == (24, 2, 3, 6)
     assert launched == [(True, True, 48, 24, 24, 16),
                         (False, False, 0, 24, 0, 16),
                         (False, False, 0, 24, 24, 0)]
-    assert (b.launches, b.source_launches, b.split_launches) == (
-        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert record.total(_kernels.LAUNCH + "multiscale_kernel") == 3

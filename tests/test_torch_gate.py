@@ -25,6 +25,7 @@ from snesimage_torch.core import refine as tref
 from snesimage_torch.core.state import pyramid_from_numpy, state_from_numpy
 from snesimage_torch.ops import cuda_metric
 from snesimage_torch.testing import single_torch_thread
+from snesimage_torch.utils import profiling
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import pipeline as jpipe
 from snesimage_tpu.core import refine as jref
@@ -108,11 +109,11 @@ def test_gated_visit_matches_jax(small_image, p, i, channel):
     res, _, jcarry = jref._slot_channel(
         js, jc, jrefp, p, i, channel, jref._init_cache(js, jc), jerr,
         gate_base=jgb)
-    with tref.gate_tally() as tally:
+    with profiling.recording() as rec:
         state, new_err, _, carry = tref._slot_channel(
             ts, tc, trefp, p, i, channel, tref.compute_d_all(ts, tc), err,
             gate_base=gb)
-    assert tally["visits"] == 1 and int(tally["closed"]) in (0, 1)
+    assert rec.total("gate.visits") == 1 and rec.total("gate.closed") in (0, 1)
     np.testing.assert_array_equal(state.palette.numpy(),
                                   np.asarray(res.state.palette))
     np.testing.assert_array_equal(state.palette_map.numpy(),
@@ -132,11 +133,11 @@ def test_closed_gate_leaves_the_visit_unchanged(small_image):
             js, jc, jrefp, p, i, channel, jref._init_cache(js, jc), jerr,
             gate_base=jgb)
         assert not bool(res.changed)
-        with tref.gate_tally() as tally:
+        with profiling.recording() as rec:
             state, new_err, _, carry = tref._slot_channel(
                 ts, tc, trefp, p, i, channel, tref.compute_d_all(ts, tc),
                 err, gate_base=gb)
-        assert int(tally["closed"]) == 1
+        assert rec.total("gate.closed") == 1
         assert torch.equal(state.palette, ts.palette)
         assert torch.equal(state.palette_map, ts.palette_map)
         assert torch.equal(new_err, err) and torch.equal(carry, gb)
@@ -202,7 +203,7 @@ COARSE_VISITS = [(0, 1, 0), (1, 2, 1), (1, 3, 2)]
 def test_coarse_gate_open_matches_jax(small_image):
     """`gate_coarse` at margin 0.01: each visit equals the JAX package's,
     palette, map, error (1e-3) and carry (1e-3 relative), whether its
-    coarse gate opened or closed; the tally counts the closed coarse gates
+    coarse gate opened or closed; the counters count the closed coarse gates
     apart, and at least one gate opened and the visit accepted."""
     (js, jc, jrefp), (ts, tc, trefp) = _setup(small_image.tobytes(), 0.01,
                                               True)
@@ -212,7 +213,7 @@ def test_coarse_gate_open_matches_jax(small_image):
         res, _, jcarry = jref._slot_channel(
             js, jc, jrefp, p, i, channel, jref._init_cache(js, jc), jerr,
             gate_base=jgb)
-        with tref.gate_tally() as tally:
+        with profiling.recording() as rec:
             state, new_err, _, carry = tref._slot_channel(
                 ts, tc, trefp, p, i, channel, tref.compute_d_all(ts, tc),
                 err, gate_base=gb)
@@ -223,8 +224,8 @@ def test_coarse_gate_open_matches_jax(small_image):
         assert abs(float(new_err) - float(res.error)) <= ERR_TOL
         np.testing.assert_allclose(carry.numpy(), np.asarray(jcarry),
                                    rtol=CARRY_RTOL, atol=0)
-        assert tally["visits"] == 1
-        closed = int(tally["closed_coarse"]) + int(tally["closed"])
+        assert rec.total("gate.visits") == 1
+        closed = rec.total("gate.closed_coarse") + rec.total("gate.closed")
         assert closed == (0 if bool(res.changed) else 1)
         accepted += bool(res.changed)
     assert accepted >= 1
@@ -244,11 +245,12 @@ def test_closed_coarse_gate_leaves_the_visit_unchanged(small_image):
             gate_base=jgb)
         assert not bool(res.changed)
         np.testing.assert_array_equal(np.asarray(jcarry), np.asarray(jgb))
-        with tref.gate_tally() as tally:
+        with profiling.recording() as rec:
             state, new_err, _, carry = tref._slot_channel(
                 ts, tc, trefp, p, i, channel, tref.compute_d_all(ts, tc),
                 err, gate_base=gb)
-        assert int(tally["closed_coarse"]) == 1 and int(tally["closed"]) == 0
+        assert rec.total("gate.closed_coarse") == 1
+        assert rec.total("gate.closed") == 0
         assert torch.equal(state.palette, ts.palette)
         assert torch.equal(state.palette_map, ts.palette_map)
         assert torch.equal(new_err, err) and torch.equal(carry, gb)

@@ -24,7 +24,7 @@ top-right corner, which has the transparent tiles: at 40x24 two sweeps
 accept nothing there and most candidates of a visit score within two
 float32 steps of each other, at 48x48 the first accepted visit has two such
 candidates, and which of them a package keeps is then decided by rounding
-(ROADMAP C-5). tests/test_torch_geometry_runs.py holds the whole runs.
+(ROADMAP C-9). tests/test_torch_geometry_runs.py holds the whole runs.
 """
 
 from functools import lru_cache

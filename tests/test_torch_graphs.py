@@ -6,11 +6,11 @@ outputs, and each replay runs the sweep again on the graph's static inputs
 and writes the results into those same outputs, as a replay overwrites a
 graph's static outputs. What the runner adds around a graph is then the
 code under test: the keys, which steps share a graph, the copies into the
-static buffers and out of them, the draws buffer, the launch counters
-(from the stand-in's kernel nodes, none on the CPU unless a test gives
-some), the gate counts a replay publishes and the bound on the graphs
-kept. Every graphed run must equal the eager run (`eager=True`,
-the graph's plain twin) bit for bit. On the card the same runs go through
+static buffers and out of them, the draws buffer, the counters a replay
+adds (its capture's tally, checked against the stand-in's kernel nodes,
+none on the CPU unless a test gives some), the gate counts a replay
+publishes and the bound on the graphs kept. Every graphed run must equal
+the eager run (`eager=True`, the graph's plain twin) bit for bit. On the card the same runs go through
 real graphs in `tests/test_torch_cuda.py` and `chip_smoke.py` phase 44.
 """
 
@@ -23,9 +23,10 @@ import torch
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.core import graphs, pipeline, refine
 from snesimage_torch.core.state import QuantState, new_state, shared_states
-from snesimage_torch.ops import cuda_metric
+from snesimage_torch.ops import _kernels
 from snesimage_torch.ops.ssimulacra2 import shared_pyramid
 from snesimage_torch.testing import bench_image, single_torch_thread
+from snesimage_torch.utils import profiling
 
 # 32x32, 2x2 palettes: 12 channel visits a sweep, explore draws included.
 CHANNEL = dict(
@@ -38,6 +39,7 @@ REFERENCE = dict(subpalette_count=2, subpalette_size=2, width=32, height=32,
                  max_steps=6, converge_tol=0.0, random_trials=8)
 NES = dict(subpalette_count=2, subpalette_size=2, width=32, height=32,
            max_steps=6, converge_tol=0.0, nes=True)
+NES_VISITS = 4  # a NES sweep's visits, one a slot
 # The rank-1 gate with its exact confirmation sweeps (a tolerance that
 # starves), and windowed channel descent (steps 2, 3 and 5 windowed).
 GATED = dict(CHANNEL, channel_explore=0, gate_margin=0.01, converge_tol=5.0)
@@ -139,7 +141,7 @@ def test_graphed_runs_equal_eager(image, name, params, labels,
 def test_keys():
     """A key holds what changes the captured work and nothing else: runs
     that differ in seed, max_steps or converge_tol, or run inside a
-    `gate_tally`, share graphs."""
+    `profiling.recording`, share graphs."""
     config = QuantConfig(**CHANNEL)
     state = new_state(np.zeros((32, 32, 4), np.uint8), config, "cpu")
     refp = refine.make_reference_pyramid(state)
@@ -160,7 +162,7 @@ def test_keys():
         graphs.sweep_key("channel", two, config, shared_pyramid(refp, 2),
                          err.expand(2).contiguous(), {}),
     ]
-    with refine.gate_tally():
+    with profiling.recording():
         assert key() == base  # counting the gates changes no graph
     assert len({base, *others}) == len(others) + 1
 
@@ -267,67 +269,99 @@ def test_on_step_sees_each_state(image):
     assert all(_same(a, b) for a, b in zip(seen, eager_seen))
 
 
-def test_gate_tally_counts_unchanged(image):
+def test_gate_counts_unchanged(image):
     """A gated run counts the same visits and closed gates graphed as
     eagerly."""
     config = QuantConfig(**dict(GATED, converge_tol=0.0))
     state = _clustered(image, config)
     counts = []
     for eager in (True, False, False):
-        with refine.gate_tally() as tally:
+        with profiling.recording() as rec:
             pipeline.optimize(state, config, eager=eager)
-        counts.append((tally["visits"], int(tally["closed"])))
+        counts.append((rec.total("gate.visits"), rec.total("gate.closed")))
     assert counts[0] == counts[1] == counts[2]
     assert counts[0][0] == config.max_steps * 12
 
 
-# Kernel B's kernel<false> and kernel C's three-level kernel<true>, as
-# mangled names.
+# Kernel B's kernel<false>, kernel C's three-level kernel<true> and kernel
+# A's entries, as mangled names.
 B_KERNEL = "_ZN4snes17multiscale_kernelILb0ELb0EEEvNS_14MultiscaleCallE"
 C_FRAMES = "_ZN4snes21coarse_redmean_kernelILb1EEEvPKiS2_"
+B_LAUNCH = _kernels.LAUNCH + "multiscale_kernel"
 
 
-def _counting_nes(monkeypatch, launches: int, splits: int):
-    """sweep_nes as if each sweep called kernel B `launches` times, of
-    which `splits` calls launched twice; returns B's wrapper."""
+def _counting_nes(monkeypatch, calls: int, launches: int):
+    """sweep_nes as if each sweep called kernel B `calls` more times on
+    frames, launching it `launches` times (the calls that split launch
+    twice)."""
     real = refine.sweep_nes
-    wrapper = cuda_metric.multiscale_feature_sums
 
     def counted(*args, **kw):
-        wrapper.launches += launches
-        wrapper.split_launches += splits
+        profiling.count("b.frame_calls", calls)
+        profiling.count(B_LAUNCH, launches)
         return real(*args, **kw)
 
     monkeypatch.setattr(refine, "sweep_nes", counted)
-    monkeypatch.setattr(wrapper, "launches", 0)
-    monkeypatch.setattr(wrapper, "split_launches", 0)
-    return wrapper
+
+
+def _totals(rec) -> tuple:
+    return tuple(rec.total(k) for k in (B_LAUNCH, "b.frame_calls",
+                                        "b.source_calls"))
 
 
 def test_launch_counters_follow_replays(image, monkeypatch):
-    """The wrappers' counts tick at every replay by the graph's kernel
-    nodes, which must equal what the sweep counted while captured, and not
-    at the capture, where nothing runs: on the CPU a stand-in sweep counts
-    7 calls of kernel B, 2 of which launch twice, and the stand-in graph
-    holds 9 nodes of B's kernel."""
-    wrapper = _counting_nes(monkeypatch, 7, 2)
+    """The counts tick at every replay by the capture's tally, whose
+    launches must equal the graph's kernel nodes, and not at the capture,
+    where nothing runs: on the CPU a stand-in sweep counts 7 more calls of
+    kernel B, 2 of which launch twice, and the stand-in graph holds 9
+    nodes of B's kernel. Beside them the twin's calls count, which launch
+    nothing: one a NES visit, and one for the start's error."""
+    _counting_nes(monkeypatch, 7, 9)
     monkeypatch.setattr(EmulatedGraph, "KERNELS", {B_KERNEL: 9})
     config = QuantConfig(**NES)
     state = _clustered(image, config)
     counts = []
     for eager in (True, False, False):
-        wrapper.launches = wrapper.split_launches = 0
-        pipeline.optimize(state, config, eager=eager)
-        counts.append((wrapper.launches, wrapper.split_launches))
-    assert counts == [(7 * config.max_steps, 2 * config.max_steps)] * 3
+        with profiling.recording() as rec:
+            pipeline.optimize(state, config, eager=eager)
+        counts.append(_totals(rec))
+    steps = config.max_steps
+    calls = 7 + NES_VISITS
+    assert counts == [(9 * steps, calls * steps + 1, 0)] * 3
     assert graphs.stats()[0]["kernel_nodes"] == 9
+
+
+def test_capture_adds_its_tally_at_each_replay(image, monkeypatch):
+    """A capture adds nothing to the open run, and each replay adds the
+    capture's tally once: the stand-in graph's replays run the sweep into
+    a tally of their own, so the run sees each sweep's counts once,
+    eager or replayed."""
+    _counting_nes(monkeypatch, 7, 9)
+    monkeypatch.setattr(EmulatedGraph, "KERNELS", {B_KERNEL: 9})
+    config = QuantConfig(**NES)
+    state = _clustered(image, config)
+    refp = refine.make_reference_pyramid(state)
+    err = refine.frame_error_fused(state, config, refp)
+    runner = graphs.SweepRunner(state.device)
+    seen = []
+    with profiling.recording() as rec:
+        for step in range(3):  # eager; captured and replayed; replayed
+            state, err = runner.sweep("nes", state, config, refp, err, None,
+                                      (0, 0), left=graphs.CAPTURE_LEFT)
+            seen.append(_totals(rec))
+    graph, = graphs._GRAPHS.values()
+    assert graph.tally[B_LAUNCH] == 9
+    assert graph.tally["b.frame_calls"] == 7 + NES_VISITS
+    sweep = tuple(graph.tally.get(k, 0) for k in (B_LAUNCH, "b.frame_calls",
+                                                  "b.source_calls"))
+    assert seen == [tuple(n * k for n in sweep) for k in (1, 2, 3)]
 
 
 @pytest.mark.parametrize("nodes", [8, 10])
 def test_capture_refuses_nodes_that_disagree(image, monkeypatch, nodes):
-    """A captured graph whose kernel nodes are not the launches the
-    wrappers counted raises, and no step runs eagerly in its place."""
-    _counting_nes(monkeypatch, 7, 2)
+    """A captured graph whose kernel nodes are not the launches its capture
+    counted raises, and no step runs eagerly in its place."""
+    _counting_nes(monkeypatch, 7, 9)
     monkeypatch.setattr(EmulatedGraph, "KERNELS", {B_KERNEL: nodes})
     config = QuantConfig(**NES)
     state = _clustered(image, config)
@@ -336,45 +370,46 @@ def test_capture_refuses_nodes_that_disagree(image, monkeypatch, nodes):
     assert graphs.stats() == []
 
 
-def test_measured_counts_by_kernel_name():
-    """Kernel nodes count toward their wrapper by kernel name: A's three
-    kernels, C's kernel<true> as a frame launch too, and nothing for
-    another library's kernels."""
-    from snesimage_torch.ops import cuda_prescreen
-
-    a = cuda_prescreen.select_colors
-    b = cuda_metric.multiscale_feature_sums
-    c = cuda_metric.coarse_feature_sums_redmean
+def test_nodes_count_toward_their_kernel_by_name():
+    """Kernel nodes count toward the listed kernel whose name their
+    mangled name holds, across namespaces and template arguments: A's
+    three kernels apart, C's kernel<true> and kernel<false> together, B's
+    four variants together; torch's kernels toward none."""
+    name = "_ZN4snes17multiscale_kernelILb{}ELb{}EEEvNS_14MultiscaleCallE"
     kernels = {"_ZN12_GLOBAL__N_120select_colors_kernelEPKiPKfPfi": 1,
                "_ZN12_GLOBAL__N_115prologue_kernelEv": 2,
-               "_ZN12_GLOBAL__N_113render_kernelEv": 3, B_KERNEL: 5,
-               C_FRAMES: 4,
+               "_Z13render_kernelv": 3, C_FRAMES: 4,
                "_ZN4snes21coarse_redmean_kernelILb0EEEvPKiS2_": 1,
+               name.format(0, 0): 3, name.format(1, 0): 1,
+               name.format(0, 1): 4, name.format(1, 1): 2,
+               "_ZN2at6native29vectorized_elementwise_kernelILi4E": 50,
+               "_ZN2at6native13reduce_kernelILi512ELi1E": 7}
+    launch = _kernels.LAUNCH
+    assert _kernels.node_launches(kernels) == {
+        launch + "select_colors_kernel": 1, launch + "prologue_kernel": 2,
+        launch + "render_kernel": 3, launch + "multiscale_kernel": 10,
+        launch + "coarse_redmean_kernel": 5}
+    assert _kernels.node_launches({}) == {}
+
+
+@pytest.mark.parametrize("change", [-1, 1, "missing", "extra"])
+def test_node_check_refuses_a_tally_that_differs(change):
+    """A listed kernel with more or fewer nodes than its tally's launches,
+    or nodes of a kernel the tally never launched, or launches with no
+    node, raise; other counters and torch's nodes are not compared."""
+    kernels = {B_KERNEL: 5, C_FRAMES: 4,
                "_ZN2at6native29vectorized_elementwise_kernelILi4E": 50}
-    want = dict.fromkeys(graphs._counts(), 0)
-    want.update({(a, "launches"): 6, (b, "launches"): 4,
-                 (b, "split_launches"): 1, (c, "launches"): 5,
-                 (c, "frame_launches"): 4})
-    assert graphs._measured(kernels, want, "sweep") == want
+    tally = {B_LAUNCH: 5, _kernels.LAUNCH + "coarse_redmean_kernel": 4,
+             "b.frame_calls": 3, "c.three_level_calls": 4}
+    graphs._check_nodes(kernels, tally, "sweep")
+    if change == "missing":
+        del tally[B_LAUNCH]
+    elif change == "extra":
+        tally[_kernels.LAUNCH + "dither_remap_kernel"] = 1
+    else:
+        tally[B_LAUNCH] += change
     with pytest.raises(RuntimeError, match="kernel nodes"):
-        graphs._measured(kernels, {**want, (c, "frame_launches"): 5},
-                         "sweep")
-
-
-def test_measured_counts_source_mode_nodes():
-    """Kernel B's source-mode nodes (its kernel<., true>, with tile or
-    resident clusters) count toward its launches and its source launches;
-    its frames-mode nodes toward its launches alone."""
-    b = cuda_metric.multiscale_feature_sums
-    name = "_ZN4snes17multiscale_kernelILb{}ELb{}EEEvNS_14MultiscaleCallE"
-    kernels = {name.format(0, 0): 3, name.format(1, 0): 1,
-               name.format(0, 1): 4, name.format(1, 1): 2}
-    want = dict.fromkeys(graphs._counts(), 0)
-    want.update({(b, "launches"): 10, (b, "source_launches"): 6})
-    assert graphs._measured(kernels, want, "sweep") == want
-    with pytest.raises(RuntimeError, match="kernel nodes"):
-        graphs._measured(kernels, {**want, (b, "source_launches"): 4},
-                         "sweep")
+        graphs._check_nodes(kernels, tally, "sweep")
 
 
 def test_graphs_kept_are_bounded(image, monkeypatch):

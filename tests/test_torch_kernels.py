@@ -27,6 +27,7 @@ from snesimage_torch.core.state import (
 from snesimage_torch.config import QuantConfig
 from snesimage_torch.ops import cuda_metric, cuda_prescreen
 from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
+from snesimage_torch.testing import expect_launches
 from snesimage_tpu.ops import color as jcolor
 from snesimage_tpu.ops import pallas_metric as pm
 from snesimage_tpu.ops import pallas_prescreen as pp
@@ -53,22 +54,15 @@ def _cmaj(refp, scales):
     )
 
 
-def _launch_counts():
-    return (cuda_prescreen.select_colors.launches,
-            cuda_metric.multiscale_feature_sums.launches,
-            cuda_metric.coarse_feature_sums_redmean.launches)
-
-
 def test_select_colors_exact(rng):
     nk = 120
     key = rng.integers(0, nk + 1, (H, W)).astype(np.int32)
     table = rng.random((3, nk)).astype(np.float32)
     want = pp.select_colors(jnp.asarray(key), jnp.asarray(table),
                             interpret=True)
-    before = _launch_counts()
-    got = cuda_prescreen.select_colors(torch.from_numpy(key),
-                                       torch.from_numpy(table))
-    assert _launch_counts() == before  # CPU tensors take the twin
+    with expect_launches():
+        got = cuda_prescreen.select_colors(torch.from_numpy(key),
+                                           torch.from_numpy(table))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got.numpy()[:, key == nk] == 0).all()
 
@@ -89,12 +83,11 @@ def test_multiscale_feature_sums_twin(rng, refp, start, n, pre_ds, b):
     want = np.asarray(
         jss.finalize_feature_sums(want.reshape(b, -1, 6), sizes, start)
     )
-    before = _launch_counts()
-    got = cuda_metric.multiscale_feature_sums(
-        tuple(tuple(torch.from_numpy(a) for a in t) for t in ref_scales),
-        torch.from_numpy(frames), pre_ds=pre_ds,
-    )
-    assert _launch_counts() == before
+    with expect_launches():
+        got = cuda_metric.multiscale_feature_sums(
+            tuple(tuple(torch.from_numpy(a) for a in t) for t in ref_scales),
+            torch.from_numpy(frames), pre_ds=pre_ds,
+        )
     assert got.shape == (b, n, 3, 6)
     got = finalize_feature_sums(got.reshape(b, -1, 6), sizes, start)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
@@ -123,12 +116,11 @@ def test_coarse_feature_sums_redmean_twin(rng, refp):
         interpret=True,
     )
     want = np.asarray(jss.finalize_feature_sums(want, sizes, 2))
-    before = _launch_counts()
-    got = cuda_metric.coarse_feature_sums_redmean(
-        *(torch.from_numpy(a) for a in args),
-        tuple(torch.from_numpy(a) for a in flat),
-    )
-    assert _launch_counts() == before
+    with expect_launches():
+        got = cuda_metric.coarse_feature_sums_redmean(
+            *(torch.from_numpy(a) for a in args),
+            tuple(torch.from_numpy(a) for a in flat),
+        )
     assert got.shape == (b, 12, 6)
     got = finalize_feature_sums(got, sizes, 2).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
@@ -166,10 +158,9 @@ def test_pooled_wins_redmean_twin(rng, n, h, w, b):
     args, _ = _pooled_redmean_args(rng, n, h, w, b)
     kernel = lambda *a: pp.pooled_wins_redmean(*a, interpret=True)  # noqa: E731
     want = (jax.vmap(kernel) if n else kernel)(*(jnp.asarray(a) for a in args))
-    before = cuda_prescreen.pooled_wins_redmean.launches
-    got = cuda_prescreen.pooled_wins_redmean(
-        *(torch.from_numpy(a) for a in args))
-    assert cuda_prescreen.pooled_wins_redmean.launches == before
+    with expect_launches():
+        got = cuda_prescreen.pooled_wins_redmean(
+            *(torch.from_numpy(a) for a in args))
     _check_pooled(got.numpy(), np.asarray(want), n, b, h, w)
     assert (got.numpy()[..., 0, 1, :] == 16).all()
     # The frames of candidates that win nothing are the 4x4 means, bit for
@@ -215,10 +206,9 @@ def test_pooled_wins_ciede_twin(rng, n, h, w, b):
         *a, None, interpret=True)
     want, want_d = (jax.vmap(kernel) if n else kernel)(
         *(jnp.asarray(a) for a in args))
-    before = cuda_prescreen.pooled_wins_ciede.launches
-    got, dcand = cuda_prescreen.pooled_wins_ciede(
-        *(torch.from_numpy(a) for a in args))
-    assert cuda_prescreen.pooled_wins_ciede.launches == before
+    with expect_launches():
+        got, dcand = cuda_prescreen.pooled_wins_ciede(
+            *(torch.from_numpy(a) for a in args))
     assert dcand.shape == ((n,) if n else ()) + (b, h, w)
     np.testing.assert_allclose(dcand.numpy(), np.asarray(want_d), rtol=0,
                                atol=1e-4)

@@ -42,6 +42,7 @@ from snesimage_torch.ops import color as tcolor
 from snesimage_torch.ops import cuda_metric
 from snesimage_torch.ops import remap as tremap
 from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
+from snesimage_torch.testing import expect_launches
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import init as jinit
 from snesimage_tpu.core import pipeline as jpipe
@@ -325,11 +326,10 @@ def refp(rng):
 
 
 def _twin(args, flat):
-    before = cuda_metric.coarse_feature_sums_ciede.launches
-    sums, dcand = cuda_metric.coarse_feature_sums_ciede(
-        *(torch.from_numpy(a) for a in args),
-        tuple(torch.from_numpy(a) for a in flat))
-    assert cuda_metric.coarse_feature_sums_ciede.launches == before
+    with expect_launches():
+        sums, dcand = cuda_metric.coarse_feature_sums_ciede(
+            *(torch.from_numpy(a) for a in args),
+            tuple(torch.from_numpy(a) for a in flat))
     return sums, dcand
 
 
@@ -378,11 +378,8 @@ def test_run_fused_perceptual_matches_jax(small_image):
     """No explore draws: the same palette and JSON bytes, step errors within
     1e-4, kernel D's twin in every visit and kernel C's in none."""
     tc, jc = TConfig(**SMALL), JConfig(**SMALL)
-    before = (cuda_metric.coarse_feature_sums_ciede.launches,
-              cuda_metric.coarse_feature_sums_redmean.launches)
-    state, errors, info = tpipe.run_fused(small_image, tc, device="cpu")
-    assert (cuda_metric.coarse_feature_sums_ciede.launches,
-            cuda_metric.coarse_feature_sums_redmean.launches) == before
+    with expect_launches():
+        state, errors, info = tpipe.run_fused(small_image, tc, device="cpu")
     jstate, jerrors, jinfo = jpipe.run_fused(small_image, jc)
     np.testing.assert_array_equal(_np(state.palette), np.asarray(jstate.palette))
     assert t_json(state, tc) == j_json(jstate, jc)

@@ -2,8 +2,9 @@
 the CPU: off they cost a flag check and record nothing; `pipeline.run`
 records one run of named, nested spans and its host waits; under a
 running profiler the spans are annotations; the gate counts reach the
-counters. The CUDA events of device spans need the card: the benchmark's
-traced runs (perfbench/) read them there."""
+counters; `diverted` keeps counts from the open run. The CUDA events of
+device spans need the card: the benchmark's traced runs (perfbench/) read
+them there."""
 
 import collections
 
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from snesimage_torch.config import QuantConfig
-from snesimage_torch.core import init, pipeline, refine
+from snesimage_torch.core import init, pipeline
 from snesimage_torch.testing import bench_image, single_torch_thread
 from snesimage_torch.utils import profiling
 
@@ -59,9 +60,12 @@ def test_run_records_its_stages(image, monkeypatch):
     """`pipeline.run` equals `run_fused` bit for bit and leaves one record:
     the five stages at the top, every sweep inside `optimize`, one sweep
     span a step, a host wait at least for every k-means iteration, the
-    gate counts of `gate_tally`, and no device times on the CPU."""
+    gate counts of `run_fused` recorded alike, and no device times on the
+    CPU."""
     config = QuantConfig(**GATED)
-    want, want_errors, _ = pipeline.run_fused(image, config, device="cpu")
+    with profiling.recording() as fused:
+        want, want_errors, _ = pipeline.run_fused(image, config,
+                                                  device="cpu")
     iterations = []
     kmeans = init.lloyd_kmeans
 
@@ -71,12 +75,11 @@ def test_run_records_its_stages(image, monkeypatch):
         return km
 
     monkeypatch.setattr(init, "lloyd_kmeans", counted)
-    with refine.gate_tally() as tally:
-        got, errors, info = pipeline.run(image, config, device="cpu")
+    got, errors, info = pipeline.run(image, config, device="cpu")
     assert errors == want_errors
     for f in ("tile_palettes", "palette", "palette_map"):
         assert torch.equal(getattr(got, f), getattr(want, f))
-    (record,) = profiling.runs()
+    (_, record) = profiling.runs()
     assert not record.profiled
     top = [s.name for s in record.spans if s.parent is None]
     assert top == list(STAGES)
@@ -89,8 +92,8 @@ def test_run_records_its_stages(image, monkeypatch):
     assert len(iterations) == 2
     assert record.total("host_waits") >= sum(iterations)
     assert record.counts[("host_waits", "final")] == 1
-    assert record.total("gate.visits") == tally["visits"] == 3 * 12
-    assert record.total("gate.closed") == int(tally["closed"])
+    assert record.total("gate.visits") == fused.total("gate.visits") == 36
+    assert record.total("gate.closed") == fused.total("gate.closed") > 0
     assert record.total("gate.closed_coarse") == 0
 
 
@@ -161,3 +164,24 @@ def test_visits_count_kernel_calls(change, per_visit):
     assert tuple(record.counts.get((c, "sweep.eager"), 0)
                  for c in KERNEL_CALLS) == tuple(n * visits for n in per_visit)
     assert record.counts[("b.frame_calls", "optimize")] == 1
+
+
+def test_diverted_counts_apart():
+    """Counts inside `diverted` go to its dict, with or without an open
+    run, and none reaches the run; an inner block takes its own counts,
+    and the run's counting resumes after the block."""
+    with profiling.diverted() as alone:
+        profiling.count("a", 2)
+    assert alone == {"a": 2} and profiling.runs() == []
+    with profiling.recording() as record:
+        profiling.count("a")
+        with profiling.diverted() as outer:
+            profiling.count("a", 3)
+            with profiling.diverted() as inner:
+                profiling.count("b")
+            with profiling.recording() as joined:
+                profiling.count("a")
+        profiling.count("b", 4)
+    assert joined is record
+    assert outer == {"a": 4} and inner == {"b": 1}
+    assert record.counts == {("a", ""): 1, ("b", ""): 4}

@@ -28,6 +28,7 @@ from snesimage_torch.config import QuantConfig
 from snesimage_torch.core import pipeline
 from snesimage_torch.core.state import new_state
 from snesimage_torch.ops import cuda_prescreen
+from snesimage_torch.testing import expect_launches
 from snesimage_tpu.core import refine as jref
 from snesimage_tpu.ops import pallas_prescreen as pp
 from snesimage_tpu.ops.color import expand_5bit_to_8bit as j_expand
@@ -111,11 +112,10 @@ def _composition(want, i, perceptual):
 def test_visit_prologue_matches_jax(h, w, c, s, p, i, perceptual):
     d_all, alpha, tiles, pal = _operands(h + w + s, h, w, c, s, perceptual)
     want = _jax_prologue(d_all, alpha, tiles, pal, p, i)
-    before = cuda_prescreen.select_colors.launches
-    got = cuda_prescreen.visit_prologue(
-        torch.from_numpy(d_all), torch.from_numpy(tiles),
-        torch.from_numpy(alpha), torch.from_numpy(pal), p, i)
-    assert cuda_prescreen.select_colors.launches == before  # the twin ran
+    with expect_launches():
+        got = cuda_prescreen.visit_prologue(
+            torch.from_numpy(d_all), torch.from_numpy(tiles),
+            torch.from_numpy(alpha), torch.from_numpy(pal), p, i)
     for name in ("best_val", "best_idx", "base_idx", "affected", "map_nc",
                  "lnc"):
         value = getattr(got, name)
@@ -152,12 +152,11 @@ def test_render_palette_maps_matches_jax(h, w, c, s, b, p, i):
         use_c = (tp_pix == p) & (pm == i) & opaque
         lin = jnp.where(use_c[..., None], c_lin, lin)
         want.append(jnp.moveaxis(jnp.where(opaque[..., None], lin, 0.0), -1, 0))
-    before = cuda_prescreen.select_colors.launches
-    got = cuda_prescreen.render_palette_maps(
-        torch.from_numpy(maps), torch.from_numpy(tiles),
-        torch.from_numpy(alpha), torch.from_numpy(pal),
-        torch.from_numpy(cand5), p, i)
-    assert cuda_prescreen.select_colors.launches == before
+    with expect_launches():
+        got = cuda_prescreen.render_palette_maps(
+            torch.from_numpy(maps), torch.from_numpy(tiles),
+            torch.from_numpy(alpha), torch.from_numpy(pal),
+            torch.from_numpy(cand5), p, i)
     assert got.shape == (b, 3, h, w) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.stack(want))
 

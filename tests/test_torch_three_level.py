@@ -29,7 +29,7 @@ from snesimage_torch.core.state import pyramid_from_numpy, state_from_numpy
 from snesimage_torch.ops import cuda_metric
 from snesimage_torch.ops.color import expand_5bit_to_8bit, srgb_u8_to_linear
 from snesimage_torch.ops.ssimulacra2 import finalize_feature_sums
-from snesimage_torch.testing import single_torch_thread
+from snesimage_torch.testing import expect_launches, single_torch_thread
 from snesimage_tpu.config import QuantConfig as JConfig
 from snesimage_tpu.core import pipeline as jpipe
 from snesimage_tpu.core import refine as jref
@@ -130,10 +130,11 @@ def test_three_level_twins_match_pallas(rng, kernel, n_img):
 
     run = pallas if n_img == 1 else jax.vmap(pallas)
     want = run(*(jnp.asarray(a) for a in args + flat))
-    before = (twin.launches, twin.frame_launches)
-    got = twin(*(torch.from_numpy(a) for a in args),
-               tuple(torch.from_numpy(a) for a in flat), **MODE)
-    assert (twin.launches, twin.frame_launches) == before  # CPU: the twin
+    with expect_launches() as record:
+        got = twin(*(torch.from_numpy(a) for a in args),
+                   tuple(torch.from_numpy(a) for a in flat), **MODE)
+    counter = "c" if kernel == "redmean" else "d"
+    assert record.total(f"{counter}.three_level_calls") == 1
     assert len(got) == len(want) == (2 if kernel == "redmean" else 3)
     lead = (b,) if n_img == 1 else (n_img, b)
     assert got[0].shape == lead + (9, 6)
